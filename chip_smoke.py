@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``ttdg_mgm_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--warm]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -19,7 +19,26 @@ Phases, each of which exits non-zero when it fails:
    full width with seeded random weights, 3 TTA steps and one
    ``forward_inference`` on 4 synthetic 800x800 images, with both kernels'
    launch counters read around it; then a narrow copy of the model on the
-   GPU and on the CPU (plain versions) compared on a small input.
+   GPU and on the CPU (plain versions) compared on a small input;
+5. the training pools at the flagship training shapes: levels of 8 images
+   at 800 px, 256 channels; the box pool's 8 x 512 ROIs at P=7 and the mask
+   pool's 8 x 128 at P=14, clustered around two boxes per image as sampled
+   training ROIs are; the ROI pool kernel (forward) and the backward kernel
+   (``csrc/roi_pool_backward.cu``) each against its plain version;
+6. source training end to end: the flagship at full width in float32,
+   5 ``make_source_step`` steps on 8 synthetic 800x800 disc images with GT
+   (masks on a 256 canvas), the source solver (lr 0.0025) with the
+   global-norm clip 1.0 and warm-up of ``bench.py:warm_params``, the launch
+   counters of kernels A, C and D read around every step; a copy of the
+   inputs of every HiPPI call and of every projection it makes is kept
+   (device copies of a few hundred kB per projection); the narrow
+   GPU-vs-CPU comparison of phase 4 also holds ``loss_supervised`` and its
+   parameter gradients;
+7. the batched Sinkhorn kernel (``csrc/sinkhorn.cu``) against its plain
+   version on every projection input HiPPI gave it in phase 6 (16 matrices
+   of 60 x 60, tau 1/200 over the overflow guard's c, 20 iterations), timed
+   on the first; the HiPPI call that took the most iterations rerun with
+   the plain projection; and one synthetic batch with mixed valid counts.
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off).  Bounds use the H100
@@ -28,9 +47,15 @@ outside the tensor cores.  The last lines are the card's name and power
 limit (nvidia-smi), one JSON object with each kernel's numbers, and the
 device line ``{"ok": true, "device": {...}}``.
 
-``--profile`` adds, after the end-to-end phase, five more timed TTA steps
-and one step under ``torch.profiler`` (device time by kernel, device busy
-share).
+``--profile`` adds, after each end-to-end phase, more timed steps and one
+step under ``torch.profiler`` (device time by kernel, device busy share):
+five TTA steps, and one source step.
+
+``--warm`` adds the answer to whether the GA-GM finale converges on a
+trained detector: a fresh flagship model warmed by ``bench.py:warm_params``'s
+recipe (120 source steps at 320 px, batch 4, the same schedule and clip),
+then TTA steps at 800 px, batch 4, logging the GA-GM power steps per round,
+and one TTA step under the profiler (kernel B's share of it).
 """
 
 from __future__ import annotations
@@ -47,11 +72,20 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 ROI_TOL = dict(atol=2e-5, rtol=1e-4)
+# the backward's float32 atomics add in a run-dependent order
+# (tests/test_pallas.py:253-255 bound for the windowed backward)
+ROI_BWD_TOL = dict(atol=3e-4, rtol=1e-3)
 GAGM_ATOL = 1e-5
+SINKHORN_ATOL = 1e-5  # tests/test_pallas.py:166
 # the flagship model's solver settings (graph/mgm.py, build.py)
 GAGM_KW = dict(quad_weight=0.5, mgm_iter=200, sk_iter=20, sk_tau0=0.1, sk_gamma=0.5,
                min_tau=1e-2, tol=1e-3)
 TTA_LR = 0.005  # configs/test_segment.yaml SOLVER.BASE_LR
+# bench.py:warm_params: the source solver's lr with a 40-step warm-up from
+# 0.05 and the global-norm clip 1.0, without which training from random
+# weights diverges (bench.py:107-119)
+WARM_SCHEDULE = dict(steps=(100000,), warmup_iters=40, warmup_factor=0.05)
+WARM_CLIP = {"type": "norm", "value": 1.0}
 
 
 class PhaseError(RuntimeError):
@@ -192,6 +226,310 @@ def phase_roi_pool(torch, dev, B: int = 4, S: int = 800, C: int = 256,
     return res
 
 
+# -- phase 5: training pools, forward and backward -------------------------------
+
+def make_train_rois(torch, gen, B: int, K: int, size: int):
+    """Seeded training ROIs: proposals clustered around two disc-sized boxes
+    per image (jittered corners, scale 0.5-1.5x), a quarter of them near a
+    box, the rest anywhere, as label_and_sample_proposals draws them."""
+    u = lambda *s: torch.rand(s, generator=gen)  # noqa: E731
+    side = size * (0.2 + 0.2 * u(B, 2, 1))
+    ctr = side / 2 + u(B, 2, 2) * (size - side)
+    pick = (u(B, K) * 2).long().clamp(max=1)
+    c = torch.gather(ctr, 1, pick[..., None].expand(B, K, 2))
+    s = torch.gather(side, 1, pick[..., None]).expand(B, K, 2) * (0.5 + u(B, K, 2))
+    near = torch.cat([c - s / 2, c + s / 2], -1) + (u(B, K, 4) - 0.5) * 0.1 * size
+    side2 = torch.exp(math.log(16.0) + u(B, K, 2) * math.log(400.0 / 16.0))
+    xy = u(B, K, 2) * (size - side2)
+    far = torch.cat([xy, xy + side2], -1)
+    rois = torch.where((torch.arange(K) < K // 4)[None, :, None], near, far)
+    return rois.clamp(0.0, float(size)).contiguous()
+
+
+def roi_backward_work(torch, feats, rois, P: int):
+    """Bytes and float operations the pool's backward needs on these inputs:
+    the cotangent and the ROIs read once, every level gradient written once;
+    10 operations per valid sample and channel (the weighted value and four
+    corner adds).  Also the bytes of the atomic design, which zeroes the
+    level gradients and then reads and writes each touched row: the
+    cotangent, the zeroing, and a read and a write of each touched row."""
+    touched_and_out, flops = roi_pool_work(torch, feats, rois, P)
+    B, K = rois.shape[:2]
+    C = feats[0].shape[-1]
+    g_bytes = B * K * P * P * C * 4
+    touched_bytes = touched_and_out - g_bytes - rois.numel() * 4
+    grad_bytes = sum(f.numel() for f in feats) * 4
+    nbytes = g_bytes + grad_bytes + rois.numel() * 4
+    return nbytes, flops, nbytes + 2 * touched_bytes
+
+
+def phase_roi_backward(torch, dev, B: int = 8, S: int = 800, C: int = 256,
+                       box_rois: int = 512, mask_rois: int = 128):
+    """The training pools: the ROI pool kernel, then the backward kernel,
+    each against its plain version on the same levels and ROIs.  Returns
+    ``(backward results, forward results)``."""
+    from ttdg_mgm_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_backward
+    from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_backward
+
+    gen = torch.Generator().manual_seed(2)
+    feats = [torch.randn((B, S // s, S // s, C), generator=gen).to(dev) for s in (4, 8, 16, 32)]
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    res, fwd = {}, {}
+    for name, K, P in (("box", box_rois, 7), ("mask", mask_rois, 14)):
+        rois = make_train_rois(torch, gen, B, K, S).to(dev)
+        got = multilevel_roi_pool(feats, rois, output_size=P)
+        want = multilevel_roi_align(feats, rois, output_size=P)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"roi_pool train {name}: non-finite output")
+        err = (got - want).abs().max().item()
+        ok = torch.allclose(got, want, **ROI_TOL)
+        del got, want
+        log(f"roi_pool train {name} pool of {B} x {K} training ROIs, P={P}: max_abs_err "
+            f"{err:.3e} (atol {ROI_TOL['atol']}, rtol {ROI_TOL['rtol']}) -> {'ok' if ok else 'FAIL'}")
+        check(ok, f"roi_pool train {name}: kernel disagrees with the plain version ({err})")
+        ms = event_ms(torch, lambda: multilevel_roi_pool(feats, rois, output_size=P), 20)
+        plain_ms = event_ms(torch, lambda: multilevel_roi_align(feats, rois, output_size=P), 2)
+        torch.cuda.empty_cache()
+        nbytes, flops = roi_pool_work(torch, feats, rois, P)
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"roi_pool train {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        fwd[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         shape=f"levels ({B}, {S // 4}..{S // 32}, {S // 4}..{S // 32}, {C}) f32, "
+                               f"rois ({B}, {K}, 4) clustered training ROIs, P={P}")
+        g = torch.randn((B, K, P, P, C), generator=gen).to(dev)
+        got = multilevel_roi_pool_backward(g, shapes, rois)
+        want = multilevel_roi_align_backward(g, shapes, rois)
+        torch.cuda.synchronize()
+        err, ok = 0.0, True
+        for a, b in zip(got, want):
+            check(bool(torch.isfinite(a).all()), f"roi_pool_backward {name}: non-finite output")
+            err = max(err, (a - b).abs().max().item())
+            ok = ok and torch.allclose(a, b, **ROI_BWD_TOL)
+        del got, want
+        log(f"roi_pool_backward {name} grads of {shapes}: max_abs_err {err:.3e} "
+            f"(atol {ROI_BWD_TOL['atol']}, rtol {ROI_BWD_TOL['rtol']}) -> {'ok' if ok else 'FAIL'}")
+        check(ok, f"roi_pool_backward {name}: kernel disagrees with the plain version ({err})")
+        ms = event_ms(torch, lambda: multilevel_roi_pool_backward(g, shapes, rois), 20)
+        plain_ms = event_ms(torch, lambda: multilevel_roi_align_backward(g, shapes, rois), 2)
+        torch.cuda.empty_cache()
+        nbytes, flops, design_bytes = roi_backward_work(torch, feats, rois, P)
+        b_ms, b_by = bound(nbytes, flops)
+        design_ms = design_bytes / PEAK_BYTES_PER_S * 1e3
+        log(f"roi_pool_backward {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); the "
+            f"atomic design moves {design_bytes / 1e6:.1f} MB ({design_ms:.4f} ms)")
+        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         design_bytes_ms=design_ms,
+                         shape=f"g ({B}, {K}, {P}, {P}, {C}) f32 -> levels ({B}, {S // 4}..{S // 32}"
+                               f", {S // 4}..{S // 32}, {C}), clustered training ROIs")
+    return res, fwd
+
+
+# -- phase 7: batched Sinkhorn -----------------------------------------------------
+
+def phase_sinkhorn(torch, dev, record, iters: int = 20, tau: float = 1 / 200):
+    """Kernel D against the plain Sinkhorn on every projection input HiPPI
+    gave it in the source phase (``record``, from :func:`capture_hippi`),
+    timed on the first; the HiPPI call with the most iterations rerun with
+    the plain projection; one synthetic batch with mixed valid counts."""
+    import ttdg_mgm_torch.graph.solvers as solvers
+    from ttdg_mgm_torch.ops.sinkhorn import sinkhorn, sinkhorn_batched
+
+    proj = record["projections"]
+    check(len(proj) > 0, "sinkhorn: HiPPI made no projection in the source phase")
+    err = 0.0
+    for s, nr, nc, kw in proj:
+        got = sinkhorn_batched(s, nr, nc, **kw)
+        want = sinkhorn(s, nr, nc, **kw)
+        check(bool(torch.isfinite(got).all()), "sinkhorn: non-finite output on HiPPI's input")
+        err = max(err, (got - want).abs().max().item())
+    s, nr, nc, kw = proj[0]
+    t = float(kw["tau"])
+    ok = err <= SINKHORN_ATOL
+    log(f"sinkhorn on HiPPI's {len(proj)} projection inputs {tuple(s.shape)} (first: |s| up to "
+        f"{s.abs().max().item():.3e}, tau {t:g}, nrows {nr.tolist()}, ncols {nc.tolist()}): "
+        f"max_abs_err {err:.3e} (atol {SINKHORN_ATOL}) -> {'ok' if ok else 'FAIL'}")
+    check(ok, f"sinkhorn: kernel disagrees with the plain version on HiPPI's input ({err})")
+
+    # the HiPPI call with the most iterations, again with kernel D and with
+    # the plain projection (these launches are not the main path's)
+    W, U0, ms, n_univ, hkw = max(record["hippi"], key=lambda h: h[-1]["steps"])
+    hkw = {k: v for k, v in hkw.items() if k != "steps"}
+    U_k, steps_k = solvers.hippi(W, U0, ms, n_univ, **hkw)
+    real = solvers.sinkhorn_batched
+    solvers.sinkhorn_batched = sinkhorn
+    try:
+        U_p, steps_p = solvers.hippi(W, U0, ms, n_univ, **hkw)
+    finally:
+        solvers.sinkhorn_batched = real
+    hippi_diff = (U_k - U_p).abs().max().item()
+    log(f"sinkhorn: the longest HiPPI call of the source phase, rerun: {steps_k} iterations with "
+        f"kernel D, {steps_p} with the plain projection, max |U diff| {hippi_diff:.3e}")
+
+    gen = torch.Generator().manual_seed(3)
+    N, n = 16, 60
+    syn = (torch.rand((N, n, n), generator=gen) * 1e3).to(dev)
+    counts = torch.tensor([60, 41, 22, 57, 60, 12, 33, 48], dtype=torch.int32)
+    snr = torch.cat([counts, torch.full((N // 2,), 32, dtype=torch.int32)]).to(dev)
+    snc = torch.cat([torch.full((N // 2,), 32, dtype=torch.int32), counts]).to(dev)
+    tt = torch.tensor(tau, device=dev)
+    got = sinkhorn_batched(syn, snr, snc, tau=tt, max_iter=iters, dummy_row=True)
+    want = sinkhorn(syn, snr, snc, tau=tt, max_iter=iters, dummy_row=True)
+    syn_err = (got - want).abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and syn_err <= SINKHORN_ATOL
+    log(f"sinkhorn synthetic ({N}, {n}, {n}), uniform scores in [0, 1e3), tau {tau:g}, mixed "
+        f"valid counts: max_abs_err {syn_err:.3e} (atol {SINKHORN_ATOL}) -> {'ok' if ok else 'FAIL'}")
+    check(ok, f"sinkhorn: kernel disagrees with the plain version ({syn_err})")
+
+    ms_k = event_ms(torch, lambda: sinkhorn_batched(s, nr, nc, **kw), 200)
+    plain_ms = event_ms(torch, lambda: sinkhorn(s, nr, nc, **kw), 20)
+    # each entry: read once, written once; per iteration and live entry a
+    # max, a subtract, an exp, an add and a final subtract (5 operations),
+    # plus a log per live slice
+    live = sum(int(max(a, b)) * int(b) for a, b in zip(nr.tolist(), nc.tolist()))
+    flops = kw["max_iter"] * 5.0 * live
+    nbytes = 2 * s.numel() * 4 + 2 * s.shape[0] * 4 + 4
+    b_ms, b_by = bound(nbytes, flops)
+    log(f"sinkhorn: kernel {ms_k:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
+        f"({nbytes / 1e3:.1f} kB, {flops / 1e6:.2f} MFLOP)")
+    return dict(max_abs_err=max(err, syn_err), ms=ms_k, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, projections_checked=len(proj),
+                hippi_rerun={"iterations_kernel": steps_k, "iterations_plain": steps_p,
+                             "max_abs_diff": hippi_diff},
+                shape=f"{tuple(s.shape)} f32 from HiPPI's first projection of the source phase, "
+                      f"nrows {nr.tolist()}, ncols {nc.tolist()}, tau {t:g}")
+
+
+# -- phase 6: source training ------------------------------------------------------
+
+SOURCE_COUNTERS = ("roi_pool", "roi_pool_backward", "sinkhorn")
+
+
+def kernel_counters():
+    from ttdg_mgm_torch.ops.gagm import ga_gm_fused
+    from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_backward
+    from ttdg_mgm_torch.ops.sinkhorn import sinkhorn_batched
+
+    return {"roi_pool": multilevel_roi_pool, "gagm": ga_gm_fused,
+            "roi_pool_backward": multilevel_roi_pool_backward, "sinkhorn": sinkhorn_batched}
+
+
+def reset_counters():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counters():
+    return {k: fn.launches for k, fn in kernel_counters().items()}
+
+
+def source_setup(torch, dev, size: int, B: int, steps: int, mask_res: int | None = None,
+                 seed: int = 0, **model_kw):
+    """The flagship model, ``make_source_step`` with the source solver's lr
+    under bench.py's warm-up and clip, and ``steps`` labelled batches (GT
+    masks on the source trainer's canvas unless ``mask_res`` is given)."""
+    from ttdg_mgm_torch.build import SOURCE_SOLVER, build_model
+    from ttdg_mgm_torch.engine.steps import make_source_step
+    from ttdg_mgm_torch.solver.build import build_optimizer, warmup_multistep_schedule
+    from ttdg_mgm_torch.synth import synth_batch
+
+    model = build_model(device=dev, seed=seed, **model_kw)
+    opt = build_optimizer(model, warmup_multistep_schedule(SOURCE_SOLVER["base_lr"],
+                                                           **WARM_SCHEDULE), clip=WARM_CLIP)
+    step = make_source_step(model, opt)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                synth_batch(size, B, seed=i, with_gt=True,
+                            mask_res=mask_res or SOURCE_SOLVER["mask_res"]).items()}
+               for i in range(steps)]
+    return model, step, batches
+
+
+def capture_hippi():
+    """Wraps HiPPI (as ``graph/universe.py`` calls it) and its projection's
+    kernel wrapper (as ``graph/solvers.py`` calls it) to keep a copy of each
+    call's inputs.  Returns the record and the function that undoes it."""
+    import ttdg_mgm_torch.graph.solvers as solvers
+    import ttdg_mgm_torch.graph.universe as universe
+
+    record = {"hippi": [], "projections": []}
+    real_hippi, real_solve = universe.hippi, solvers.sinkhorn_batched
+
+    def hippi(W, U0, ms, n_univ, **kw):
+        out = real_hippi(W, U0, ms, n_univ, **kw)
+        record["hippi"].append((W.detach().clone(), U0.detach().clone(), ms.clone(), n_univ,
+                                {**kw, "steps": out[1]}))
+        return out
+
+    def solve(s, nrows, ncols, **kw):
+        record["projections"].append((s.clone(), nrows.clone(), ncols.clone(), kw))
+        return real_solve(s, nrows, ncols, **kw)
+
+    def undo():
+        universe.hippi, solvers.sinkhorn_batched = real_hippi, real_solve
+
+    universe.hippi, solvers.sinkhorn_batched = hippi, solve
+    return record, undo
+
+
+def phase_source(torch, dev, size: int = 800, B: int | None = None, steps: int = 5,
+                 profile: bool = False, **model_kw):
+    from ttdg_mgm_torch.build import SOURCE_SOLVER
+
+    B = B or SOURCE_SOLVER["ims_per_batch"]
+    t0 = time.perf_counter()
+    model, step, batches = source_setup(torch, dev, size, B, steps, **model_kw)
+    log(f"source: R50-FPN {model_kw or 'flagship'} built in {time.perf_counter() - t0:.1f} s, "
+        f"batch {tuple(batches[0]['image'].shape)} with GT, lr schedule of bench.py:warm_params, "
+        f"global-norm clip 1.0, TF32 off")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, per_step, totals = [], [], []
+    record, undo = capture_hippi()
+    try:
+        for i, batch in enumerate(batches):
+            reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = step(batch, gen)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches = read_counters()
+            per_step.append(launches)
+            m = {k: float(v) for k, v in metrics.items()}
+            totals.append(m["total_loss"])
+            log(f"source step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items())
+                + f"; HiPPI steps {model.multi_matching_sup.last_hippi_steps}; launches "
+                f"{launches}; {step_ms[-1]:.1f} ms")
+            for k, v in m.items():
+                check(math.isfinite(v), f"source step {i}: {k} = {v} is not finite")
+            check(m["loss_matching"] > 0.0, f"source step {i}: loss_matching {m['loss_matching']}")
+            for k in SOURCE_COUNTERS:
+                check(launches[k] >= 1, f"source step {i}: kernel {k} was not launched")
+    finally:
+        undo()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steady = statistics.median(step_ms[1:])
+    log(f"source: step ms {[round(t, 1) for t in step_ms]} (first includes warm-up); median "
+        f"after warm-up {steady:.1f} ms = {B * 1e3 / steady:.2f} images/s; peak memory "
+        f"{peak_gb:.2f} GiB; launches per step {per_step[-1]}")
+    if profile:
+        profile_source(torch, step, batches[-1], gen,
+                       lambda: model.multi_matching_sup.last_hippi_steps)
+    del model, step, batches
+    torch.cuda.empty_cache()
+    return dict(batch=B, step_ms=step_ms, steady_ms=steady, images_per_s=B * 1e3 / steady,
+                total_loss=totals, peak_gib=peak_gb, launches_per_step=per_step,
+                launches={k: sum(p[k] for p in per_step) for k in per_step[0]}, hippi=record)
+
+
+def profile_source(torch, step, batch, gen, hippi_steps):
+    """``--profile``: one more source step under ``torch.profiler``."""
+    profile_call(torch, lambda: step(batch, gen), "source step",
+                 lambda: f", HiPPI steps {hippi_steps()}")
+
+
 # -- phase 3: GA-GM --------------------------------------------------------------
 
 def phase_gagm(torch, dev, n: int = 60):
@@ -234,8 +572,6 @@ def phase_gagm(torch, dev, n: int = 60):
 def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
     from ttdg_mgm_torch.build import build_model
     from ttdg_mgm_torch.engine.steps import make_tta_step
-    from ttdg_mgm_torch.ops.gagm import ga_gm_fused
-    from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool
     from ttdg_mgm_torch.solver.build import build_optimizer
     from ttdg_mgm_torch.synth import synth_batch
 
@@ -251,8 +587,7 @@ def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    multilevel_roi_pool.launches = 0
-    ga_gm_fused.launches = 0
+    reset_counters()
     step_ms, losses = [], []
     for i in range(3):
         torch.cuda.synchronize()
@@ -272,7 +607,7 @@ def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
     out = model.forward_inference(batch["image"], batch["image_sizes"])
     torch.cuda.synchronize()
     infer_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"roi_pool": multilevel_roi_pool.launches, "gagm": ga_gm_fused.launches}
+    launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = statistics.median(step_ms[1:])
     log(f"e2e: TTA step ms {[round(t, 1) for t in step_ms]} (first includes warm-up); "
@@ -301,12 +636,9 @@ def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
                 infer_ms=infer_ms, peak_gib=peak_gb, launches=launches)
 
 
-def profile_step(torch, step, batch, solver_steps, extra_steps: int = 5, top: int = 25):
+def profile_step(torch, step, batch, solver_steps, extra_steps: int = 5):
     """``--profile``: ``extra_steps`` more timed TTA steps, then one step
-    under ``torch.profiler``: device time by kernel and the device's busy
-    share of the step's wall time (one stream, so kernels do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    under ``torch.profiler``."""
     times = []
     for _ in range(extra_steps):
         torch.cuda.synchronize()
@@ -315,10 +647,20 @@ def profile_step(torch, step, batch, solver_steps, extra_steps: int = 5, top: in
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     log(f"profile: {extra_steps} more TTA steps, ms {[round(t, 1) for t in times]}")
+    return profile_call(torch, lambda: step(batch), "TTA step",
+                        lambda: f", solver steps {solver_steps()}")
+
+
+def profile_call(torch, fn, what: str, extra=lambda: "", top: int = 25):
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel and
+    the device's busy share of the call's wall time (one stream, so kernels
+    do not overlap).  Returns ``(wall ms, {kernel name: device ms})``."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
@@ -327,11 +669,31 @@ def profile_step(torch, step, batch, solver_steps, extra_steps: int = 5, top: in
 
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events) / 1e3
-    log(f"profile: one TTA step under the profiler, wall {wall:.1f} ms, device busy "
-        f"{busy:.1f} ms ({100.0 * busy / wall:.1f} %), {len(events)} distinct kernels, "
-        f"solver steps {solver_steps()}")
-    for e in sorted(events, key=lambda e: -dev_us(e))[:top]:
+    log(f"profile: one {what} under the profiler, wall {wall:.1f} ms, device busy "
+        f"{busy:.1f} ms ({100.0 * busy / wall:.1f} %), {len(events)} distinct kernels{extra()}")
+    ranked = sorted(events, key=lambda e: -dev_us(e))
+    for e in ranked[:top] + [e for e in ranked[top:] if kernel_class(e.key) == "port kernels"]:
         log(f"profile:   {dev_us(e) / 1e3:9.3f} ms {e.count:6d} x  {e.key[:100]}")
+    by_class = {}
+    for e in events:
+        c = kernel_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + dev_us(e) / 1e3
+    log("profile: device time by class: " + ", ".join(
+        f"{c} {ms:.1f} ms" for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1])))
+    return wall, {e.key: dev_us(e) / 1e3 for e in events}
+
+
+def kernel_class(name: str) -> str:
+    """Coarse class of a device kernel, by its name."""
+    if any(k in name for k in ("roi_pool_kernel", "roi_pool_backward_kernel", "gagm_kernel",
+                               "sinkhorn_kernel")):
+        return "port kernels"
+    if any(k in name for k in ("cudnn", "fft", "fprop", "dgrad", "wgrad", "winograd", "cf32",
+                               "DSE::", "conv")):
+        return "convolutions (cuDNN)"
+    if "gemm" in name or "gemv" in name:
+        return "matrix products"
+    return "elementwise, reductions, copies, other"
 
 
 def phase_small_reference(torch, dev):
@@ -339,15 +701,24 @@ def phase_small_reference(torch, dev):
     weights on the GPU (kernels) and on the CPU (plain versions): the FPN
     features (tests/test_detector_parity.py tolerance, atol 1e-2 rtol 1e-3)
     and the 7x7 and 14x14 pools of the model at the CPU's proposal boxes
-    (the same tolerance: features carry it)."""
+    (the same tolerance: features carry it); then ``loss_supervised`` on a
+    labelled batch, both sides fed the same sampling uniforms, the CPU's
+    proposals and the CPU's HiPPI target (both discrete: near-ties in the
+    RPN scores and HiPPI's hard assignment follow float32 round-off; HiPPI's
+    kernel path is held in phases 6 and 7): each loss within rtol 1e-3, and
+    each parameter's gradient within 1e-2 of its largest value plus 1e-6 of
+    the largest of any leaf (convolution algorithms, the backward kernel's
+    atomics, and ReLUs whose input lies within round-off of 0 move the
+    gradients of the layers before them)."""
     from ttdg_mgm_torch.build import build_model
     from ttdg_mgm_torch.synth import synth_batch
 
     kw = dict(resnet_width=64, fpn_channels=64, box_fc_dim=128, mask_conv_dim=64,
-              pre_nms_topk_test=200, post_nms_topk=100, detections_per_image=16)
+              pre_nms_topk_test=200, post_nms_topk=100, detections_per_image=16,
+              pre_nms_topk_train=200, batch_size_per_image=64, mask_fg_cap=16, hippi_iters=10)
     cpu = build_model(device="cpu", seed=3, **kw)
     gpu = build_model(device=dev, seed=3, **kw)
-    data = synth_batch(160, 2, seed=5)
+    data = synth_batch(160, 2, seed=5, with_gt=True, mask_res=64)
     imgs, sizes = torch.from_numpy(data["image"]), torch.from_numpy(data["image_sizes"])
     with torch.no_grad():
         fc = cpu.extract_features(imgs)
@@ -366,6 +737,122 @@ def phase_small_reference(torch, dev):
             worst = max(worst, (pg - pc).abs().max().item())
     log(f"small reference (GPU kernels vs CPU plain, 2 x 160 px): features and pools agree, "
         f"max abs diff {worst:.3e} (atol 1e-2, rtol 1e-3)")
+    n_anchors = 3 * sum(f.shape[1] * f.shape[2] for f in fc.values())
+    small_reference_source(torch, dev, cpu, gpu, data, n_anchors)
+
+
+def small_reference_source(torch, dev, cpu, gpu, data, n_anchors: int):
+    import ttdg_mgm_torch.graph.universe as universe
+    from ttdg_mgm_torch.solver.build import trainable_mask
+
+    gen = torch.Generator().manual_seed(4)
+    B = data["image"].shape[0]
+    uniforms = {"rpn": torch.rand((B, n_anchors), generator=gen),
+                "roi": torch.rand((B, cpu.post_nms_topk + data["gt_boxes"].shape[1]),
+                                  generator=gen)}
+    captured = {}
+    real_hippi, real_proposals = universe.hippi, cpu._proposals
+
+    def cpu_hippi(*a, **k):
+        captured["hippi"] = real_hippi(*a, **k)
+        return captured["hippi"]
+
+    def cpu_props(*a, **k):
+        out = real_proposals(*a, **k)
+        captured["props"] = out[1]
+        return out
+
+    def gpu_props(nchw, sizes, *, train=False, real=gpu._proposals):
+        rpn, _ = real(nchw, sizes, train=train)
+        return rpn, tuple(t.to(dev) for t in captured["props"])
+
+    results = {}
+    for name, model, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+        mask = trainable_mask(model)
+        for n, p in model.named_parameters():
+            p.requires_grad_(mask[n])
+        b = {k: torch.from_numpy(v).to(d) for k, v in data.items()}
+        universe.hippi = cpu_hippi if name == "cpu" else (
+            lambda *a, **k: tuple(t.to(dev) if torch.is_tensor(t) else t
+                                  for t in captured["hippi"]))
+        model._proposals = cpu_props if name == "cpu" else gpu_props
+        try:
+            losses = model.loss_supervised(b["image"], b["image_sizes"], b["gt_boxes"],
+                                           b["gt_classes"], b["gt_masks"], b["gt_valid"],
+                                           uniforms={k: v.to(d) for k, v in uniforms.items()})
+            sum(losses.values()).backward()
+        finally:
+            universe.hippi = real_hippi
+            del model._proposals
+        results[name] = ({k: float(v.detach()) for k, v in losses.items()},
+                         {n: p.grad.cpu() for n, p in model.named_parameters()
+                          if p.grad is not None})
+    (lc, gc), (lg, gg) = results["cpu"], results["gpu"]
+    for k, v in lc.items():
+        check(math.isfinite(lg[k]) and abs(lg[k] - v) <= 1e-3 * abs(v),
+              f"small reference: {k} GPU {lg[k]} CPU {v}")
+    check(set(gc) == set(gg) and len(gc) > 40, "small reference: gradient sets differ")
+    floor = 1e-6 * max(g.abs().max().item() for g in gc.values())
+    worst = 0.0
+    for n, g in gc.items():
+        err = (gg[n] - g).abs().max().item()
+        scale = g.abs().max().item()
+        check(err <= 1e-2 * scale + floor, f"small reference: gradient of {n}: {err} vs {scale}")
+        worst = max(worst, err / (scale + floor))
+    log(f"small reference loss_supervised: losses agree (rtol 1e-3): "
+        + ", ".join(f"{k} {lg[k]:.6f}/{lc[k]:.6f}" for k in lc)
+        + f"; {len(gc)} parameter gradients agree, worst {worst:.2e} of the leaf's largest "
+        f"(bound 1e-2)")
+
+
+# -- --warm: does the GA-GM finale converge on a trained detector? ------------------
+
+def phase_warm(torch, dev, warm_steps: int = 120, warm_size: int = 320, tta_steps: int = 3):
+    """``bench.py:warm_params``'s recipe on a fresh flagship model, then TTA
+    steps at 800 px, batch 4: GA-GM power steps per round, and kernel B's
+    share of one profiled TTA step."""
+    from ttdg_mgm_torch.engine.steps import make_tta_step
+    from ttdg_mgm_torch.solver.build import build_optimizer
+    from ttdg_mgm_torch.synth import synth_batch
+
+    model, step, _ = source_setup(torch, dev, warm_size, 4, 0, mask_res=128)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    for it in range(warm_steps):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                 synth_batch(warm_size, 4, seed=it, with_gt=True, mask_res=128).items()}
+        m = step(batch, gen)
+        if it % 20 == 19 or it == warm_steps - 1:
+            lv = float(m["total_loss"])
+            log(f"warm: source step {it + 1}/{warm_steps} total_loss {lv:.4f} "
+                + ", ".join(f"{k} {float(v):.4f}" for k, v in m.items() if k != "total_loss")
+                + f" ({time.perf_counter() - t0:.1f} s)")
+            check(math.isfinite(lv), f"warm: source training diverged at step {it}")
+    opt = build_optimizer(model, lambda _: TTA_LR)
+    tta = make_tta_step(model, opt)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(800, 4, seed=0).items()}
+    rounds = []
+    for i in range(tta_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(tta(batch))
+        torch.cuda.synchronize()
+        mgm = model.multi_matching_unsup
+        rounds.append(mgm.last_solver_steps)
+        log(f"warm: TTA step {i}: loss {loss:.6f}, valid nodes per graph {mgm.last_node_counts}, "
+            f"GA-GM power steps per round {mgm.last_solver_steps}, "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    wall, by_kernel = profile_call(
+        torch, lambda: tta(batch), "warmed TTA step",
+        lambda: f", GA-GM power steps per round {model.multi_matching_unsup.last_solver_steps}")
+    rounds.append(model.multi_matching_unsup.last_solver_steps)
+    gagm_ms = sum(v for k, v in by_kernel.items() if "gagm" in k)
+    converged = all(r[-1] < 200 for r in rounds)
+    log(f"warm: the LAP finale {'converges' if converged else 'does not converge'} "
+        f"(finale steps {[r[-1] for r in rounds]} of a 200 cap); kernel B {gagm_ms:.1f} ms = "
+        f"{100.0 * gagm_ms / wall:.1f} % of the profiled step's {wall:.1f} ms wall")
+    del model, step, tta, opt
+    torch.cuda.empty_cache()
 
 
 # -- main ---------------------------------------------------------------------------
@@ -398,34 +885,65 @@ def main() -> int:
     log(f"kernels built from ttdg_mgm_torch/csrc in {_cuda.build_seconds:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s)")
 
+    profile = "--profile" in sys.argv[1:]
     roi = phase_roi_pool(torch, dev)
     gagm = phase_gagm(torch, dev)
-    e2e = phase_e2e(torch, dev, profile="--profile" in sys.argv[1:])
+    e2e = phase_e2e(torch, dev, profile=profile)
     phase_small_reference(torch, dev)
+    roi_bwd, roi_train = phase_roi_backward(torch, dev)
+    src = phase_source(torch, dev, profile=profile)
+    sk = phase_sinkhorn(torch, dev, src.pop("hippi"))
+    if "--warm" in sys.argv[1:]:
+        phase_warm(torch, dev)
 
     box, mask, g4 = roi["box"], roi["mask"], gagm["G4_M60"]
+    bbox, bmask = roi_bwd["box"], roi_bwd["mask"]
+    by_path = {k: {"tta": e2e["launches"][k], "source": src["launches"][k]}
+               for k in e2e["launches"]}
     kernels = [
         dict(name="roi_pool", route="cuda", source="ttdg_mgm_torch/csrc/roi_pool.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:113",
-             launches=e2e["launches"]["roi_pool"],
-             max_abs_err=max(box["max_abs_err"], mask["max_abs_err"]),
+             launches=e2e["launches"]["roi_pool"], launches_by_path=by_path["roi_pool"],
+             max_abs_err=max(r["max_abs_err"] for r in (box, mask, *roi_train.values())),
              ms=box["ms"], plain_ms=box["plain_ms"], bound_ms=box["bound_ms"],
              bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
              mask_pool={k: mask[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "max_abs_err", "shape")}),
+                                             "max_abs_err", "shape")},
+             train_pools=roi_train),
         dict(name="gagm", route="cuda", source="ttdg_mgm_torch/csrc/gagm.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/gagm_pallas.py:53",
-             launches=e2e["launches"]["gagm"],
+             launches=e2e["launches"]["gagm"], launches_by_path=by_path["gagm"],
              max_abs_err=max(r["max_abs_err"] for r in gagm.values()),
              ms=g4["ms"], plain_ms=g4["plain_ms"], bound_ms=g4["bound_ms"],
              bound_by=g4["bound_by"], library_ms=None, shape=g4["shape"],
              steps=g4["steps"],
              other_cases={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "steps")}
                           for k, v in gagm.items() if k != "G4_M60"}),
+        dict(name="roi_pool_backward", route="cuda",
+             source="ttdg_mgm_torch/csrc/roi_pool_backward.cu",
+             replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:350",
+             launches=src["launches"]["roi_pool_backward"],
+             launches_by_path=by_path["roi_pool_backward"],
+             max_abs_err=max(bbox["max_abs_err"], bmask["max_abs_err"]),
+             ms=bbox["ms"], plain_ms=bbox["plain_ms"], bound_ms=bbox["bound_ms"],
+             bound_by=bbox["bound_by"], library_ms=None, shape=bbox["shape"],
+             design_bytes_ms=bbox["design_bytes_ms"],
+             mask_pool={k: bmask[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "design_bytes_ms", "max_abs_err", "shape")}),
+        dict(name="sinkhorn", route="cuda", source="ttdg_mgm_torch/csrc/sinkhorn.cu",
+             replaces="ttdg_mgm_tpu/ops/pallas/sinkhorn_pallas.py:31",
+             launches=src["launches"]["sinkhorn"], launches_by_path=by_path["sinkhorn"],
+             max_abs_err=sk["max_abs_err"], ms=sk["ms"], plain_ms=sk["plain_ms"],
+             bound_ms=sk["bound_ms"], bound_by=sk["bound_by"], library_ms=None,
+             shape=sk["shape"], projections_checked=sk["projections_checked"],
+             hippi_rerun=sk["hippi_rerun"]),
     ]
     e2e_line = {k: e2e[k] for k in ("step_ms", "steady_ms", "images_per_s", "losses",
                                     "infer_ms", "peak_gib")}
     log(f"e2e summary: {json.dumps(e2e_line)}")
+    src_line = {k: src[k] for k in ("batch", "step_ms", "steady_ms", "images_per_s", "total_loss",
+                                    "peak_gib")}
+    log(f"source summary: {json.dumps(src_line)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

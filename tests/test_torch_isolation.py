@@ -44,6 +44,7 @@ def test_fresh_import_loads_no_jax():
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "0 []", res.stdout
     assert len(mods) > 25
+    assert "ttdg_mgm_torch.graph.universe" in mods
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
@@ -84,12 +85,18 @@ def test_kernel_wrappers_refuse_other_devices():
     """The kernel wrappers take CPU tensors (plain version) or CUDA tensors
     (kernel); any other device raises instead of falling back."""
     from ttdg_mgm_torch.ops.gagm import ga_gm_fused
-    from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool
+    from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_backward
+    from ttdg_mgm_torch.ops.sinkhorn import sinkhorn_batched
 
     meta = torch.device("meta")
     feats = [torch.empty((1, 8, 8, 4), device=meta)]
     with pytest.raises(ValueError, match="CPU or CUDA"):
         multilevel_roi_pool(feats, torch.empty((1, 2, 4), device=meta))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        multilevel_roi_pool_backward(torch.empty((1, 2, 7, 7, 4), device=meta), [(8, 8)],
+                                     torch.empty((1, 2, 4), device=meta))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        sinkhorn_batched(torch.empty((2, 6, 6), device=meta), tau=0.1)
     A = torch.empty((8, 8), device=meta)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         ga_gm_fused(A, A, torch.empty((8, 4), device=meta),

@@ -1,5 +1,6 @@
 """Shared set-up of the port's whole-slice tests: the committed golden
-fixture weights in both frameworks, and the shifted-target test images.
+fixture weights in both frameworks, the shifted-target test images, and the
+labelled source batch with the JAX package's sampling uniforms.
 
 The JAX model is ``MaskRCNN(**DEMO["model_kwargs"])`` with the fixture
 weights (tests/demo_config.py); the port model gets the same weights through
@@ -64,3 +65,22 @@ def shifted_images(tmpdir, n: int = 4):
                                 np.float32) for i in range(n)])
     sizes = np.full((n, 2), float(DEMO["size"]), np.float32)
     return imgs, sizes
+
+
+def source_batch(seed: int, n: int = 4, mask_res: int = 64) -> dict:
+    """A labelled disc batch at the fixture's size (``ttdg_mgm_torch.synth``,
+    the same pixels as ``bench.py:synth_batch``), GT padded to 32 slots."""
+    from ttdg_mgm_torch.synth import synth_batch
+
+    return synth_batch(DEMO["size"], n, seed=seed, with_gt=True, mask_res=mask_res)
+
+
+def jax_uniforms(rng, B: int, n_anchors: int, n_rois: int) -> dict:
+    """The uniforms ``MaskRCNN.loss_supervised`` draws from ``rng`` in the
+    JAX package (``models/rcnn.py:376-381``, ``rpn.py:183``,
+    ``roi_heads.py:126``), as NumPy arrays for the port's ``uniforms``."""
+    rng_rpn, rng_roi = jax.random.split(rng)
+    return {"rpn": np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (n_anchors,)))(
+                jax.random.split(rng_rpn, B))),
+            "roi": np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (n_rois,)))(
+                jax.random.split(rng_roi, B)))}

@@ -1,11 +1,20 @@
-"""The flagship configuration and model construction.
+"""The flagship configurations and model construction.
 
 ``FLAGSHIP_KWARGS`` is the R50-FPN Mask R-CNN that the JAX package builds
 for ``configs/test_segment.yaml`` (``ttdg_mgm_tpu/build.py:build_model``):
 full widths, 1000 proposals, 100 detections, a 32-slot universe and 12
 nodes per FPN level (``MODEL.GRAPH.MAX_NODES`` 64 // 5), so 60 nodes per
-graph.  Fields of that model which only training, the discriminator or the
-bf16 compute policy read are not ported yet; ``OUT_OF_SLICE`` names them.
+graph, and the source-training fields at their ``ttdg_mgm_tpu/config.py``
+defaults (2000 pre-NMS proposals, 512 sampled ROIs per image at 25 %
+foreground, 128 mask ROIs, cross-entropy, 50 HiPPI iterations).  Source
+training (``configs/seg_res50fpn_source.yaml``) trains this model, with 2
+classes; ``SOURCE_SOLVER`` holds that file's solver settings
+(``IMS_PER_BATCH`` 8, ``BASE_LR`` 0.0025, over ``config.py``'s defaults,
+which ``solver/build.py`` keeps as its own: momentum 0.9, weight decay
+1e-4).
+Fields of the JAX model which only the discriminator, the VGG backbone or
+the bf16 compute policy read are not ported yet; ``OUT_OF_SLICE`` names
+them.
 """
 
 from __future__ import annotations
@@ -25,14 +34,17 @@ FLAGSHIP_KWARGS = dict(
     pooler_sampling_ratio=0, fpn_channels=256, box_fc_dim=1024, box_num_fc=2,
     mask_conv_dim=256, mask_num_conv=4,
     anchor_sizes=((32,), (64,), (128,), (256,), (512,)),
+    cls_loss_type="CrossEntropy", pre_nms_topk_train=2000, batch_size_per_image=512,
+    roi_positive_fraction=0.25, mask_fg_cap=128, hippi_iters=50,
 )
 
-#: JAX ``MaskRCNN`` fields outside this package's slice: training and the
-#: discriminator (``dis_type`` .. ``roi_positive_fraction``), the VGG
-#: backbone switch, and the bf16 compute policy
-OUT_OF_SLICE = ("dis_type", "cls_loss_type", "pre_nms_topk_train", "batch_size_per_image",
-                "mask_fg_cap", "hippi_iters", "roi_positive_fraction", "backbone_name",
-                "compute_dtype")
+#: ``configs/seg_res50fpn_source.yaml`` SOLVER, and the GT-mask canvas of
+#: the JAX trainer (``engine/trainer.py:196``)
+SOURCE_SOLVER = dict(ims_per_batch=8, base_lr=0.0025, mask_res=256)
+
+#: JAX ``MaskRCNN`` fields outside this package's slice: the discriminator's
+#: feature level, the VGG backbone switch and the bf16 compute policy
+OUT_OF_SLICE = ("dis_type", "backbone_name", "compute_dtype")
 
 
 def build_model(*, device=None, seed: int = 0, **overrides) -> MaskRCNN:

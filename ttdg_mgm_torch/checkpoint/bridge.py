@@ -12,7 +12,10 @@ dicts of NumPy arrays:
   variance ``1 - eps``;
 * the box head's ``fc1`` kernel is re-flattened from the JAX NHWC order
   ``(P, P, C)`` to d2's NCHW ``(C, P, P)``;
-* the affinity's split first layer is re-joined into ``fc_M.0``.
+* the affinity's split first layer is re-joined into ``fc_M.0``;
+* the universe learner's attention ``multi_matching_sup/Net_U/g_gene`` goes
+  to ``multi_matching_sup.Net_U.g_gene.*`` and the hoisted universe ``U`` to
+  ``multi_matching_sup.U``.
 """
 
 from __future__ import annotations
@@ -23,10 +26,9 @@ import torch
 BN_EPS = 1e-5
 
 #: state-dict prefixes of the modules this package owns; names outside them
-#: (the discriminator, the supervised universe learner's attention) are
-#: skipped by :func:`load_d2_state_dict`
+#: (the discriminator) are skipped by :func:`load_d2_state_dict`
 OWNED_PREFIXES = ("backbone.", "proposal_generator.", "roi_heads.",
-                  "multi_matching_unsup.", "multi_matching_sup.U")
+                  "multi_matching_unsup.", "multi_matching_sup.")
 
 
 def _conv(k):
@@ -116,6 +118,9 @@ def flax_params_to_d2(params: dict, *, box_head_channels: int = 256) -> dict:
                 _conv_block(blk, mh + name, sd)
     if "U" in p:
         sd["multi_matching_sup.U"] = np.asarray(p["U"])
+    if "multi_matching_sup" in p:
+        _mha_block(p["multi_matching_sup"]["Net_U"]["g_gene"], "multi_matching_sup.Net_U.g_gene",
+                   sd)
     if "multi_matching_unsup" in p:
         mu = p["multi_matching_unsup"]
         _mha_block(mu["intra_domain_graph"], "multi_matching_unsup.intra_domain_graph", sd)

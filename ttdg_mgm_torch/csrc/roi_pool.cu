@@ -23,45 +23,19 @@
 // plain version (ops/roi_align.py:roi_geometry), so the two agree up to the
 // order of the sums.
 
-#include <cuda_runtime.h>
+#include "roi_geometry.cuh"
 
 namespace {
 
-constexpr int kMaxLevels = 4;
-constexpr int kMaxSamples = 64;  // P * m per axis: 14 * 4 = 56 at most
-
-struct Levels {
-  const float* ptr[kMaxLevels];
-  int H[kMaxLevels];
-  int W[kMaxLevels];
-};
-
-struct AxisSample {
-  int c0, c1;     // clamped corner indices
-  float frac;     // interpolation weight of c1
-  float w;        // bin-average weight, 0 when out of range or surplus
-};
-
-__device__ __forceinline__ AxisSample axis_sample(float pos, float wgt, int size) {
-  AxisSample s;
-  const float lim = static_cast<float>(size);
-  const bool valid = (pos > -1.0f) && (pos < lim);
-  const float c = fminf(fmaxf(pos, 0.0f), lim - 1.0f);
-  const float c0 = floorf(c);
-  const float c1 = fminf(c0 + 1.0f, lim - 1.0f);
-  s.c0 = static_cast<int>(c0);
-  s.c1 = static_cast<int>(c1);
-  s.frac = c - c0;
-  s.w = valid ? wgt : 0.0f;
-  return s;
-}
+using ttdg::AxisSample;
+using Levels = ttdg::LevelTable<const float>;
 
 __global__ void roi_pool_kernel(Levels lv, int C, int K, const int* __restrict__ level,
                                 const float* __restrict__ ys, const float* __restrict__ wy,
                                 const float* __restrict__ xs, const float* __restrict__ wx,
                                 int P, int m, float* __restrict__ out) {
-  __shared__ AxisSample sy[kMaxSamples];
-  __shared__ AxisSample sx[kMaxSamples];
+  __shared__ AxisSample sy[ttdg::kMaxSamples];
+  __shared__ AxisSample sx[ttdg::kMaxSamples];
   const int r = blockIdx.x;
   const int l = level[r];
   const int b = r / K;
@@ -70,16 +44,7 @@ __global__ void roi_pool_kernel(Levels lv, int C, int K, const int* __restrict__
   const int S = P * m;
   const float* f = lv.ptr[l] + static_cast<size_t>(b) * H * W * C;
 
-  for (int t = threadIdx.x; t < 2 * S; t += blockDim.x) {
-    if (t < S) {
-      sy[t] = axis_sample(ys[static_cast<size_t>(r) * S + t],
-                          wy[static_cast<size_t>(r) * S + t], H);
-    } else {
-      const int u = t - S;
-      sx[u] = axis_sample(xs[static_cast<size_t>(r) * S + u],
-                          wx[static_cast<size_t>(r) * S + u], W);
-    }
-  }
+  ttdg::load_axis_samples(sy, sx, r, S, ys, wy, xs, wx, H, W);
   __syncthreads();
 
   float* o = out + static_cast<size_t>(r) * P * P * C;
@@ -119,19 +84,13 @@ extern "C" int ttdg_roi_pool(const void* f0, const void* f1, const void* f2, con
                              int H3, int W3, int C, int R, int K, const void* level,
                              const void* ys, const void* wy, const void* xs, const void* wx,
                              int P, int m, void* out, void* stream) {
-  if (num_levels < 1 || num_levels > kMaxLevels || P * m > kMaxSamples || R <= 0) {
+  if (num_levels < 1 || num_levels > ttdg::kMaxLevels || P * m > ttdg::kMaxSamples || R <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Levels lv;
-  const void* ptrs[kMaxLevels] = {f0, f1, f2, f3};
-  const int Hs[kMaxLevels] = {H0, H1, H2, H3};
-  const int Ws[kMaxLevels] = {W0, W1, W2, W3};
-  for (int i = 0; i < kMaxLevels; ++i) {
-    lv.ptr[i] = static_cast<const float*>(ptrs[i]);
-    lv.H[i] = Hs[i];
-    lv.W[i] = Ws[i];
-  }
-  const int threads = C >= 256 ? 256 : ((C + 31) / 32) * 32;
+  const Levels lv = ttdg::make_level_table(
+      static_cast<const float*>(f0), static_cast<const float*>(f1),
+      static_cast<const float*>(f2), static_cast<const float*>(f3), H0, W0, H1, W1, H2, W2, H3, W3);
+  const int threads = ttdg::channel_threads(C);
   roi_pool_kernel<<<R, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       lv, C, K, static_cast<const int*>(level), static_cast<const float*>(ys),
       static_cast<const float*>(wy), static_cast<const float*>(xs),

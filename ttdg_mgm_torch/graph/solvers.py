@@ -1,12 +1,15 @@
-"""Graduated-Assignment multi-graph matching (GA-GM), plain PyTorch: the
-plain version of the fused CUDA solver (``ops/gagm.py``, ``csrc/gagm.cu``).
+"""Multi-graph-matching solvers: HiPPI, and Graduated-Assignment
+multi-graph matching (GA-GM) in plain PyTorch, the plain version of the
+fused CUDA solver (``ops/gagm.py``, ``csrc/gagm.cu``).
 
 Counterpart of ``ttdg_mgm_tpu/graph/solvers.py`` (single-cluster path).
 Joint matrices over ``G`` graphs of at most ``M`` nodes are ``(G*M, G*M)`` /
-``(G*M, U)`` with each graph's valid nodes first in its block; the solver
-runs without gradients.  Loops and stop tests run on the host, as Python
-control flow over device tensors; the terminal Hungarian round uses the
-host JV LAP of ``ops/lap.py``.
+``(G*M, U)`` with each graph's valid nodes first in its block; the solvers
+run without gradients.  Loops and stop tests run on the host, as Python
+control flow over device tensors (one host synchronisation per iteration);
+the terminal Hungarian round uses the host JV LAP of ``ops/lap.py``.
+HiPPI's projections run the batched Sinkhorn kernel on CUDA tensors
+(``ops/sinkhorn.py:sinkhorn_batched``); GA-GM's use the plain Sinkhorn.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ttdg_mgm_torch.ops.lap import hungarian_auto
-from ttdg_mgm_torch.ops.sinkhorn import sinkhorn_project
+from ttdg_mgm_torch.ops.sinkhorn import sinkhorn, sinkhorn_batched, sinkhorn_project
 
 
 def _fro(x):
@@ -35,17 +38,52 @@ def anneal_taus(sk_tau0: float, sk_gamma: float, min_tau: float):
     return taus
 
 
-def _project_blocks(V, ms, n_univ, *, tau, sk_iter, exact_hungarian: bool = False):
+def _project_blocks(V, ms, n_univ, *, tau, sk_iter, exact_hungarian: bool = False,
+                    solve=sinkhorn):
     """Project each graph's ``(M, U)`` block of ``V (G, M, U)``: a
-    rectangular Sinkhorn, or the exact LAP when ``exact_hungarian``."""
+    rectangular Sinkhorn through ``solve``, or the exact LAP when
+    ``exact_hungarian``."""
     nu = torch.full_like(ms, n_univ)
     if exact_hungarian:
         out = hungarian_auto(V, ms, nu)
     else:
-        out = sinkhorn_project(V, ms, nu, tau=tau, max_iter=sk_iter)
+        out = sinkhorn_project(V, ms, nu, tau=tau, max_iter=sk_iter, solve=solve)
     m = V.shape[-2]
     row_valid = torch.arange(m, device=V.device)[None, :] < ms[:, None]
     return torch.where(row_valid[..., None], out, torch.zeros((), device=V.device))
+
+
+@torch.no_grad()
+def hippi(W, U0, ms, n_univ: int, *, max_iter: int = 50, sk_iter: int = 20,
+          sk_tau: float = 1.0 / 200.0, tol: float = 1e-5, return_steps: bool = False):
+    """Higher-order Projected Power Iteration (ICCV'19).
+
+    W ``(G*M, G*M)`` joint similarity; U0 ``(G*M, U)``; ms ``(G,)`` valid
+    node counts.  Iterates ``V = (WU) (U^T (WU))`` and the per-graph Sinkhorn
+    projection until ``||U - U_last|| < tol`` or ``max_iter`` steps.
+    Returns ``(G*M, U)`` float32, and with ``return_steps`` the steps taken.
+    """
+    W = W.detach().to(torch.float32)
+    U = U0.detach().to(torch.float32)
+    ms = ms.to(torch.int64)
+    G = ms.shape[0]
+    T = W.shape[0]
+    M = T // G
+    i, diff = 0, float("inf")
+    while i < max_iter and diff >= tol:
+        WU = W @ U
+        V = WU @ (U.T @ WU)
+        # exact-rescale overflow guard: the projection depends on V / tau
+        # only, so dividing both by c is the identity; c > 1 only when V
+        # nears the float32 ceiling (the universe learner's 1e8 adjacency
+        # scale, cubed)
+        c = torch.clamp(torch.max(torch.abs(V)) / 1e30, min=1.0)
+        U_new = _project_blocks((V / c).reshape(G, M, n_univ), ms, n_univ, tau=sk_tau / c,
+                                sk_iter=sk_iter, solve=sinkhorn_batched).reshape(T, n_univ)
+        diff = float(_fro(U_new - U))
+        U = U_new
+        i += 1
+    return (U, i) if return_steps else U
 
 
 def _gagm_round(A, W, U0, ms, n_univ, *, tau, sk_iter, max_iter, tol, quad_weight,

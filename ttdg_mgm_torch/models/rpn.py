@@ -1,10 +1,15 @@
-"""Region Proposal Network, inference path (detectron2 semantics).
+"""Region Proposal Network (detectron2 semantics).
 
 Counterpart of ``ttdg_mgm_tpu/models/rpn.py``: ``RPNHead``,
 ``level_anchors`` and ``generate_proposals`` -- per-level top-k, decode,
 clip, per-level NMS, merge by score -- on fixed capacities with validity
-masks.  Scores flatten per level in (H, W, A) order, as the anchors do, so
-top-k ties break as in the JAX package.
+masks, and the training losses (``match_anchors``, ``subsample_indices``,
+``subsample_labels``, ``rpn_losses``).  Scores flatten per level in (H, W, A)
+order, as the anchors do, so top-k ties break as in the JAX package.
+
+The JAX losses draw their sampling uniforms from ``jax.random`` inside;
+here the caller hands them in as a tensor, so both packages can be fed the
+same numbers.
 """
 
 from __future__ import annotations
@@ -13,7 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ttdg_mgm_torch.ops.boxes import cell_anchors, clip_boxes, decode_boxes, grid_anchors
+from ttdg_mgm_torch.ops.boxes import (cell_anchors, clip_boxes, decode_boxes, encode_boxes,
+                                      grid_anchors, pairwise_iou)
 from ttdg_mgm_torch.ops.nms import nms_mask, stable_topk
 
 ANCHOR_SIZES = ((32,), (64,), (128,), (256,), (512,))
@@ -55,7 +61,9 @@ def generate_proposals(logits, regs, anchors, image_sizes, *, pre_nms_topk: int 
     logits: list of ``(B, H, W, A)``; regs: list of ``(B, H, W, 4A)``;
     anchors: list of ``(H*W*A, 4)``; image_sizes ``(B, 2)`` valid (h, w).
     Returns ``(boxes (B, K, 4), scores (B, K), valid (B, K))``, K =
-    ``post_nms_topk``, sorted by score, detached.
+    ``post_nms_topk``, sorted by score, detached: d2 treats proposals as
+    fixed, and the box and mask losses would otherwise back-propagate into
+    the box decode through the pool's sampling coordinates.
     """
     B = logits[0].shape[0]
     K = pre_nms_topk
@@ -90,3 +98,93 @@ def generate_proposals(logits, regs, anchors, image_sizes, *, pre_nms_topk: int 
     zero = torch.zeros((), device=boxes.device)
     return (torch.where(v[..., None], boxes, zero).detach(),
             torch.where(v, top_s, zero).detach(), v)
+
+
+def match_anchors(anchors, gt_boxes, gt_valid, *, low_thresh: float = 0.3,
+                  high_thresh: float = 0.7):
+    """d2 Matcher with ``allow_low_quality_matches``, batched over images.
+
+    anchors ``(N, 4)``; gt_boxes ``(B, G, 4)``; gt_valid ``(B, G)``.  Returns
+    ``(labels (B, N), matched_gt (B, N))``: labels 1 positive, 0 negative,
+    -1 ignored; matched_gt the argmax GT index of every anchor."""
+    iou = pairwise_iou(anchors, gt_boxes)  # (B, N, G)
+    iou = torch.where(gt_valid[:, None, :], iou, torch.full((), -1.0, device=iou.device))
+    best, matched = iou.max(dim=-1)
+    one = torch.ones((), dtype=torch.int64, device=iou.device)
+    labels = torch.where(best >= high_thresh, one,
+                         torch.where(best < low_thresh, 0 * one, -one))
+    # low-quality matches: for each GT, the anchors that reach its best IoU
+    best_per_gt = iou.max(dim=1, keepdim=True).values  # (B, 1, G)
+    lq = ((iou == best_per_gt) & (best_per_gt > 0) & gt_valid[:, None, :]).any(dim=-1)
+    labels = torch.where(lq, one, labels)
+    no_gt = ~gt_valid.any(dim=-1, keepdim=True)
+    return torch.where(no_gt, 0 * one, labels), matched
+
+
+def subsample_indices(labels, uniforms, num_samples: int = 256,
+                      positive_fraction: float = 0.5):
+    """d2 ``subsample_labels`` as compact index sets: a uniform random subset
+    of the positives, up to ``num_samples * positive_fraction``, negatives
+    fill the rest.  labels, uniforms ``(B, N)``.  Returns ``(pos_idx (B,
+    P), pos_take (B, P), neg_idx (B, S), neg_take (B, S))``; the ``take``
+    masks flag the live slots."""
+    num_pos_target = int(num_samples * positive_fraction)
+    pos = labels == 1
+    neg = labels == 0
+    minus = torch.full((), -1.0, device=labels.device)
+    _, pos_idx = stable_topk(torch.where(pos, uniforms, minus), num_pos_target)
+    num_pos = pos.sum(dim=-1, keepdim=True).clamp(max=num_pos_target)
+    pos_take = torch.arange(num_pos_target, device=labels.device) < num_pos
+    _, neg_idx = stable_topk(torch.where(neg, uniforms, minus), num_samples)
+    num_neg = torch.minimum(num_samples - num_pos, neg.sum(dim=-1, keepdim=True))
+    neg_take = torch.arange(num_samples, device=labels.device) < num_neg
+    return pos_idx, pos_take, neg_idx, neg_take
+
+
+def subsample_labels(labels, uniforms, num_samples: int = 256,
+                     positive_fraction: float = 0.5):
+    """Mask-shaped view of :func:`subsample_indices`: ``(sampled (B, N),
+    positive (B, N))`` bool."""
+    pos_idx, pos_take, neg_idx, neg_take = subsample_indices(labels, uniforms, num_samples,
+                                                             positive_fraction)
+    n = labels.shape[1]
+    buf = torch.zeros((labels.shape[0], n + 1), dtype=torch.bool, device=labels.device)
+    buf.scatter_(1, torch.where(pos_take, pos_idx, n), True)  # column n takes the dropped
+    pos_sel = buf[:, :n].clone()
+    buf.scatter_(1, torch.where(neg_take, neg_idx, n), True)
+    sel = buf[:, :n]
+    return sel, pos_sel
+
+
+def _bce(o, t: float):
+    o = o.clamp(-30.0, 30.0)
+    return o.clamp(min=0.0) - o * t + torch.log1p(torch.exp(-o.abs()))
+
+
+def rpn_losses(logits, regs, anchors, gt_boxes, gt_valid, uniforms, *,
+               batch_size_per_image: int = 256, positive_fraction: float = 0.5):
+    """d2 RPN losses: BCE objectness and L1 (smooth-l1 with beta 0) on the
+    deltas of the sampled anchors, normalised by ``B * batch_size_per_image``.
+
+    logits: list of ``(B, H, W, A)``; regs: list of ``(B, H, W, 4A)``;
+    anchors: list of ``(H*W*A, 4)``; gt_boxes ``(B, G, 4)``; gt_valid ``(B,
+    G)``; uniforms ``(B, N)`` in [0, 1), one per anchor, for the sampling."""
+    B = logits[0].shape[0]
+    anc = torch.cat(anchors, dim=0)
+    flat_logits = torch.cat([l.reshape(B, -1) for l in logits], dim=1)
+    flat_regs = torch.cat([r.reshape(B, -1, 4) for r in regs], dim=1)
+    labels, matched = match_anchors(anc, gt_boxes, gt_valid)
+    pos_idx, pos_take, neg_idx, neg_take = subsample_indices(
+        labels, uniforms, batch_size_per_image, positive_fraction)
+    # only the sampled anchors enter the losses: gather them first
+    gt_idx = torch.gather(matched, 1, pos_idx)
+    gt_sel = torch.gather(gt_boxes, 1, gt_idx[..., None].expand(*gt_idx.shape, 4))
+    gt_deltas = encode_boxes(anc[pos_idx], gt_sel)
+    reg_sel = torch.gather(flat_regs, 1, pos_idx[..., None].expand(*pos_idx.shape, 4))
+    zero = torch.zeros((), device=anc.device)
+    box_l = torch.where(pos_take[..., None], (reg_sel - gt_deltas).abs(), zero).sum()
+    obj_l = (torch.where(pos_take, _bce(torch.gather(flat_logits, 1, pos_idx), 1.0), zero).sum()
+             + torch.where(neg_take, _bce(torch.gather(flat_logits, 1, neg_idx), 0.0),
+                           zero).sum())
+    norm = B * batch_size_per_image
+    return {"loss_rpn_cls": obj_l / norm, "loss_rpn_loc": box_l / norm}

@@ -97,13 +97,20 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         cdll = ctypes.CDLL(_build())
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        cdll.ttdg_roi_pool.argtypes = [P, P, P, P] + [I] * 9 + [I, I, I] + [P] * 5 + [I, I, P, P]
+        # forward and backward pools: 4 level pointers, level count and
+        # shapes, C, R, K, the geometry, P, m, the cotangent or output, stream
+        pool_args = [P] * 4 + [I] * 9 + [I, I, I] + [P] * 5 + [I, I, P, P]
+        cdll.ttdg_roi_pool.argtypes = pool_args
         cdll.ttdg_roi_pool.restype = I
         cdll.ttdg_gagm.argtypes = ([P] * 14 + [I, I, I, I, F, F, I, I, I, I,
                                    ctypes.POINTER(F), P])
         cdll.ttdg_gagm.restype = I
         cdll.ttdg_gagm_smem_bytes.argtypes = [I, I, I]
         cdll.ttdg_gagm_smem_bytes.restype = I
+        cdll.ttdg_roi_pool_backward.argtypes = pool_args
+        cdll.ttdg_roi_pool_backward.restype = I
+        cdll.ttdg_sinkhorn.argtypes = [P] * 4 + [I] * 5 + [P, P]
+        cdll.ttdg_sinkhorn.restype = I
         _lib = cdll
     return _lib
 

@@ -1,5 +1,6 @@
 """Multi-level FPN ROIAlign, plain PyTorch: the plain version of the CUDA ROI
-pool (``ops/roi_pool.py``, ``csrc/roi_pool.cu``).
+pool and its backward (``ops/roi_pool.py``, ``csrc/roi_pool.cu``,
+``csrc/roi_pool_backward.cu``).
 
 Counterpart of ``ttdg_mgm_tpu/ops/roi_align.py``, the semantics of record of
 the JAX package's windowed Pallas pooler.  d2 ``ROIAlign(aligned=True)``:
@@ -9,9 +10,12 @@ coordinates clamp to the border.  ``sampling_ratio=0`` is d2's adaptive grid
 (``ceil(bin)`` samples per ROI and axis) on a static budget of
 ``ADAPTIVE_CAP`` sample slots per bin and axis; surplus slots weigh 0.
 
-The geometry helpers (:func:`assign_fpn_levels`, :func:`_axis_samples`) are
-shared with the CUDA kernel's wrapper, so kernel and plain version agree up
-to summation order.
+The geometry helpers (:func:`assign_fpn_levels`, :func:`_axis_samples`,
+:func:`roi_geometry`) are shared with the CUDA kernels' wrappers, so kernel
+and plain version agree up to summation order.  Also here: the pool's
+feature gradient (:func:`multilevel_roi_align_backward`, the plain version
+of the CUDA backward kernel) and :func:`mask_roi_align`, the GT-mask crop of
+the mask loss.
 """
 
 from __future__ import annotations
@@ -78,10 +82,12 @@ def roi_geometry(rois, level_shapes, *, strides=(4, 8, 16, 32),
     return levels, ys, wy, xs, wx, m
 
 
-def _bilinear_gather(flat, off, H, W, yy, xx):
-    """Bilinear samples of a flattened pyramid ``flat (N, C)`` at level-pixel
-    coordinates ``yy, xx (R, S)``; ``off``/``H``/``W`` ``(R, 1)`` per ROI.
-    Returns ``(R*S, C)`` with out-of-range samples zero."""
+def _bilinear_corners(off, H, W, yy, xx):
+    """The four bilinear corners of level-pixel coordinates ``yy, xx (R, S)``
+    in a flattened pyramid; ``off``/``H``/``W`` ``(R, 1)`` per ROI.  Returns
+    ``([row index (R*S,)] * 4, [weight (R*S, 1)] * 4, valid (R*S, 1))``:
+    samples outside ``[-1, H] x [-1, W]`` are invalid, in-range coordinates
+    clamp to the border."""
     Hf = H.to(torch.float32)
     Wf = W.to(torch.float32)
     valid = (yy > -1.0) & (yy < Hf) & (xx > -1.0) & (xx < Wf)
@@ -94,13 +100,25 @@ def _bilinear_gather(flat, off, H, W, yy, xx):
     ly = (y - y0).reshape(-1, 1)
     lx = (x - x0).reshape(-1, 1)
 
-    def g(yi, xi):
-        idx = off + yi.long() * W + xi.long()
-        return flat[idx.reshape(-1)]
+    def idx(yi, xi):
+        return (off + yi.long() * W + xi.long()).reshape(-1)
 
-    v = (g(y0, x0) * ((1 - ly) * (1 - lx)) + g(y0, x1) * ((1 - ly) * lx)
-         + g(y1, x0) * (ly * (1 - lx)) + g(y1, x1) * (ly * lx))
-    return torch.where(valid.reshape(-1, 1), v, v.new_zeros(()))
+    rows = [idx(y0, x0), idx(y0, x1), idx(y1, x0), idx(y1, x1)]
+    wts = [(1 - ly) * (1 - lx), (1 - ly) * lx, ly * (1 - lx), ly * lx]
+    return rows, wts, valid.reshape(-1, 1)
+
+
+def _pyramid_layout(level_shapes, levels, B: int, K: int, device):
+    """Per-ROI ``(off, H, W)`` ``(B*K, 1, 1)`` of the assigned level in one
+    flat ``(sum_l B*H_l*W_l, C)`` pyramid, and the level row counts."""
+    sizes = [B * h * w for h, w in level_shapes]
+    offs = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=device)
+    Hs = torch.tensor([h for h, _ in level_shapes], device=device)
+    Ws = torch.tensor([w for _, w in level_shapes], device=device)
+    lv = levels.long()
+    bidx = torch.arange(B * K, device=device) // K
+    off = (offs[lv] + bidx * Hs[lv] * Ws[lv])[:, None, None]
+    return off, Hs[lv][:, None, None], Ws[lv][:, None, None], sizes
 
 
 def multilevel_roi_align(feats, rois, *, strides=(4, 8, 16, 32),
@@ -114,28 +132,93 @@ def multilevel_roi_align(feats, rois, *, strides=(4, 8, 16, 32),
     B, K = rois.shape[:2]
     P = output_size
     C = feats[0].shape[-1]
-    dev = rois.device
     shapes = [(f.shape[1], f.shape[2]) for f in feats]
-    flat_rois = rois.reshape(B * K, 4)
     levels, ys, wy, xs, wx, m = roi_geometry(
-        flat_rois, shapes, strides=strides, output_size=P,
+        rois.reshape(B * K, 4), shapes, strides=strides, output_size=P,
         sampling_ratio=sampling_ratio, min_level=min_level)
     # one flat (sum_l B*H_l*W_l, C) pyramid; each bilinear corner is one row
     flat = torch.cat([f.reshape(-1, C) for f in feats], dim=0)
-    sizes = [B * h * w for h, w in shapes]
-    offs = torch.tensor([sum(sizes[:i]) for i in range(len(sizes))], device=dev)
-    Hs = torch.tensor([h for h, _ in shapes], device=dev)
-    Ws = torch.tensor([w for _, w in shapes], device=dev)
-    lv = levels.long()
-    bidx = torch.arange(B * K, device=dev) // K
-    H = Hs[lv][:, None, None]
-    W = Ws[lv][:, None, None]
-    off = (offs[lv] + bidx * Hs[lv] * Ws[lv])[:, None, None]
+    off, H, W, _ = _pyramid_layout(shapes, levels, B, K, rois.device)
     S = P * m
     yy = ys[:, :, None].expand(B * K, S, S)
     xx = xs[:, None, :].expand(B * K, S, S)
-    v = _bilinear_gather(flat, off, H, W, yy, xx)
+    rows, wts, valid = _bilinear_corners(off, H, W, yy, xx)
+    v = sum(flat[r] * w for r, w in zip(rows, wts))
+    v = torch.where(valid, v, v.new_zeros(()))
     swgt = (wy[:, :, None] * wx[:, None, :]).reshape(-1, 1)
     v = v * swgt
     out = v.reshape(B * K, P, m, P, m, C).sum(dim=(2, 4))
     return out.reshape(B, K, P, P, C)
+
+
+def multilevel_roi_align_backward(grad, level_shapes, rois, *, strides=(4, 8, 16, 32),
+                                  sampling_ratio: int = 0, min_level: int = 2):
+    """Feature gradient of :func:`multilevel_roi_align`: the plain version of
+    the CUDA backward kernel (``csrc/roi_pool_backward.cu``).
+
+    grad ``(B, K, P, P, C)`` cotangent of the pool; level_shapes
+    ``[(H_l, W_l)]``; rois ``(B, K, 4)``.  Returns ``[(B, H_l, W_l, C)]``:
+    each valid sample's bilinear-weighted cotangent ``index_add_``-ed into
+    its four corners.  No gradient reaches the ROIs.
+    """
+    B, K, P = rois.shape[0], rois.shape[1], grad.shape[2]
+    C = grad.shape[-1]
+    levels, ys, wy, xs, wx, m = roi_geometry(
+        rois.reshape(B * K, 4), level_shapes, strides=strides, output_size=P,
+        sampling_ratio=sampling_ratio, min_level=min_level)
+    off, H, W, sizes = _pyramid_layout(level_shapes, levels, B, K, rois.device)
+    S = P * m
+    yy = ys[:, :, None].expand(B * K, S, S)
+    xx = xs[:, None, :].expand(B * K, S, S)
+    rows, wts, valid = _bilinear_corners(off, H, W, yy, xx)
+    swgt = (wy[:, :, None] * wx[:, None, :]).reshape(-1, 1)
+    g = grad.reshape(B * K, P, 1, P, 1, C).expand(B * K, P, m, P, m, C).reshape(-1, C)
+    g = torch.where(valid, g * swgt, g.new_zeros(()))
+    flat = grad.new_zeros((sum(sizes), C))
+    for r, w in zip(rows, wts):
+        flat.index_add_(0, r, g * w)
+    parts = torch.split(flat, sizes, dim=0)
+    return [t.reshape(B, h, w, C) for t, (h, w) in zip(parts, level_shapes)]
+
+
+def _interp_matrix(coords, weights, size: int, n: int):
+    """Per-ROI separable bilinear interpolation matrix.
+
+    coords ``(S, P*n)`` sample positions along one axis of a ``size``-wide
+    canvas, weights ``(S, P*n)`` per-sample bin-average weights (from
+    :func:`_axis_samples`); returns ``(S, P, size)`` where row ``p`` holds
+    the weighted bilinear weights of that output bin's ``n`` sample slots.
+    Out-of-range samples (``[-1, size]`` exclusion) get all-zero weights;
+    in-range coordinates clamp to the border."""
+    valid = (coords > -1.0) & (coords < size)
+    c = coords.clamp(0.0, size - 1)
+    c0 = torch.floor(c)
+    c1 = torch.minimum(c0 + 1, torch.full((), size - 1.0, device=c.device))
+    frac = c - c0
+    iota = torch.arange(size, dtype=torch.float32, device=c.device)
+    m = ((iota == c0[..., None]) * (1.0 - frac)[..., None]
+         + (iota == c1[..., None]) * frac[..., None])  # (S, P*n, size)
+    m = torch.where(valid[..., None], m * weights[..., None], m.new_zeros(()))
+    s, pn, _ = m.shape
+    return m.reshape(s, pn // n, n, size).sum(dim=2)
+
+
+def mask_roi_align(masks, rois, *, output_size: int = 28, sampling_ratio: int = 2):
+    """ROIAlign (``aligned=True``) on single-channel canvases as two batched
+    products.
+
+    masks ``(S, H, W)`` float; rois ``(S, 4)`` xyxy in canvas coordinates
+    (one box per mask).  Returns ``(S, output_size, output_size)``: the
+    sampling of :func:`multilevel_roi_align` with ``C = 1``, computed as
+    ``Ry @ M @ Cx^T`` with per-ROI separable interpolation matrices
+    (``ttdg_mgm_tpu/ops/roi_align.py:mask_roi_align``)."""
+    H, W = masks.shape[-2:]
+    P = output_size
+    b = rois - 0.5
+    bin_w = (b[:, 2] - b[:, 0]) / P
+    bin_h = (b[:, 3] - b[:, 1]) / P
+    ys, wy, m = _axis_samples(b[:, 1], bin_h, P, sampling_ratio)
+    xs, wx, _ = _axis_samples(b[:, 0], bin_w, P, sampling_ratio)
+    ry = _interp_matrix(ys, wy, H, m)  # (S, P, H)
+    cx = _interp_matrix(xs, wx, W, m)  # (S, P, W)
+    return torch.matmul(torch.matmul(ry, masks.to(ry.dtype)), cx.transpose(1, 2))

@@ -3,13 +3,22 @@
 Counterpart of ``ttdg_mgm_tpu/ops/sinkhorn.py`` (pygmtools numerics):
 ``log_s = s / tau``, optional dummy rows at log value -100, ``max_iter``
 alternating row/column logsumexp normalisations starting with the rows,
-invalid entries exactly 0.  Plain differentiable PyTorch: the TTA loss
-back-propagates through :func:`sinkhorn_project`.
+invalid entries exactly 0.
+
+* :func:`sinkhorn`, :func:`sinkhorn_masked`: plain differentiable PyTorch
+  (the TTA loss and the universe learner back-propagate through them);
+* :func:`sinkhorn_batched`: the batched Sinkhorn kernel ``csrc/sinkhorn.cu``
+  (replacing ``ttdg_mgm_tpu/ops/pallas/sinkhorn_pallas.py:sinkhorn_pallas``)
+  on CUDA tensors without gradient, :func:`sinkhorn` on CPU tensors;
+* :func:`sinkhorn_project`: the orientation-robust projection; its caller
+  picks the solve (HiPPI's projection passes :func:`sinkhorn_batched`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ttdg_mgm_torch.ops import _cuda
 
 NEG_INF = -1.0e30  # stand-in for -inf that keeps the arithmetic NaN-free
 DUMMY_LOG_VALUE = -100.0
@@ -67,10 +76,66 @@ def sinkhorn(s, nrows=None, ncols=None, *, tau=1.0, max_iter: int = 10,
     return torch.exp(torch.where(real, log_s, neg)).to(orig_dtype)
 
 
-def sinkhorn_project(s, nrows=None, ncols=None, *, tau=1.0, max_iter: int = 10):
+def sinkhorn_masked(s, row_mask, *, tau: float = 1.0, max_iter: int = 10):
+    """Sinkhorn over an explicit (possibly non-contiguous) row mask, every
+    column valid, no dummy rows: rows and columns alternately normalised
+    over valid entries (rows first), invalid rows exactly 0.  The universe
+    learner's one global Sinkhorn over its padded-block score matrix."""
+    dev = s.device
+    live = row_mask[..., :, None].expand(s.shape)
+    neg = torch.full((), NEG_INF, device=dev)
+    log_s = torch.where(live, s.to(torch.float32) / tau, neg)
+    for i in range(max_iter):
+        log_s = log_s - _masked_logsumexp(log_s, -1 if i % 2 == 0 else -2)
+        log_s = torch.where(live, log_s, neg)
+    return torch.exp(torch.where(live, log_s, neg)).to(s.dtype)
+
+
+def sinkhorn_batched(s, nrows=None, ncols=None, *, tau=1.0, max_iter: int = 10,
+                     dummy_row: bool = False):
+    """:func:`sinkhorn` on a ``(N, n1, n2)`` float32 batch, no gradient:
+    the CUDA kernel on CUDA tensors, the plain version on CPU tensors.
+    ``tau`` is a number or a one-element tensor on ``s``'s device."""
+    if s.device.type == "cpu":
+        return sinkhorn(s, nrows, ncols, tau=tau, max_iter=max_iter, dummy_row=dummy_row)
+    dev = s.device
+    if dev.type != "cuda":
+        raise ValueError(f"sinkhorn_batched runs on CPU or CUDA tensors, got {dev}")
+    if s.dim() != 3:
+        raise ValueError(f"sinkhorn_batched takes (N, n1, n2), got {tuple(s.shape)}")
+    if torch.is_grad_enabled() and s.requires_grad:
+        raise ValueError("sinkhorn_batched has no backward: detach its input")
+    N, n1, n2 = s.shape
+    s = s.contiguous()
+    _cuda.require_cuda_f32("s", s, dev)
+    nr = _counts(nrows, (N,), n1, dev).contiguous()
+    nc = _counts(ncols, (N,), n2, dev).contiguous()
+    if isinstance(tau, torch.Tensor):
+        t = tau.detach().to(device=dev, dtype=torch.float32).reshape(1).contiguous()
+    else:
+        t = torch.full((1,), float(tau), dtype=torch.float32, device=dev)
+    out = torch.empty_like(s)
+    if N == 0:
+        return out
+    err = _cuda.lib().ttdg_sinkhorn(s.data_ptr(), nr.data_ptr(), nc.data_ptr(), t.data_ptr(),
+                                    N, n1, n2, int(max_iter), int(dummy_row), out.data_ptr(),
+                                    _cuda.stream_ptr(dev))
+    _cuda.check(err, "sinkhorn kernel")
+    sinkhorn_batched.launches += 1
+    return out
+
+
+#: kernel launches since the count was last reset (plain CPU calls not counted)
+sinkhorn_batched.launches = 0
+
+
+def sinkhorn_project(s, nrows=None, ncols=None, *, tau=1.0, max_iter: int = 10,
+                     solve=sinkhorn):
     """Orientation-robust projection on a rectangular ``(..., N1, N2)``:
     instances with more valid rows than columns are solved transposed (both
-    orientations in one batched solve, selected per instance)."""
+    orientations in one batched solve, selected per instance).  ``solve``
+    is :func:`sinkhorn` or :func:`sinkhorn_batched`, called once on the
+    ``(N, n, n)`` stack of both orientations."""
     batch_shape = s.shape[:-2]
     n1, n2 = s.shape[-2], s.shape[-1]
     dev = s.device
@@ -81,7 +146,8 @@ def sinkhorn_project(s, nrows=None, ncols=None, *, tau=1.0, max_iter: int = 10):
     both = torch.stack([sq, sq.transpose(-1, -2)], dim=0)
     rows_b = torch.stack([nrows, ncols], dim=0)
     cols_b = torch.stack([ncols, nrows], dim=0)
-    solved = sinkhorn(both, rows_b, cols_b, tau=tau, max_iter=max_iter, dummy_row=True)
+    solved = solve(both.reshape(-1, n, n), rows_b.reshape(-1), cols_b.reshape(-1), tau=tau,
+                   max_iter=max_iter, dummy_row=True).reshape(both.shape)
     out = torch.where((nrows <= ncols)[..., None, None], solved[0],
                       solved[1].transpose(-1, -2))
     return out[..., :n1, :n2]
