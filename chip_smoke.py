@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``ttdg_mgm_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--warm]
+    python3 chip_smoke.py [--profile] [--warm] [--dump-dir DIR]
 
 Phases, each of which exits non-zero when it fails:
 
@@ -10,7 +10,11 @@ Phases, each of which exits non-zero when it fails:
 2. the ROI pool kernel (``csrc/roi_pool.cu``) against its plain PyTorch
    version at the flagship shapes: FPN levels p2-p5 of 4 images at 800 px,
    256 channels; the 7x7 box pool of 4 x 1000 ROIs and the 14x14 mask pool
-   of 4 x 100 ROIs, with elongated and out-of-range ROIs among them;
+   of 4 x 100 ROIs, with elongated and out-of-range ROIs among them; before
+   each pool, the kernels' device geometry (``csrc/roi_geometry.cuh``)
+   against ``ops/roi_align.py:roi_geometry`` on the same ROIs (levels and
+   sample counts equal, positions within 1 ulp); the wrapper's time apart
+   from the bare kernel's;
 3. the fused GA-GM kernel (``csrc/gagm.cu``) against its plain version on
    planted problems at the flagship size (4 graphs of 60 nodes, a 32-slot
    universe), one with 2 graphs, one with every graph at or below the
@@ -18,8 +22,15 @@ Phases, each of which exits non-zero when it fails:
 4. the eval-only TTA path end to end: the flagship R50-FPN Mask R-CNN at
    full width with seeded random weights, 3 TTA steps and one
    ``forward_inference`` on 4 synthetic 800x800 images, with both kernels'
-   launch counters read around it; then a narrow copy of the model on the
-   GPU and on the CPU (plain versions) compared on a small input;
+   launch counters read around it, keeping a copy of every input the TTA
+   steps give the GA-GM solver; then kernel B on those inputs: its time by
+   CUDA events, its steps per round and its bound from them, the in-kernel
+   clock split of an annealed and of a finale step, and the checks that are
+   well-posed although the unconverged finale is chaotic (the annealed
+   rounds against the plain version; one finale step: the power step
+   against the plain one, and the 0/1 output against the host LAP of the
+   kernel's own power step, bit for bit); then a narrow copy of the model on
+   the GPU and on the CPU (plain versions) compared on a small input;
 5. the training pools at the flagship training shapes: levels of 8 images
    at 800 px, 256 channels; the box pool's 8 x 512 ROIs at P=7 and the mask
    pool's 8 x 128 at P=14, clustered around two boxes per image as sampled
@@ -51,6 +62,9 @@ device line ``{"ok": true, "device": {...}}``.
 step under ``torch.profiler`` (device time by kernel, device busy share):
 five TTA steps, and one source step.
 
+``--dump-dir DIR`` saves the GA-GM inputs of the TTA steps to
+``DIR/gagm_inputs.pt`` (for ``scripts/time_kernels.py --gagm-input``).
+
 ``--warm`` adds the answer to whether the GA-GM finale converges on a
 trained detector: a fresh flagship model warmed by ``bench.py:warm_params``'s
 recipe (120 source steps at 320 px, batch 4, the same schedule and clip),
@@ -76,6 +90,12 @@ ROI_TOL = dict(atol=2e-5, rtol=1e-4)
 # (tests/test_pallas.py:253-255 bound for the windowed backward)
 ROI_BWD_TOL = dict(atol=3e-4, rtol=1e-3)
 GAGM_ATOL = 1e-5
+# the annealed rounds on the main path's inputs: U is a soft assignment in
+# [0, 1]; the kernel and cuBLAS sum the products in other orders, and V / tau
+# down to tau = 0.0125 amplifies that over the rounds' ~10 steps
+GAGM_ANNEAL_ATOL = 2e-3
+# one power step: float32 sums of up to 240 terms in another order
+GAGM_V_RTOL = 1e-5
 SINKHORN_ATOL = 1e-5  # tests/test_pallas.py:166
 # the flagship model's solver settings (graph/mgm.py, build.py)
 GAGM_KW = dict(quad_weight=0.5, mgm_iter=200, sk_iter=20, sk_tau0=0.1, sk_gamma=0.5,
@@ -193,16 +213,69 @@ def roi_pool_work(torch, feats, rois, P: int):
     return touched * C * 4 + out_bytes + rois.numel() * 4, 10.0 * pairs * C
 
 
+def check_roi_geometry(torch, rois, shapes, P: int, what: str):
+    """The kernels' device geometry (``csrc/roi_geometry.cuh``) against its
+    plain version ``ops/roi_align.py:roi_geometry`` on the same ROIs: levels
+    and weights (so sample counts) equal, positions within 1 ulp.  Returns
+    the largest position difference in ulps."""
+    from ttdg_mgm_torch.ops.roi_align import roi_geometry
+    from ttdg_mgm_torch.ops.roi_pool import roi_geometry_device
+
+    flat = rois.reshape(-1, 4)
+    want = roi_geometry(flat, shapes, output_size=P)
+    got = roi_geometry_device(flat, len(shapes), output_size=P)
+    torch.cuda.synchronize()
+    check(got[5] == want[5], f"{what}: sample slots per bin {got[5]} vs {want[5]}")
+    check(bool(torch.equal(got[0], want[0])), f"{what}: device geometry assigns other levels")
+    ulps = 0.0
+    for k, name in ((2, "wy"), (4, "wx")):
+        check(bool(torch.equal(got[k], want[k])),
+              f"{what}: device geometry {name} differs (sample counts or weights)")
+    for k in (1, 3):
+        ulp = torch.abs(want[k]) * 2.0 ** -23 + 1e-30
+        ulps = max(ulps, (torch.abs(got[k] - want[k]) / ulp).max().item())
+    counts = (want[2] > 0).sum(1).float().mean().item() / P
+    log(f"{what}: device geometry of {flat.shape[0]} ROIs equals roi_geometry: levels and "
+        f"weights identical (mean {counts:.2f} samples per bin and axis), positions within "
+        f"{ulps:.2f} ulp (bound 1)")
+    check(ulps <= 1.0, f"{what}: device geometry positions differ by {ulps} ulp")
+    return ulps
+
+
+def pool_split_ms(torch, feats_or_grads, shapes, rois, P: int, C: int, other, backward: bool):
+    """Kernel A's (or C's) time apart from its wrapper's: CUDA events around
+    the argument set-up alone, and around the bare launch through the C entry
+    point with the set-up done once.  ``other`` is the forward's output buffer
+    or the backward's cotangent.  Returns ``(args_ms, kernel_only_ms)``."""
+    from ttdg_mgm_torch.ops import _cuda
+    from ttdg_mgm_torch.ops import roi_pool as rp
+
+    name = "multilevel_roi_pool_backward" if backward else "multilevel_roi_pool"
+    make = lambda: rp._kernel_args(name, feats_or_grads, shapes, rois, C, P,  # noqa: E731
+                                   (4, 8, 16, 32), 0, 2)
+    args_ms = event_ms(torch, make, 20)
+    args = make()
+    fn = _cuda.lib().ttdg_roi_pool_backward if backward else _cuda.lib().ttdg_roi_pool
+    stream = _cuda.stream_ptr(rois.device)
+
+    def launch():
+        _cuda.check(fn(*args, other.data_ptr(), stream), name)
+
+    return args_ms, event_ms(torch, launch, 20)
+
+
 def phase_roi_pool(torch, dev, B: int = 4, S: int = 800, C: int = 256,
-                   box_rois: int = 1000, mask_rois: int = 100):
+                   box_rois: int = 1000, mask_rois: int = 100, profile: bool = False):
     from ttdg_mgm_torch.ops.roi_align import multilevel_roi_align
     from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool
 
     gen = torch.Generator().manual_seed(1)
     feats = [torch.randn((B, S // s, S // s, C), generator=gen).to(dev) for s in (4, 8, 16, 32)]
     res = {}
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
     for name, K, P in (("box", box_rois, 7), ("mask", mask_rois, 14)):
         rois = make_rois(torch, gen, B, K, S).to(dev)
+        ulps = check_roi_geometry(torch, rois, shapes, P, f"roi_pool {name}")
         got = multilevel_roi_pool(feats, rois, output_size=P)
         want = multilevel_roi_align(feats, rois, output_size=P)
         torch.cuda.synchronize()
@@ -214,15 +287,25 @@ def phase_roi_pool(torch, dev, B: int = 4, S: int = 800, C: int = 256,
             f"(atol {ROI_TOL['atol']}, rtol {ROI_TOL['rtol']}) -> {'ok' if ok else 'FAIL'}")
         check(ok, f"roi_pool {name}: kernel disagrees with the plain version ({err})")
         ms = event_ms(torch, lambda: multilevel_roi_pool(feats, rois, output_size=P), 20)
+        args_ms, only_ms = pool_split_ms(torch, feats, shapes, rois, P, C, got, False)
         plain_ms = event_ms(torch, lambda: multilevel_roi_align(feats, rois, output_size=P), 2)
         torch.cuda.empty_cache()
         nbytes, flops = roi_pool_work(torch, feats, rois, P)
         b_ms, b_by = bound(nbytes, flops)
-        log(f"roi_pool {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        log(f"roi_pool {name}: wrapper {ms:.4f} ms (its argument set-up {args_ms:.4f} ms, the "
+            f"kernel alone {only_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        res[name] = dict(max_abs_err=err, ms=ms, kernel_only_ms=only_ms, args_ms=args_ms,
+                         geometry_ulps=ulps, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          shape=f"levels ({B}, {S // 4}..{S // 32}, {S // 4}..{S // 32}, {C}) f32, "
                                f"rois ({B}, {K}, 4), P={P}")
+        if profile:
+            # the wrapper's whole device work is its one kernel
+            _, by_kernel = profile_call(
+                torch, lambda: multilevel_roi_pool(feats, rois, output_size=P),
+                f"multilevel_roi_pool call ({name} pool)")
+            check(len(by_kernel) == 1 and "roi_pool_kernel" in next(iter(by_kernel)),
+                  f"roi_pool {name}: the wrapper ran other device work: {sorted(by_kernel)}")
     return res
 
 
@@ -277,24 +360,29 @@ def phase_roi_backward(torch, dev, B: int = 8, S: int = 800, C: int = 256,
     res, fwd = {}, {}
     for name, K, P in (("box", box_rois, 7), ("mask", mask_rois, 14)):
         rois = make_train_rois(torch, gen, B, K, S).to(dev)
+        ulps = check_roi_geometry(torch, rois, shapes, P, f"roi_pool train {name}")
         got = multilevel_roi_pool(feats, rois, output_size=P)
         want = multilevel_roi_align(feats, rois, output_size=P)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(got).all()), f"roi_pool train {name}: non-finite output")
         err = (got - want).abs().max().item()
         ok = torch.allclose(got, want, **ROI_TOL)
-        del got, want
+        del want
         log(f"roi_pool train {name} pool of {B} x {K} training ROIs, P={P}: max_abs_err "
             f"{err:.3e} (atol {ROI_TOL['atol']}, rtol {ROI_TOL['rtol']}) -> {'ok' if ok else 'FAIL'}")
         check(ok, f"roi_pool train {name}: kernel disagrees with the plain version ({err})")
         ms = event_ms(torch, lambda: multilevel_roi_pool(feats, rois, output_size=P), 20)
+        args_ms, only_ms = pool_split_ms(torch, feats, shapes, rois, P, C, got, False)
+        del got
         plain_ms = event_ms(torch, lambda: multilevel_roi_align(feats, rois, output_size=P), 2)
         torch.cuda.empty_cache()
         nbytes, flops = roi_pool_work(torch, feats, rois, P)
         b_ms, b_by = bound(nbytes, flops)
-        log(f"roi_pool train {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        log(f"roi_pool train {name}: wrapper {ms:.4f} ms (its argument set-up {args_ms:.4f} ms, "
+            f"the kernel alone {only_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        fwd[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        fwd[name] = dict(max_abs_err=err, ms=ms, kernel_only_ms=only_ms, args_ms=args_ms,
+                         geometry_ulps=ulps, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          shape=f"levels ({B}, {S // 4}..{S // 32}, {S // 4}..{S // 32}, {C}) f32, "
                                f"rois ({B}, {K}, 4) clustered training ROIs, P={P}")
         g = torch.randn((B, K, P, P, C), generator=gen).to(dev)
@@ -311,15 +399,23 @@ def phase_roi_backward(torch, dev, B: int = 8, S: int = 800, C: int = 256,
             f"(atol {ROI_BWD_TOL['atol']}, rtol {ROI_BWD_TOL['rtol']}) -> {'ok' if ok else 'FAIL'}")
         check(ok, f"roi_pool_backward {name}: kernel disagrees with the plain version ({err})")
         ms = event_ms(torch, lambda: multilevel_roi_pool_backward(g, shapes, rois), 20)
+        # the bare launch keeps adding into one set of gradients: the same
+        # atomics on the same rows, without the wrapper's zeroing
+        grads = [torch.zeros_like(f) for f in feats]
+        args_ms, only_ms = pool_split_ms(torch, grads, shapes, rois, P, C, g, True)
+        del grads
         plain_ms = event_ms(torch, lambda: multilevel_roi_align_backward(g, shapes, rois), 2)
         torch.cuda.empty_cache()
         nbytes, flops, design_bytes = roi_backward_work(torch, feats, rois, P)
         b_ms, b_by = bound(nbytes, flops)
         design_ms = design_bytes / PEAK_BYTES_PER_S * 1e3
-        log(f"roi_pool_backward {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        log(f"roi_pool_backward {name}: wrapper {ms:.4f} ms (its argument set-up {args_ms:.4f} "
+            f"ms, the kernel alone {only_ms:.4f} ms, the rest zeroes the level gradients), "
+            f"plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); the "
             f"atomic design moves {design_bytes / 1e6:.1f} MB ({design_ms:.4f} ms)")
-        res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        res[name] = dict(max_abs_err=err, ms=ms, kernel_only_ms=only_ms, args_ms=args_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          design_bytes_ms=design_ms,
                          shape=f"g ({B}, {K}, {P}, {P}, {C}) f32 -> levels ({B}, {S // 4}..{S // 32}"
                                f", {S // 4}..{S // 32}, {C}), clustered training ROIs")
@@ -556,8 +652,8 @@ def phase_gagm(torch, dev, n: int = 60):
         ms_k = event_ms(torch, lambda: ga_gm_fused(*args, univ, lap_iter_cap=200, **GAGM_KW), 5)
         plain_ms = host_ms(torch, lambda: ga_gm(*args, univ, hung_iter_cap=200, **GAGM_KW))
         T = G * n
-        flops = sum(steps) * (4.0 * T ** 3 + 6.0 * T * T * univ)
-        nbytes = (2 * T * T + 2 * T * univ + G) * 4
+        flops = gagm_flops(G, n, univ, sum(steps))
+        nbytes = (G * n * n + T * T + 2 * T * univ + G) * 4
         b_ms, b_by = bound(nbytes, flops)
         log(f"gagm {name}: kernel {ms_k:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
             f"by {b_by} ({sum(steps)} power steps, {flops / 1e9:.3f} GFLOP)")
@@ -565,6 +661,138 @@ def phase_gagm(torch, dev, n: int = 60):
                          bound_by=b_by, steps=steps,
                          shape=f"A, W ({T}, {T}) f32, U0 ({T}, {univ}), ms {list(map(int, ms))}")
     return res
+
+
+def gagm_flops(G: int, M: int, univ: int, steps: int) -> float:
+    """Float operations ``steps`` power steps need on a block-diagonal ``A``:
+    per pair of graphs ``U_g U_j^T``, the two products with ``A``'s blocks
+    and the product with ``U_j``; then ``W U``.  The zero blocks of ``A``
+    need no multiply."""
+    T = G * M
+    return steps * (G * G * (4.0 * M ** 3 + 4.0 * M * M * univ) + 2.0 * T * T * univ)
+
+
+def capture_gagm():
+    """Wraps the solver as ``graph/mgm.py`` calls it to keep a copy of each
+    call's inputs.  Returns the record and the function that undoes it."""
+    import ttdg_mgm_torch.graph.mgm as mgm
+
+    record, real = [], mgm.ga_gm_fused
+
+    def solve(A, W, U0, ms, n_univ, **kw):
+        record.append((A.clone(), W.clone(), U0.clone(), ms.clone(), n_univ,
+                       {k: v for k, v in kw.items() if k != "return_steps"}))
+        return real(A, W, U0, ms, n_univ, **kw)
+
+    def undo():
+        mgm.ga_gm_fused = real
+
+    mgm.ga_gm_fused = solve
+    return record, undo
+
+
+def clock_split(clk, kind: str):
+    """One kind of round (``"anneal"`` or ``"finale"``) of kernel B's clock
+    table as microseconds per step, by phase."""
+    mhz = (clk[14] - clk[15]) / (clk[13] / 1e3)  # SM cycles per microsecond
+    o = 6 if kind == "finale" else 0
+    steps = max(clk[o + 5], 1)
+    names = ("products", "projection", "wait_products", "publish_U", "closing_barrier")
+    out = {n: clk[o + i] / mhz / steps for i, n in enumerate(names)}
+    if kind == "finale":
+        out["lap_recurrence"] = clk[12] / mhz / steps
+    out["steps"] = clk[o + 5]
+    out["sm_mhz"] = mhz
+    return out
+
+
+def phase_gagm_main(torch, dev, record, dump_dir=None):
+    """Kernel B on the inputs the TTA steps gave it (``record``, from
+    :func:`capture_gagm`).  On the first: its time by CUDA events, its steps
+    per round, its bound from those steps, and the in-kernel clock split of
+    an annealed and of a finale step.  On every input, the two parts of the
+    solve that are well-posed although the unconverged finale is chaotic:
+    (a) the annealed rounds alone against the plain version; (b) one finale
+    step from that U: the kernel's power step V against the plain one, and
+    the kernel's 0/1 output against the host LAP of the kernel's own V."""
+    from ttdg_mgm_torch.graph.solvers import _project_blocks, ga_gm
+    from ttdg_mgm_torch.ops.gagm import ga_gm_fused
+    from ttdg_mgm_torch.ops.lap import lap_slots_to_nodes
+
+    check(len(record) > 0, "gagm main path: the TTA steps made no solver call")
+    if dump_dir:
+        os.makedirs(dump_dir, exist_ok=True)
+        torch.save([(A.cpu(), W.cpu(), U0.cpu(), ms.cpu(), nu, kw)
+                    for A, W, U0, ms, nu, kw in record], os.path.join(dump_dir, "gagm_inputs.pt"))
+    A, W, U0, ms, nu, kw = record[0]
+    G, T = ms.shape[0], A.shape[0]
+    M = T // G
+    _, steps, clk = ga_gm_fused(A, W, U0, ms, nu, return_steps=True, return_clocks=True, **kw)
+    ms_k = event_ms(torch, lambda: ga_gm_fused(A, W, U0, ms, nu, **kw), 5)
+    pkw = {("hung_iter_cap" if k == "lap_iter_cap" else k): v for k, v in kw.items()}
+    plain_ms = host_ms(torch, lambda: ga_gm(A, W, U0, ms, nu, **pkw))
+    flops = gagm_flops(G, M, nu, sum(steps))
+    nbytes = (G * M * M + T * T + 2 * T * nu + G) * 4
+    b_ms, b_by = bound(nbytes, flops)
+    split = {k: clock_split(clk, k) for k in ("anneal", "finale")}
+    log(f"gagm main path, first captured input (A, W ({T}, {T}), U0 ({T}, {nu}), ms "
+        f"{ms.tolist()}): steps per round {steps}; kernel {ms_k:.4f} ms by events, plain "
+        f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms by {b_by} ({sum(steps)} power steps, "
+        f"{flops / 1e9:.3f} GFLOP)")
+    for kind, sp in split.items():
+        log(f"gagm main path, in-kernel clocks of block 0, microseconds per {kind} step over "
+            f"{sp['steps']} steps at {sp['sm_mhz']:.0f} MHz: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in sp.items() if k not in ("steps", "sm_mhz")))
+
+    worst_a, worst_v, differ_plain, lap_stats = 0.0, 0.0, 0, {}
+    for i, (A, W, U0, ms, nu, kw) in enumerate(record):
+        pkw = {("hung_iter_cap" if k == "lap_iter_cap" else k): v for k, v in kw.items()}
+        # (a) the annealed rounds: soft assignments in [0, 1]; the products'
+        # float32 summation order differs, V / tau at tau = 0.0125 amplifies
+        # it 80 times per step over ~10 steps
+        Ua, st_k = ga_gm_fused(A, W, U0, ms, nu, return_steps=True, **{**kw, "lap_iter_cap": 0})
+        Up, st_p = ga_gm(A, W, U0, ms, nu, return_steps=True, **{**pkw, "hung_iter_cap": 0})
+        err_a = (Ua - Up).abs().max().item()
+        worst_a = max(worst_a, err_a)
+        check(bool(torch.isfinite(Ua).all()) and err_a <= GAGM_ANNEAL_ATOL,
+              f"gagm main path {i}: annealed rounds differ from the plain version by {err_a} "
+              f"(steps {st_k} vs {st_p})")
+        # (b) one finale step from the kernel's annealed U
+        out, st, V = ga_gm_fused(A, W, Ua, ms, nu, return_steps=True, return_power_step=True,
+                                 **{**kw, "mgm_iter": 0, "lap_iter_cap": 1})
+        check(st[-1] == 1 and sum(st) == 1, f"gagm main path {i}: one-step mode took {st}")
+        Vp = ((A @ ((Ua @ Ua.T) @ A)) @ Ua * (kw["quad_weight"] * 2.0) + W @ Ua) / G
+        # the kernel computes, and the projection reads, each graph's valid rows
+        rows = (torch.arange(M, device=dev)[None, :] < ms[:, None]).reshape(T)
+        vmax = Vp[rows].abs().max().item()
+        err_v = (V - Vp)[rows].abs().max().item() / vmax
+        worst_v = max(worst_v, err_v)
+        check(err_v <= GAGM_V_RTOL, f"gagm main path {i}: power step differs by {err_v} of "
+                                    f"its largest entry")
+        Vg = V.reshape(G, M, nu)
+        want = lap_slots_to_nodes(Vg, ms, lap_stats).reshape(T, nu)
+        same = [bool(torch.equal(out.reshape(G, M, nu)[g], want.reshape(G, M, nu)[g]))
+                for g in range(G)]
+        check(all(same), f"gagm main path {i}: the kernel's LAP differs from the host LAP of "
+                         f"its own V in graphs {[g for g, ok in enumerate(same) if not ok]}")
+        plain = _project_blocks(Vg, ms.long(), nu, tau=1.0, sk_iter=0, exact_hungarian=True)
+        differ_plain += sum(1 for g in range(G)
+                            if not torch.equal(out.reshape(G, M, nu)[g], plain[g]))
+        log(f"gagm main path input {i}: annealed rounds steps kernel {st_k[:-1]} plain "
+            f"{st_p[:-1]}, max |U diff| {err_a:.3e} (atol {GAGM_ANNEAL_ATOL}); one finale "
+            f"step: |V diff| {err_v:.3e} of max|V| {vmax:.3e} (bound {GAGM_V_RTOL}), LAP equal "
+            f"to the host LAP of the kernel's V in all {G} graphs")
+    search_steps = lap_stats["search_steps"] / (G * len(record))
+    log(f"gagm main path: the host LAP of one finale step takes {search_steps:.1f} search steps "
+        f"per graph (mean over {G * len(record)} graphs)")
+    log(f"gagm main path: {len(record)} inputs held; the plain projection, which solves "
+        f"ms <= universe graphs in the other orientation, picks another assignment of the "
+        f"same V in {differ_plain} of {G * len(record)} graphs")
+    return dict(ms_main=ms_k, plain_ms_main=plain_ms, bound_ms_main=b_ms, bound_by_main=b_by,
+                steps_main=steps, clock_split_us=split, anneal_max_abs_err=worst_a,
+                power_step_rel_err=worst_v, inputs_checked=len(record),
+                plain_lap_differs_in_graphs=differ_plain, lap_search_steps_per_graph=search_steps,
+                shape_main=f"A, W ({T}, {T}) f32, U0 ({T}, {nu}), ms {ms.tolist()}")
 
 
 # -- phase 4: end to end -----------------------------------------------------------
@@ -589,19 +817,25 @@ def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
     step_ms, losses = [], []
-    for i in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = float(step(batch))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss)
-        mgm = model.multi_matching_unsup
-        nodes = mgm.last_node_counts
-        log(f"e2e TTA step {i}: loss {loss:.6f}, valid nodes per graph {nodes}, "
-            f"solver steps {mgm.last_solver_steps}, {step_ms[-1]:.1f} ms")
-        check(math.isfinite(loss) and loss > 0.0, f"step {i}: loss {loss} is not finite and > 0")
-        check(sum(1 for c in nodes if c > 0) >= 2, f"step {i}: fewer than two graphs with nodes")
+    gagm_inputs, undo = capture_gagm()
+    try:
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(batch))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            mgm = model.multi_matching_unsup
+            nodes = mgm.last_node_counts
+            log(f"e2e TTA step {i}: loss {loss:.6f}, valid nodes per graph {nodes}, "
+                f"solver steps {mgm.last_solver_steps}, {step_ms[-1]:.1f} ms")
+            check(math.isfinite(loss) and loss > 0.0,
+                  f"step {i}: loss {loss} is not finite and > 0")
+            check(sum(1 for c in nodes if c > 0) >= 2,
+                  f"step {i}: fewer than two graphs with nodes")
+    finally:
+        undo()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = model.forward_inference(batch["image"], batch["image_sizes"])
@@ -614,7 +848,8 @@ def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
         f"median after warm-up {steady:.1f} ms = {4e3 / steady:.2f} images/s; forward_inference "
         f"{infer_ms:.1f} ms; peak memory {peak_gb:.2f} GiB; launches {launches}")
     check(launches["roi_pool"] >= 1, "the ROI pool kernel was not launched on the main path")
-    check(launches["gagm"] >= 1, "the GA-GM kernel was not launched on the main path")
+    check(launches["gagm"] == 3, f"the GA-GM kernel was launched {launches['gagm']} times in "
+                                 f"3 TTA steps, not once per step")
 
     D = model.detections_per_image
     shapes = {"boxes": (4, D, 4), "scores": (4, D), "classes": (4, D), "valid": (4, D),
@@ -633,7 +868,8 @@ def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
     del model, opt, step, out
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, steady_ms=steady, images_per_s=4e3 / steady, losses=losses,
-                infer_ms=infer_ms, peak_gib=peak_gb, launches=launches)
+                infer_ms=infer_ms, peak_gib=peak_gb, launches=launches,
+                gagm_inputs=gagm_inputs)
 
 
 def profile_step(torch, step, batch, solver_steps, extra_steps: int = 5):
@@ -686,7 +922,7 @@ def profile_call(torch, fn, what: str, extra=lambda: "", top: int = 25):
 def kernel_class(name: str) -> str:
     """Coarse class of a device kernel, by its name."""
     if any(k in name for k in ("roi_pool_kernel", "roi_pool_backward_kernel", "gagm_kernel",
-                               "sinkhorn_kernel")):
+                               "sinkhorn_kernel", "roi_geometry_kernel")):
         return "port kernels"
     if any(k in name for k in ("cudnn", "fft", "fprop", "dgrad", "wgrad", "winograd", "cf32",
                                "DSE::", "conv")):
@@ -886,9 +1122,13 @@ def main() -> int:
         f"(load {time.perf_counter() - t0:.1f} s)")
 
     profile = "--profile" in sys.argv[1:]
-    roi = phase_roi_pool(torch, dev)
+    dump_dir = None
+    if "--dump-dir" in sys.argv[1:]:
+        dump_dir = sys.argv[sys.argv.index("--dump-dir") + 1]
+    roi = phase_roi_pool(torch, dev, profile=profile)
     gagm = phase_gagm(torch, dev)
     e2e = phase_e2e(torch, dev, profile=profile)
+    gagm_main = phase_gagm_main(torch, dev, e2e.pop("gagm_inputs"), dump_dir=dump_dir)
     phase_small_reference(torch, dev)
     roi_bwd, roi_train = phase_roi_backward(torch, dev)
     src = phase_source(torch, dev, profile=profile)
@@ -907,8 +1147,10 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in (box, mask, *roi_train.values())),
              ms=box["ms"], plain_ms=box["plain_ms"], bound_ms=box["bound_ms"],
              bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
-             mask_pool={k: mask[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "max_abs_err", "shape")},
+             kernel_only_ms=box["kernel_only_ms"], args_ms=box["args_ms"],
+             geometry_ulps=max(r["geometry_ulps"] for r in (box, mask, *roi_train.values())),
+             mask_pool={k: mask[k] for k in ("ms", "kernel_only_ms", "args_ms", "plain_ms",
+                                             "bound_ms", "bound_by", "max_abs_err", "shape")},
              train_pools=roi_train),
         dict(name="gagm", route="cuda", source="ttdg_mgm_torch/csrc/gagm.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/gagm_pallas.py:53",
@@ -916,7 +1158,7 @@ def main() -> int:
              max_abs_err=max(r["max_abs_err"] for r in gagm.values()),
              ms=g4["ms"], plain_ms=g4["plain_ms"], bound_ms=g4["bound_ms"],
              bound_by=g4["bound_by"], library_ms=None, shape=g4["shape"],
-             steps=g4["steps"],
+             steps=g4["steps"], **gagm_main,
              other_cases={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "steps")}
                           for k, v in gagm.items() if k != "G4_M60"}),
         dict(name="roi_pool_backward", route="cuda",
@@ -927,8 +1169,10 @@ def main() -> int:
              max_abs_err=max(bbox["max_abs_err"], bmask["max_abs_err"]),
              ms=bbox["ms"], plain_ms=bbox["plain_ms"], bound_ms=bbox["bound_ms"],
              bound_by=bbox["bound_by"], library_ms=None, shape=bbox["shape"],
-             design_bytes_ms=bbox["design_bytes_ms"],
-             mask_pool={k: bmask[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+             design_bytes_ms=bbox["design_bytes_ms"], kernel_only_ms=bbox["kernel_only_ms"],
+             args_ms=bbox["args_ms"],
+             mask_pool={k: bmask[k] for k in ("ms", "kernel_only_ms", "args_ms", "plain_ms",
+                                              "bound_ms", "bound_by",
                                               "design_bytes_ms", "max_abs_err", "shape")}),
         dict(name="sinkhorn", route="cuda", source="ttdg_mgm_torch/csrc/sinkhorn.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/sinkhorn_pallas.py:31",

@@ -11,18 +11,26 @@ the JAX package: ROI pool atol 2e-5, rtol 1e-4 (same float32 bilinear
 arithmetic, another summation order); its backward atol 3e-4, rtol 1e-3
 (float32 atomics add in an order that changes from run to run); GA-GM atol
 1e-5 with identical 0/1 assignments on planted problems; batched Sinkhorn
-atol 1e-5.
+atol 1e-5.  The device ROI geometry must pick the plain geometry's levels and
+sample counts exactly and place the samples within 1 ulp.  On a random (not
+planted) problem one LAP finale step is held in two well-posed parts: the
+power step V within 1e-5 of its largest entry (float32 sums of some hundreds
+of terms in another order), and the kernel's 0/1 output equal to the plain
+exact LAP of the kernel's own V.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ttdg_mgm_torch.graph.solvers import ga_gm
-from ttdg_mgm_torch.ops.gagm import ga_gm_fused
-from ttdg_mgm_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_backward
+from ttdg_mgm_torch.graph.solvers import _project_blocks, ga_gm
+from ttdg_mgm_torch.ops.lap import lap_slots_to_nodes
+from ttdg_mgm_torch.ops import _cuda
+from ttdg_mgm_torch.ops.gagm import ga_gm_fused, padded_sizes, resident_smem_bytes
+from ttdg_mgm_torch.ops.roi_align import (multilevel_roi_align, multilevel_roi_align_backward,
+                                          roi_geometry)
 from ttdg_mgm_torch.ops.roi_pool import (multilevel_roi_pool, multilevel_roi_pool_backward,
-                                         multilevel_roi_pool_train)
+                                         multilevel_roi_pool_train, roi_geometry_device)
 from ttdg_mgm_torch.ops.sinkhorn import sinkhorn, sinkhorn_batched
 from ttdg_mgm_torch.synth import planted_matching_problem
 
@@ -60,6 +68,79 @@ def test_roi_pool_kernel_matches_plain(dev):
         torch.cuda.synchronize()
         assert multilevel_roi_pool.launches == before + 1
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("ratio", [0, 2])
+def test_device_geometry_matches_plain(dev, ratio):
+    """The kernels' own geometry (csrc/roi_geometry.cuh) against
+    ops/roi_align.py:roi_geometry on the card: compact, elongated,
+    degenerate and out-of-range ROIs."""
+    rng = np.random.RandomState(15)
+    wh = np.exp(rng.uniform(np.log(2.0), np.log(600.0), (400, 2))).astype(np.float32)
+    xy = rng.uniform(-60, 800, (400, 2)).astype(np.float32)
+    odd = np.array([[2, 3, 250, 18], [-40, -30, -2, -1], [8, 8, 8, 8], [0, 0, 799, 799],
+                    [10, 10, 9, 300], [0, 0, 112, 112], [0, 0, 224, 224], [0, 0, 448, 448]],
+                   np.float32)
+    rois = torch.from_numpy(np.concatenate([np.concatenate([xy, xy + wh], -1), odd])).to(dev)
+    shapes = [(200, 200), (100, 100), (50, 50), (25, 25)]
+    for P in (7, 14):
+        want = roi_geometry(rois, shapes, output_size=P, sampling_ratio=ratio)
+        got = roi_geometry_device(rois, len(shapes), output_size=P, sampling_ratio=ratio)
+        torch.cuda.synchronize()
+        assert got[5] == want[5]
+        assert torch.equal(got[0], want[0])
+        for k in (2, 4):  # weights: the same sample counts, the same values
+            assert torch.equal(got[k], want[k])
+        for k in (1, 3):  # positions within 1 ulp
+            ulp = torch.abs(want[k]) * 2.0 ** -23 + 1e-30
+            assert bool((torch.abs(got[k] - want[k]) <= ulp).all())
+
+
+def test_gagm_smem_helper_matches_kernel(dev):
+    for G, M, univ in [(4, 60, 32), (2, 10, 12), (3, 10, 8), (8, 24, 16), (4, 12, 16)]:
+        Mp, _ = padded_sizes(M, univ)
+        assert _cuda.lib().ttdg_gagm_smem_bytes(G, Mp, univ) == resident_smem_bytes(G, Mp, univ)
+
+
+@pytest.mark.parametrize("G,n,univ,ms", [(4, 60, 32, [23, 21, 20, 22]), (3, 20, 12, [20, 9, 15]),
+                                         (4, 40, 32, [40, 33, 12, 0])])
+def test_gagm_kernel_one_finale_step_on_random_problem(dev, G, n, univ, ms):
+    """A random, not planted, problem from a random soft U: one LAP finale
+    step (no annealed step)."""
+    rng = np.random.RandomState(16)
+    T = G * n
+    valid = (np.arange(n)[None] < np.asarray(ms)[:, None]).reshape(T)
+    A = np.zeros((T, T), np.float32)
+    for g in range(G):
+        A[g * n:(g + 1) * n, g * n:(g + 1) * n] = rng.rand(n, n) / n
+    A *= valid[:, None] & valid[None]
+    W = (rng.rand(T, T) / n).astype(np.float32) * (valid[:, None] & valid[None])
+    U0 = (rng.rand(T, univ) / univ).astype(np.float32) * valid[:, None]
+    args = [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(dev) for x in (A, W, U0)]
+    tms = torch.tensor(ms, dtype=torch.int32, device=dev)
+    kw = {**GAGM_KW, "mgm_iter": 0}
+    got, steps, V = ga_gm_fused(*args, tms, univ, lap_iter_cap=1, return_steps=True,
+                                return_power_step=True, **kw)
+    assert steps == [0] * (len(steps) - 1) + [1]
+    Ad, Wd, Ud = args
+    Vp = ((Ad @ ((Ud @ Ud.T) @ Ad)) @ Ud * (kw["quad_weight"] * 2.0) + Wd @ Ud) / G
+    rows = torch.from_numpy(valid).to(dev)  # the kernel computes the valid rows only
+    np.testing.assert_allclose(V[rows].cpu().numpy(), Vp[rows].cpu().numpy(),
+                               atol=1e-5 * float(Vp.abs().max()))
+    Vg = V.reshape(G, n, univ)
+    assert torch.equal(got, lap_slots_to_nodes(Vg, tms).reshape(T, univ))
+    # the plain projection solves each graph in its own orientation: the same
+    # optimum up to what float32 duals near the dummy cost of 1000 resolve
+    # (6e-5 per slot), and the same assignment wherever the slots are the
+    # rows there too (ms > univ)
+    plain = _project_blocks(Vg, tms.long(), univ, tau=1.0, sk_iter=0, exact_hungarian=True)
+    score_k = (got.reshape(G, n, univ) * Vg).sum((1, 2))
+    score_p = (plain * Vg).sum((1, 2))
+    np.testing.assert_allclose(score_k.cpu().numpy(), score_p.cpu().numpy(), rtol=1e-6,
+                               atol=univ * 1.2e-4)
+    for g in range(G):
+        if ms[g] > univ:
+            assert torch.equal(got.reshape(G, n, univ)[g], plain[g])
 
 
 @pytest.mark.parametrize("G,n,univ,ms", [(4, 12, 16, [12, 9, 11, 5]), (2, 10, 12, [10, 7]),

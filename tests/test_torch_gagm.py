@@ -76,3 +76,81 @@ def test_final_hungarian_round_matches_jax():
                               jnp.asarray(ms), 16, **kw))
     assert set(np.unique(got)) <= {0.0, 1.0} and got.sum() > 0
     np.testing.assert_array_equal(got, want)
+
+
+def test_one_finale_step_mode_matches_jax():
+    """The mode the chip check holds the CUDA kernel in: no annealed step
+    (``mgm_iter=0``), one exact-LAP finale step (cap 1) from a noisy planted
+    start.  Identical 0/1 output to the JAX package's ``ga_gm`` in the same
+    mode and to its terminal round alone capped at one step."""
+    from ttdg_mgm_tpu.graph.solvers import final_hungarian_round as j_final
+
+    A, W, U0, ms, _ = structured_problem(4, 12, 16, [12, 10, 7, 12], seed=9)
+    kw = {**KW, "mgm_iter": 0}
+    targs = (torch.from_numpy(A), torch.from_numpy(W), torch.from_numpy(U0),
+             torch.from_numpy(ms), 16)
+    got, steps = ga_gm_fused(*targs, lap_iter_cap=1, return_steps=True, **kw)
+    assert steps == [0, 0, 0, 0, 0, 1]
+    got = got.numpy()
+    jargs = (jnp.asarray(A), jnp.asarray(W), jnp.asarray(U0), jnp.asarray(ms), 16)
+    want = np.asarray(j_ga_gm(*jargs, hung_iter_cap=1, **kw))
+    final = np.asarray(j_final(*jargs, quad_weight=0.5, mgm_iter=1, sk_iter=20, tau=1e-2,
+                               tol=1e-3))
+    assert set(np.unique(got)) <= {0.0, 1.0} and got.sum() > 0
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, final)
+
+
+def test_annealed_rounds_alone_match_jax():
+    """The other mode of the chip check: the annealed rounds without the
+    finale (cap 0), a soft assignment; atol 1e-5 as for the whole solve."""
+    A, W, U0, ms, _ = structured_problem(4, 12, 16, [12, 9, 11, 5], seed=2)
+    got, steps = ga_gm(torch.from_numpy(A), torch.from_numpy(W), torch.from_numpy(U0),
+                       torch.from_numpy(ms), 16, hung_iter_cap=0, return_steps=True, **KW)
+    want = np.asarray(j_ga_gm(jnp.asarray(A), jnp.asarray(W), jnp.asarray(U0),
+                              jnp.asarray(ms), 16, hung_iter_cap=0, **KW))
+    assert steps[-1] == 0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_resident_kernel_shared_memory_budget():
+    """The flagship shape fits the 232,448 bytes one H100 block may use; the
+    limits of the resident kernel are reported with their reason."""
+    from ttdg_mgm_torch.ops.gagm import (MAX_BLOCK_SMEM, padded_sizes, resident_limits,
+                                         resident_smem_bytes)
+
+    Mp, L = padded_sizes(60, 32)
+    assert (Mp, L) == (64, 128)
+    need = resident_smem_bytes(4, Mp, 32)
+    # A blocks, W rows, U, U_last and U_new, two tiles, the small table
+    assert need == 4 * (4 * 64 * 68 + 64 * 260 + 256 * 36 + 2 * 64 * 32 + 2 * 64 * 68 + 128)
+    assert need <= MAX_BLOCK_SMEM == 232448
+    assert resident_limits(4, 60, 32) == (True, "")
+    for G, M, univ in [(2, 10, 12), (3, 10, 8), (4, 12, 16), (8, 24, 16)]:
+        assert resident_limits(G, M, univ)[0]
+    for G, M, univ, word in [(9, 12, 16, "graphs"), (4, 80, 32, "nodes"), (8, 60, 32, "bytes")]:
+        fits, why = resident_limits(G, M, univ)
+        assert not fits and word in why
+
+
+@pytest.mark.parametrize("ms", [[12, 9, 11, 5], [16, 14, 0, 3]])
+def test_kernel_lap_formulation_matches_plain_projection(ms):
+    """``ops/lap.py:lap_slots_to_nodes`` (the LAP as the CUDA kernel poses it:
+    universe slots to node columns, node-less columns at 2 max|V| + 1000)
+    against the plain projection's ``hungarian_auto`` on well-separated
+    scores (a planted permutation plus 5 % noise): identical assignments."""
+    from ttdg_mgm_torch.ops.lap import hungarian_auto, lap_slots_to_nodes
+
+    rng = np.random.RandomState(sum(ms))
+    G, M, univ = 4, 16, 12
+    V = np.zeros((G, M, univ), np.float32)
+    for g in range(G):
+        perm = rng.permutation(M)[:univ]
+        V[g, perm, np.arange(univ)] = 1.0
+    V += 0.05 * rng.rand(G, M, univ).astype(np.float32)
+    tms = torch.tensor(ms)
+    got = lap_slots_to_nodes(torch.from_numpy(V), tms).numpy()
+    want = hungarian_auto(torch.from_numpy(V), tms, torch.full_like(tms, univ)).numpy()
+    want = want * (np.arange(M)[None, :, None] < np.asarray(ms)[:, None, None])
+    np.testing.assert_array_equal(got, want)
+    assert got.sum(axis=(1, 2)).tolist() == [float(min(m, univ)) for m in ms]

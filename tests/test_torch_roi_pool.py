@@ -67,3 +67,50 @@ def test_plain_out_of_range_elongated_degenerate(ratio):
     for P in (7, 14):
         np.testing.assert_allclose(_t(feats, rois, P, ratio), _j_gather(feats, rois, P, ratio),
                                    **TOL)
+
+
+def test_wrapper_runs_plain_on_cpu():
+    """On CPU tensors the kernel wrapper is the plain pooler, and it counts no
+    kernel launch."""
+    rng = np.random.RandomState(8)
+    feats = [torch.from_numpy(f) for f in _feats(rng, 1, SIZES)]
+    rois = torch.from_numpy(_compact_rois(rng, 1, 6))
+    before = multilevel_roi_pool.launches
+    got = multilevel_roi_pool(feats, rois, output_size=7)
+    assert multilevel_roi_pool.launches == before
+    np.testing.assert_array_equal(got.numpy(),
+                                  multilevel_roi_align(feats, rois, output_size=7).numpy())
+
+
+@pytest.mark.parametrize("P,ratio", [(7, 0), (14, 0), (7, 2)])
+def test_plain_geometry_matches_jax(P, ratio):
+    """``roi_geometry``, the plain version of the CUDA kernels' device
+    geometry, against the JAX package: the FPN level of ROIs on and around
+    the level boundaries (side 112, 224, 448), and the per-axis sample
+    positions and weights (1e-5: a division here is a reciprocal multiply
+    there); the same sample counts."""
+    import jax.numpy as jnp
+
+    from ttdg_mgm_tpu.ops.roi_align import _axis_samples as j_axis
+    from ttdg_mgm_tpu.ops.roi_align import assign_fpn_levels as j_levels
+    from ttdg_mgm_torch.ops.roi_align import roi_geometry
+
+    rng = np.random.RandomState(P + ratio)
+    side = np.array([111.9, 112.0, 112.1, 223.9, 224.0, 224.1, 447.9, 448.0, 448.1, 3.0, 900.0],
+                    np.float32)
+    edge = np.stack([np.zeros_like(side), np.zeros_like(side), side, side], -1)
+    rois = np.concatenate([edge, _compact_rois(rng, 1, 30, lo=2, hi=500)[0],
+                           np.array([[5, 5, 5, 5], [10, 10, 9, 300]], np.float32)])
+    shapes = [(200, 200), (100, 100), (50, 50), (25, 25)]
+    lv, ys, wy, xs, wx, m = roi_geometry(torch.from_numpy(rois), shapes, output_size=P,
+                                         sampling_ratio=ratio)
+    jl = np.asarray(j_levels(jnp.asarray(rois), min_level=2, max_level=5)) - 2
+    np.testing.assert_array_equal(lv.numpy(), jl)
+    scale = 1.0 / np.array([4, 8, 16, 32], np.float32)[jl]
+    b = rois * scale[:, None] - 0.5
+    for lo, hi, pos, w in ((1, 3, ys, wy), (0, 2, xs, wx)):
+        jp, jw, jm = j_axis(jnp.asarray(b[:, lo]), jnp.asarray((b[:, hi] - b[:, lo]) / P), P, ratio)
+        assert jm == m
+        np.testing.assert_allclose(pos.numpy(), np.asarray(jp), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(w.numpy(), np.asarray(jw), atol=1e-7)
+        np.testing.assert_array_equal((w.numpy() > 0).sum(1), (np.asarray(jw) > 0).sum(1))

@@ -1,7 +1,20 @@
 // Per-ROI sample geometry shared by the ROI pool (roi_pool.cu) and its
-// backward (roi_pool_backward.cu): the level table and one axis sample's
-// clamped bilinear corners, as ops/roi_align.py:_bilinear_gather computes
-// them.
+// backward (roi_pool_backward.cu): the level table, the ROI's FPN level and
+// its sample positions and weights along each axis, computed on the device
+// from the ROI's four floats.
+//
+// The arithmetic reproduces ops/roi_align.py:roi_geometry (assign_fpn_levels,
+// _axis_samples) operation by operation, as PyTorch evaluates it on CUDA
+// tensors, so that kernel and plain version pick the same level and the same
+// sample count (`ceil(bin)` decides it) and place the samples on the same
+// floats.  Every product, sum and quotient is pinned with a round-to-nearest
+// intrinsic: nvcc would contract `a * b - 0.5f` into one FMA, PyTorch rounds
+// after each operation.  A division by a Python scalar (`/ P`, `/ 224.0`,
+// `/ m`) is a multiplication by the scalar's float32 reciprocal there, and so
+// it is here; a division by a tensor (`/ nd`) is a true division.
+//
+// One axis sample's clamped bilinear corners follow
+// ops/roi_align.py:_bilinear_corners.
 
 #pragma once
 
@@ -11,6 +24,7 @@ namespace ttdg {
 
 constexpr int kMaxLevels = 4;
 constexpr int kMaxSamples = 64;  // P * m per axis: 14 * 4 = 56 at most
+constexpr int kAdaptiveCap = 4;  // ops/roi_align.py:ADAPTIVE_CAP
 
 template <typename T>
 struct LevelTable {
@@ -19,11 +33,71 @@ struct LevelTable {
   int W[kMaxLevels];
 };
 
+// What the level assignment and the sample grid depend on besides the ROI.
+struct PoolSpec {
+  float inv_stride[kMaxLevels];  // 1 / stride of each level
+  int num_levels;
+  int min_level;                 // FPN number of level 0 (2 for p2)
+  int P;                         // output bins per axis
+  int n;                         // sampling ratio; 0 = adaptive grid
+  int m;                         // sample slots per bin and axis
+  float inv_P;                   // float32 1 / P
+  float inv_m;                   // float32 1 / m
+  float w_fixed;                 // float32 of the double 1 / m: fixed-grid weight
+};
+
 struct AxisSample {
   int c0, c1;     // clamped corner indices
   float frac;     // interpolation weight of c1
   float w;        // bin-average weight, 0 when out of range or surplus
 };
+
+struct RoiFrame {
+  int level;
+  float x0, y0;        // ROI start in level pixels, shifted by half a pixel
+  float bin_w, bin_h;
+};
+
+// assign_fpn_levels (canonical size 224, canonical level 4) and the ROI's
+// frame in its level's pixel grid.
+__device__ __forceinline__ RoiFrame roi_frame(const float* __restrict__ roi, const PoolSpec& sp) {
+  const float rx0 = roi[0], ry0 = roi[1], rx1 = roi[2], ry1 = roi[3];
+  const float w = fmaxf(__fsub_rn(rx1, rx0), 0.0f);
+  const float h = fmaxf(__fsub_rn(ry1, ry0), 0.0f);
+  const float area = __fmul_rn(w, h);
+  const float rel = __fadd_rn(__fmul_rn(__fsqrt_rn(area), 1.0f / 224.0f), 1e-8f);
+  float lvl = floorf(__fadd_rn(4.0f, log2f(rel)));
+  const float lo = static_cast<float>(sp.min_level);
+  const float hi = static_cast<float>(sp.min_level + sp.num_levels - 1);
+  lvl = fminf(fmaxf(lvl, lo), hi);
+  RoiFrame f;
+  f.level = static_cast<int>(lvl) - sp.min_level;
+  const float s = sp.inv_stride[f.level];
+  f.x0 = __fsub_rn(__fmul_rn(rx0, s), 0.5f);
+  f.y0 = __fsub_rn(__fmul_rn(ry0, s), 0.5f);
+  const float x1 = __fsub_rn(__fmul_rn(rx1, s), 0.5f);
+  const float y1 = __fsub_rn(__fmul_rn(ry1, s), 0.5f);
+  f.bin_w = __fmul_rn(__fsub_rn(x1, f.x0), sp.inv_P);
+  f.bin_h = __fmul_rn(__fsub_rn(y1, f.y0), sp.inv_P);
+  return f;
+}
+
+// _axis_samples: position and weight of sample slot t (bin t / m, slot t % m).
+__device__ __forceinline__ void axis_position(float b0, float bin, int t, const PoolSpec& sp,
+                                              float* pos, float* wgt) {
+  const float i = static_cast<float>(t % sp.m);
+  const float p = static_cast<float>(t / sp.m);
+  float frac;
+  if (sp.n > 0) {
+    frac = __fmul_rn(__fadd_rn(i, 0.5f), sp.inv_m);
+    *wgt = sp.w_fixed;
+  } else {
+    const float nd = fminf(fmaxf(ceilf(fmaxf(bin, 0.0f)), 1.0f), static_cast<float>(sp.m));
+    frac = __fdiv_rn(__fadd_rn(fminf(i, __fsub_rn(nd, 1.0f)), 0.5f), nd);
+    *wgt = (i < nd) ? __fdiv_rn(1.0f, nd) : 0.0f;
+  }
+  *pos = __fadd_rn(b0, __fmul_rn(bin, __fadd_rn(p, frac)));
+}
 
 __device__ __forceinline__ AxisSample axis_sample(float pos, float wgt, int size) {
   AxisSample s;
@@ -39,18 +113,20 @@ __device__ __forceinline__ AxisSample axis_sample(float pos, float wgt, int size
   return s;
 }
 
-// Fill sy[0, S) and sx[0, S) (shared memory) for ROI r; the caller syncs.
-__device__ __forceinline__ void load_axis_samples(AxisSample* sy, AxisSample* sx, int r, int S,
-                                                  const float* __restrict__ ys,
-                                                  const float* __restrict__ wy,
-                                                  const float* __restrict__ xs,
-                                                  const float* __restrict__ wx, int H, int W) {
+// Fill sy[0, S) and sx[0, S) (shared memory, S = P * m) for the ROI whose
+// frame is `f`, on a level of H x W pixels; the caller syncs.
+__device__ __forceinline__ void fill_axis_samples(AxisSample* sy, AxisSample* sx,
+                                                  const RoiFrame& f, const PoolSpec& sp, int H,
+                                                  int W) {
+  const int S = sp.P * sp.m;
   for (int t = threadIdx.x; t < 2 * S; t += blockDim.x) {
+    float pos, wgt;
     if (t < S) {
-      sy[t] = axis_sample(ys[static_cast<size_t>(r) * S + t], wy[static_cast<size_t>(r) * S + t], H);
+      axis_position(f.y0, f.bin_h, t, sp, &pos, &wgt);
+      sy[t] = axis_sample(pos, wgt, H);
     } else {
-      const int u = t - S;
-      sx[u] = axis_sample(xs[static_cast<size_t>(r) * S + u], wx[static_cast<size_t>(r) * S + u], W);
+      axis_position(f.x0, f.bin_w, t - S, sp, &pos, &wgt);
+      sx[t - S] = axis_sample(pos, wgt, W);
     }
   }
 }
@@ -68,6 +144,23 @@ inline LevelTable<T> make_level_table(T* p0, T* p1, T* p2, T* p3, int H0, int W0
     lv.W[i] = Ws[i];
   }
   return lv;
+}
+
+// Returns false when the pool's shape is outside what the kernels take.
+inline bool make_pool_spec(PoolSpec* sp, int num_levels, float s0, float s1, float s2, float s3,
+                           int min_level, int P, int n) {
+  if (num_levels < 1 || num_levels > kMaxLevels || P < 1 || n < 0) return false;
+  const float strides[kMaxLevels] = {s0, s1, s2, s3};
+  for (int i = 0; i < kMaxLevels; ++i) sp->inv_stride[i] = 1.0f / strides[i];
+  sp->num_levels = num_levels;
+  sp->min_level = min_level;
+  sp->P = P;
+  sp->n = n;
+  sp->m = n > 0 ? n : kAdaptiveCap;
+  sp->inv_P = 1.0f / static_cast<float>(P);
+  sp->inv_m = 1.0f / static_cast<float>(sp->m);
+  sp->w_fixed = static_cast<float>(1.0 / static_cast<double>(sp->m));
+  return P * sp->m <= kMaxSamples;
 }
 
 inline int channel_threads(int C) { return C >= 256 ? 256 : ((C + 31) / 32) * 32; }

@@ -27,7 +27,9 @@
 // shared-memory design is later work.
 //
 // Layout: one block per ROI; threads run over channels.  The sample geometry
-// comes from ops/roi_align.py:roi_geometry, as for the forward kernel.
+// is computed in the kernel from the ROI's four floats by the code the
+// forward kernel uses (roi_geometry.cuh), so this is the exact gradient of
+// roi_pool.cu, and nothing runs before the launch.
 
 #include "roi_geometry.cuh"
 
@@ -36,23 +38,21 @@ namespace {
 using ttdg::AxisSample;
 using Grads = ttdg::LevelTable<float>;
 
-__global__ void roi_pool_backward_kernel(Grads lv, int C, int K, const int* __restrict__ level,
-                                         const float* __restrict__ ys,
-                                         const float* __restrict__ wy,
-                                         const float* __restrict__ xs,
-                                         const float* __restrict__ wx, int P, int m,
+__global__ void roi_pool_backward_kernel(Grads lv, ttdg::PoolSpec sp, int C, int K,
+                                         const float* __restrict__ rois,
                                          const float* __restrict__ g) {
   __shared__ AxisSample sy[ttdg::kMaxSamples];
   __shared__ AxisSample sx[ttdg::kMaxSamples];
   const int r = blockIdx.x;
-  const int l = level[r];
+  const ttdg::RoiFrame fr = ttdg::roi_frame(rois + static_cast<size_t>(r) * 4, sp);
   const int b = r / K;
-  const int H = lv.H[l];
-  const int W = lv.W[l];
-  const int S = P * m;
-  float* f = lv.ptr[l] + static_cast<size_t>(b) * H * W * C;
+  const int H = lv.H[fr.level];
+  const int W = lv.W[fr.level];
+  const int P = sp.P;
+  const int m = sp.m;
+  float* f = lv.ptr[fr.level] + static_cast<size_t>(b) * H * W * C;
 
-  ttdg::load_axis_samples(sy, sx, r, S, ys, wy, xs, wx, H, W);
+  ttdg::fill_axis_samples(sy, sx, fr, sp, H, W);
   __syncthreads();
 
   const float* gr = g + static_cast<size_t>(r) * P * P * C;
@@ -85,16 +85,17 @@ __global__ void roi_pool_backward_kernel(Grads lv, int C, int K, const int* __re
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  `d0..d3` are the level gradients,
-// zeroed by the caller; the kernel adds into them.  Launches on `stream` and
-// returns cudaGetLastError(); the caller raises when it is not 0.
+// Plain C entry point (bound with ctypes), with ttdg_roi_pool's arguments.
+// `d0..d3` are the level gradients, zeroed by the caller; the kernel adds
+// into them.  Launches on `stream` and returns cudaGetLastError(); the caller
+// raises when it is not 0.
 extern "C" int ttdg_roi_pool_backward(void* d0, void* d1, void* d2, void* d3, int num_levels,
                                       int H0, int W0, int H1, int W1, int H2, int W2, int H3,
-                                      int W3, int C, int R, int K, const void* level,
-                                      const void* ys, const void* wy, const void* xs,
-                                      const void* wx, int P, int m, const void* g,
-                                      void* stream) {
-  if (num_levels < 1 || num_levels > ttdg::kMaxLevels || P * m > ttdg::kMaxSamples || R <= 0) {
+                                      int W3, int C, int R, int K, const void* rois, float s0,
+                                      float s1, float s2, float s3, int min_level, int P, int n,
+                                      const void* g, void* stream) {
+  ttdg::PoolSpec sp;
+  if (!ttdg::make_pool_spec(&sp, num_levels, s0, s1, s2, s3, min_level, P, n) || R <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Grads lv = ttdg::make_level_table(
@@ -102,8 +103,6 @@ extern "C" int ttdg_roi_pool_backward(void* d0, void* d1, void* d2, void* d3, in
       static_cast<float*>(d3), H0, W0, H1, W1, H2, W2, H3, W3);
   const int threads = ttdg::channel_threads(C);
   roi_pool_backward_kernel<<<R, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      lv, C, K, static_cast<const int*>(level), static_cast<const float*>(ys),
-      static_cast<const float*>(wy), static_cast<const float*>(xs),
-      static_cast<const float*>(wx), P, m, static_cast<const float*>(g));
+      lv, sp, C, K, static_cast<const float*>(rois), static_cast<const float*>(g));
   return static_cast<int>(cudaGetLastError());
 }

@@ -98,11 +98,16 @@ def lib() -> ctypes.CDLL:
         cdll = ctypes.CDLL(_build())
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # forward and backward pools: 4 level pointers, level count and
-        # shapes, C, R, K, the geometry, P, m, the cotangent or output, stream
-        pool_args = [P] * 4 + [I] * 9 + [I, I, I] + [P] * 5 + [I, I, P, P]
+        # shapes, C, R, K, the ROIs, 4 strides, min_level, P, the sampling
+        # ratio, the output or cotangent, stream
+        pool_args = [P] * 4 + [I] * 9 + [I, I, I] + [P] + [F] * 4 + [I, I, I, P, P]
         cdll.ttdg_roi_pool.argtypes = pool_args
         cdll.ttdg_roi_pool.restype = I
-        cdll.ttdg_gagm.argtypes = ([P] * 14 + [I, I, I, I, F, F, I, I, I, I,
+        cdll.ttdg_roi_geometry.argtypes = [I] + [F] * 4 + [I] * 4 + [P] * 7
+        cdll.ttdg_roi_geometry.restype = I
+        # A, W, U0, ms, out, iters, V or null, clocks or null; G, M, Mp, NU;
+        # qw, tol^2; mgm_iter, sk_iter, lap_cap, ntaus; taus; stream
+        cdll.ttdg_gagm.argtypes = ([P] * 8 + [I, I, I, I, F, F, I, I, I, I,
                                    ctypes.POINTER(F), P])
         cdll.ttdg_gagm.restype = I
         cdll.ttdg_gagm_smem_bytes.argtypes = [I, I, I]

@@ -18,10 +18,11 @@ import torch
 _INF = np.float32(1.0e30)
 
 
-def _lap_single(cost: np.ndarray, n1: int, n2: int) -> np.ndarray:
+def _lap_single(cost: np.ndarray, n1: int, n2: int, stats: dict | None = None) -> np.ndarray:
     """JV minimisation on one ``(NR, NC)`` float32 cost matrix with ``n1``
     valid rows (``n1 <= n2``) and ``n2`` valid columns.  Returns col4row
-    ``(NR,)``, -1 for unassigned rows."""
+    ``(NR,)``, -1 for unassigned rows.  ``stats["search_steps"]``, when
+    given, grows by the search steps taken (columns added to a tree)."""
     cost = np.asarray(cost, np.float32)
     nr, nc = cost.shape
     cost = np.where(np.arange(nc)[None, :] < n2, cost, _INF).astype(np.float32)
@@ -53,6 +54,8 @@ def _lap_single(cost: np.ndarray, n1: int, n2: int) -> np.ndarray:
             steps += 1
             if nxt < 0 or steps >= nc:
                 j_free = j1
+                if stats is not None:
+                    stats["search_steps"] = stats.get("search_steps", 0) + steps
                 break
             i0, j_prev = nxt, j1
         # augment along the predecessor chain back to the root row i
@@ -92,6 +95,38 @@ def hungarian_auto(s: torch.Tensor, n1=None, n2=None) -> torch.Tensor:
     """Orientation-robust :func:`hungarian`: instances with ``n1 > n2`` are
     solved transposed, assigning every column (scipy's rectangular rule)."""
     return _batched(s, n1, n2, orient_auto=True)
+
+
+def lap_slots_to_nodes(V: torch.Tensor, ms, stats: dict | None = None) -> torch.Tensor:
+    """The LAP as the fused GA-GM kernel (``csrc/gagm.cu``) poses it, on the
+    host: for each graph of ``V (G, M, U)`` the ``U`` universe slots are the
+    rows and assign to node columns, whatever the orientation; the
+    ``max(M, U) - ms`` node-less columns cost ``2 max|V[:ms]| + 1000``, so a
+    slot takes one only when every node is taken.  Returns the 0/1 matrix
+    ``(G, M, U)``, rows at or past ``ms`` zero.
+
+    Its optimum is :func:`hungarian_auto`'s.  When ``ms < U`` the duals here
+    carry the dummy cost (about 1000), so on scores closer than float32
+    resolves at that magnitude the two may round to different assignments;
+    this function repeats the kernel's arithmetic operation by operation and
+    is what the kernel is held against bit for bit.  ``stats``, when given,
+    collects the search steps of all graphs (``_lap_single``)."""
+    host = V.detach().to("cpu", torch.float32).numpy()
+    G, M, U = host.shape
+    counts = np.asarray(torch.as_tensor(ms).cpu()).reshape(-1)
+    n = max(M, U)
+    out = np.zeros((G, M, U), np.float32)
+    for g in range(G):
+        m = int(counts[g])
+        dmax = np.float32(np.abs(host[g, :m]).max()) if m > 0 else np.float32(0.0)
+        dc = np.float32(2.0) * dmax + np.float32(1000.0)
+        ct = np.full((U, n), dc, np.float32)
+        ct[:, :m] = -host[g, :m].T
+        col4row = _lap_single(ct, U, n, stats)
+        for r in range(U):
+            if 0 <= col4row[r] < m:
+                out[g, col4row[r], r] = 1.0
+    return torch.from_numpy(out).to(V.device)
 
 
 def _batched(s, n1, n2, *, orient_auto: bool):

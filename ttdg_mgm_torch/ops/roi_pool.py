@@ -15,7 +15,13 @@ PyTorch versions ``ops/roi_align.py:multilevel_roi_align`` and
   kernel.  No gradient reaches the ROIs, as in the JAX package.
 
 On CPU tensors the plain versions run; on CUDA tensors the kernels launch
-(or the call raises).  Each kernel wrapper counts its launches.
+(or the call raises).  Each kernel wrapper counts its launches.  A wrapper
+starts no device work but its kernel (and, for the backward, the zeroing of
+the level gradients): both kernels compute the sample geometry themselves
+(``csrc/roi_geometry.cuh``, the device copy of
+``ops/roi_align.py:roi_geometry``; :func:`roi_geometry_device` returns it for
+checks).  The ROIs must be contiguous float32 and the channel count a
+multiple of 4.
 """
 
 from __future__ import annotations
@@ -25,42 +31,72 @@ from typing import Sequence
 import torch
 
 from ttdg_mgm_torch.ops import _cuda
-from ttdg_mgm_torch.ops.roi_align import (multilevel_roi_align, multilevel_roi_align_backward,
-                                          roi_geometry)
+from ttdg_mgm_torch.ops.roi_align import (ADAPTIVE_CAP, multilevel_roi_align,
+                                          multilevel_roi_align_backward)
 
 __all__ = ["multilevel_roi_pool", "multilevel_roi_pool_backward", "multilevel_roi_pool_train",
-           "multilevel_roi_align"]
+           "multilevel_roi_align", "roi_geometry_device"]
+
+#: sample slots per axis (``P * m``) the kernels hold (``csrc/roi_geometry.cuh``)
+MAX_AXIS_SAMPLES = 64
 
 
 def _kernel_args(name, tensors, level_shapes, rois, C: int, P: int, strides,
                  sampling_ratio: int, min_level: int):
     """Validate a kernel call and lay out its C arguments: the four level
-    pointers and shapes (the last level repeated), ``C, R, K``, the sample
-    geometry and ``P, m``.  ``tensors`` are the levels (forward) or their
-    gradients (backward)."""
+    pointers and shapes (the last level repeated), ``C, R, K``, the ROIs, the
+    four strides, ``min_level, P`` and the sampling ratio.  ``tensors`` are
+    the levels (forward) or their gradients (backward).  The kernels compute
+    the sample geometry themselves, so no device work happens here."""
     dev = rois.device
     if not 1 <= len(tensors) <= 4:
         raise ValueError(f"{name} takes one to four levels")
     _cuda.require_cuda_f32("rois", rois, dev)
     if rois.dim() != 3 or rois.shape[-1] != 4:
         raise ValueError(f"rois must be (B, K, 4), got {tuple(rois.shape)}")
+    if C % 4 != 0 or C > 1024:
+        raise ValueError(f"{name} takes a channel count that is a multiple of 4, at most "
+                         f"1024 (16-byte loads), got {C}")
+    m = sampling_ratio if sampling_ratio > 0 else ADAPTIVE_CAP
+    if sampling_ratio < 0 or P * m > MAX_AXIS_SAMPLES:
+        raise ValueError(f"{name} takes at most {MAX_AXIS_SAMPLES} samples per axis, got "
+                         f"P={P} x {m}")
     B, K = rois.shape[:2]
     for i, (t, (h, w)) in enumerate(zip(tensors, level_shapes)):
         _cuda.require_cuda_f32(f"level {i}", t, dev)
         if tuple(t.shape) != (B, h, w, C):
             raise ValueError(f"level {i} must be {(B, h, w, C)}, got {tuple(t.shape)}")
-    with torch.no_grad():
-        levels, ys, wy, xs, wx, m = roi_geometry(
-            rois.reshape(B * K, 4), level_shapes, strides=strides, output_size=P,
-            sampling_ratio=sampling_ratio, min_level=min_level)
-    geo = [t.contiguous() for t in (levels, ys, wy, xs, wx)]
-    ptrs, hw = [], []
+    ptrs, hw, st = [], [], []
     for i in range(4):
         j = min(i, len(tensors) - 1)
         ptrs.append(tensors[j].data_ptr())
         hw += list(level_shapes[j])
-    args = [*ptrs, len(tensors), *hw, C, B * K, K, *(t.data_ptr() for t in geo), P, m]
-    return args, geo
+        st.append(float(strides[j]))
+    return [*ptrs, len(tensors), *hw, C, B * K, K, rois.data_ptr(), *st, int(min_level), P,
+            int(sampling_ratio)]
+
+
+def roi_geometry_device(rois: torch.Tensor, num_levels: int, *, strides=(4, 8, 16, 32),
+                        output_size: int = 7, sampling_ratio: int = 0, min_level: int = 2):
+    """The sample geometry as the kernels compute it (``csrc/roi_geometry.cuh``),
+    for checks against its plain version ``ops/roi_align.py:roi_geometry``:
+    rois ``(R, 4)`` float32 on a CUDA device -> ``(level (R,) int32, ys, wy,
+    xs, wx (R, P*m), m)``."""
+    dev = rois.device
+    if dev.type != "cuda":
+        raise ValueError(f"roi_geometry_device runs on CUDA tensors, got {dev}")
+    _cuda.require_cuda_f32("rois", rois, dev)
+    R = rois.shape[0]
+    m = sampling_ratio if sampling_ratio > 0 else ADAPTIVE_CAP
+    level = torch.empty((R,), dtype=torch.int32, device=dev)
+    geo = [torch.empty((R, output_size * m), dtype=torch.float32, device=dev) for _ in range(4)]
+    st = [float(strides[min(i, num_levels - 1)]) for i in range(4)]
+    err = _cuda.lib().ttdg_roi_geometry(num_levels, *st, int(min_level), output_size,
+                                        int(sampling_ratio), R, rois.data_ptr(),
+                                        level.data_ptr(), *(t.data_ptr() for t in geo),
+                                        _cuda.stream_ptr(dev))
+    _cuda.check(err, "roi_geometry kernel")
+    return (level, *geo, m)
 
 
 def multilevel_roi_pool(feats: Sequence[torch.Tensor], rois: torch.Tensor, *,
@@ -78,8 +114,8 @@ def multilevel_roi_pool(feats: Sequence[torch.Tensor], rois: torch.Tensor, *,
     C = feats[0].shape[-1]
     P = output_size
     shapes = [(f.shape[1], f.shape[2]) for f in feats]
-    args, geo = _kernel_args("multilevel_roi_pool", feats, shapes, rois, C, P, strides,
-                             sampling_ratio, min_level)
+    args = _kernel_args("multilevel_roi_pool", feats, shapes, rois, C, P, strides,
+                        sampling_ratio, min_level)
     out = torch.empty((B, K, P, P, C), dtype=torch.float32, device=dev)
     if B * K == 0:
         return out
@@ -110,8 +146,8 @@ def multilevel_roi_pool_backward(grad: torch.Tensor, level_shapes, rois: torch.T
         raise ValueError(f"grad must be {(B, K, P, P, C)}, got {tuple(grad.shape)}")
     shapes = [tuple(s) for s in level_shapes]
     out = [torch.zeros((B, h, w, C), dtype=torch.float32, device=dev) for h, w in shapes]
-    args, geo = _kernel_args("multilevel_roi_pool_backward", out, shapes, rois, C, P, strides,
-                             sampling_ratio, min_level)
+    args = _kernel_args("multilevel_roi_pool_backward", out, shapes, rois, C, P, strides,
+                        sampling_ratio, min_level)
     if B * K == 0:
         return out
     err = _cuda.lib().ttdg_roi_pool_backward(*args, grad.data_ptr(), _cuda.stream_ptr(dev))
