@@ -35,7 +35,10 @@ Phases, each of which exits non-zero when it fails:
    at 800 px, 256 channels; the box pool's 8 x 512 ROIs at P=7 and the mask
    pool's 8 x 128 at P=14, clustered around two boxes per image as sampled
    training ROIs are; the ROI pool kernel (forward) and the backward kernel
-   (``csrc/roi_pool_backward.cu``) each against its plain version;
+   (``csrc/roi_pool_backward.cu``) each against its plain version; the
+   backward's device plan (each ROI's level and pixel footprint) against
+   ``ops/roi_align.py:roi_footprints``, two backward launches bit for bit,
+   and its bare launch into NaN-filled gradients (every element written);
 6. source training end to end: the flagship at full width in float32,
    5 ``make_source_step`` steps on 8 synthetic 800x800 disc images with GT
    (masks on a 256 canvas), the source solver (lr 0.0025) with the
@@ -44,17 +47,25 @@ Phases, each of which exits non-zero when it fails:
    inputs of every HiPPI call and of every projection it makes is kept
    (device copies of a few hundred kB per projection); the narrow
    GPU-vs-CPU comparison of phase 4 also holds ``loss_supervised`` and its
-   parameter gradients;
+   parameter gradients; then one more, untimed, step keeping the inputs
+   kernel C gets there, and on them kernel C against its plain version, two
+   launches bit for bit, its times, and what the data asks of it (ROIs per
+   level, ROIs with an all-zero cotangent, the most ROIs on one tile);
 7. the batched Sinkhorn kernel (``csrc/sinkhorn.cu``) against its plain
    version on every projection input HiPPI gave it in phase 6 (16 matrices
    of 60 x 60, tau 1/200 over the overflow guard's c, 20 iterations), timed
-   on the first; the HiPPI call that took the most iterations rerun with
-   the plain projection; and one synthetic batch with mixed valid counts.
+   on the first with its bound (bytes, float32 operations, transcendentals
+   at the special-function rate) and the floor of its dependent chain; the
+   HiPPI call that took the most iterations rerun with the plain projection;
+   one synthetic batch with mixed valid counts on both of the kernel's
+   paths (registers up to 64 x 64, shared memory beyond), and one of 100 x
+   70 matrices.
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off).  Bounds use the H100
 SXM's published peaks: 3.35 TB/s of device memory, 67 TFLOP/s float32
-outside the tensor cores.  The last lines are the card's name and power
+outside the tensor cores, 16 transcendentals per clock per SM (4.18e12/s at
+1.98 GHz).  The last lines are the card's name and power
 limit (nvidia-smi), one JSON object with each kernel's numbers, and the
 device line ``{"ok": true, "device": {...}}``.
 
@@ -63,7 +74,10 @@ step under ``torch.profiler`` (device time by kernel, device busy share):
 five TTA steps, and one source step.
 
 ``--dump-dir DIR`` saves the GA-GM inputs of the TTA steps to
-``DIR/gagm_inputs.pt`` (for ``scripts/time_kernels.py --gagm-input``).
+``DIR/gagm_inputs.pt`` and HiPPI's first projection input to
+``DIR/sinkhorn_input.pt`` and kernel C's inputs of one source step to
+``DIR/pool_backward_inputs.pt`` (for ``scripts/time_kernels.py
+--gagm-input``, ``--sinkhorn-input`` and ``--pool-input``).
 
 ``--warm`` adds the answer to whether the GA-GM finale converges on a
 trained detector: a fresh flagship model warmed by ``bench.py:warm_params``'s
@@ -85,9 +99,16 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+# the special-function unit (exp, log): 16 per clock per SM, 132 SMs at the
+# 1.98 GHz boost clock
+SM_CLOCK_HZ = 1.98e9
+PEAK_SFU_PER_S = 16 * 132 * SM_CLOCK_HZ
+# one warp shuffle's latency, cycles (scripts/warp_latency.cu on the H100)
+SHUFFLE_CYCLES = 32.3
 ROI_TOL = dict(atol=2e-5, rtol=1e-4)
-# the backward's float32 atomics add in a run-dependent order
-# (tests/test_pallas.py:253-255 bound for the windowed backward)
+# the backward merges each pixel's sample weights and sums in ROI order, the
+# plain version adds corner by corner (tests/test_pallas.py:253-255 bound for
+# the windowed backward)
 ROI_BWD_TOL = dict(atol=3e-4, rtol=1e-3)
 GAGM_ATOL = 1e-5
 # the annealed rounds on the main path's inputs: U is a soft assignment in
@@ -146,9 +167,13 @@ def host_ms(torch, fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def bound(bytes_: float, flops: float):
+def bound(bytes_: float, flops: float, sfu_ops: float = 0.0):
+    """The least time for ``bytes_`` of device memory, ``flops`` float32
+    operations and ``sfu_ops`` transcendentals (exp, log) on the
+    special-function unit, which runs beside the float32 pipes: ``(ms, "bytes"
+    or "operations")``."""
     t_bytes = bytes_ / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = max(flops / PEAK_F32_FLOP_PER_S, sfu_ops / PEAK_SFU_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -246,7 +271,9 @@ def pool_split_ms(torch, feats_or_grads, shapes, rois, P: int, C: int, other, ba
     """Kernel A's (or C's) time apart from its wrapper's: CUDA events around
     the argument set-up alone, and around the bare launch through the C entry
     point with the set-up done once.  ``other`` is the forward's output buffer
-    or the backward's cotangent.  Returns ``(args_ms, kernel_only_ms)``."""
+    or the backward's cotangent; the backward's bare launch (its plan kernel
+    and its gather kernel) writes every element of ``feats_or_grads`` anew
+    each time.  Returns ``(args_ms, kernel_only_ms)``."""
     from ttdg_mgm_torch.ops import _cuda
     from ttdg_mgm_torch.ops import roi_pool as rp
 
@@ -255,13 +282,39 @@ def pool_split_ms(torch, feats_or_grads, shapes, rois, P: int, C: int, other, ba
                                    (4, 8, 16, 32), 0, 2)
     args_ms = event_ms(torch, make, 20)
     args = make()
-    fn = _cuda.lib().ttdg_roi_pool_backward if backward else _cuda.lib().ttdg_roi_pool
+    if backward:
+        fn = _cuda.lib().ttdg_roi_pool_backward
+        plan = torch.empty((rois.shape[0] * rois.shape[1], rp.plan_words(P, 0)),
+                           dtype=torch.int32, device=rois.device)
+        args.append(plan.data_ptr())
+    else:
+        fn = _cuda.lib().ttdg_roi_pool
     stream = _cuda.stream_ptr(rois.device)
 
     def launch():
         _cuda.check(fn(*args, other.data_ptr(), stream), name)
 
     return args_ms, event_ms(torch, launch, 20)
+
+
+def check_roi_footprints(torch, rois, shapes, P: int, what: str):
+    """Kernel C's plan (each ROI's level and pixel footprint, computed on the
+    card) against its plain version ``ops/roi_align.py:roi_footprints`` on
+    the same ROIs: equal."""
+    from ttdg_mgm_torch.ops.roi_align import roi_footprints
+    from ttdg_mgm_torch.ops.roi_pool import roi_footprints_device
+
+    flat = rois.reshape(-1, 4)
+    got = roi_footprints_device(flat, shapes, output_size=P)
+    want = roi_footprints(flat, shapes, output_size=P)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    level, y0, y1, x0, x1 = want
+    side = ((y1 - y0 + 1).clamp(min=0) * (x1 - x0 + 1).clamp(min=0)).float().sqrt().mean()
+    log(f"{what}: device footprints of {flat.shape[0]} ROIs "
+        f"{'equal' if same else 'DIFFER FROM'} roi_footprints (mean side {side.item():.1f} px, "
+        f"ROIs per level {torch.bincount(level.long(), minlength=len(shapes)).tolist()})")
+    check(same, f"{what}: device footprints differ from roi_footprints")
 
 
 def phase_roi_pool(torch, dev, B: int = 4, S: int = 800, C: int = 256,
@@ -333,17 +386,13 @@ def roi_backward_work(torch, feats, rois, P: int):
     """Bytes and float operations the pool's backward needs on these inputs:
     the cotangent and the ROIs read once, every level gradient written once;
     10 operations per valid sample and channel (the weighted value and four
-    corner adds).  Also the bytes of the atomic design, which zeroes the
-    level gradients and then reads and writes each touched row: the
-    cotangent, the zeroing, and a read and a write of each touched row."""
+    corner adds)."""
     touched_and_out, flops = roi_pool_work(torch, feats, rois, P)
     B, K = rois.shape[:2]
     C = feats[0].shape[-1]
     g_bytes = B * K * P * P * C * 4
-    touched_bytes = touched_and_out - g_bytes - rois.numel() * 4
     grad_bytes = sum(f.numel() for f in feats) * 4
-    nbytes = g_bytes + grad_bytes + rois.numel() * 4
-    return nbytes, flops, nbytes + 2 * touched_bytes
+    return g_bytes + grad_bytes + rois.numel() * 4, flops
 
 
 def phase_roi_backward(torch, dev, B: int = 8, S: int = 800, C: int = 256,
@@ -385,55 +434,181 @@ def phase_roi_backward(torch, dev, B: int = 8, S: int = 800, C: int = 256,
                          geometry_ulps=ulps, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          shape=f"levels ({B}, {S // 4}..{S // 32}, {S // 4}..{S // 32}, {C}) f32, "
                                f"rois ({B}, {K}, 4) clustered training ROIs, P={P}")
+        check_roi_footprints(torch, rois, shapes, P, f"roi_pool_backward {name}")
         g = torch.randn((B, K, P, P, C), generator=gen).to(dev)
         got = multilevel_roi_pool_backward(g, shapes, rois)
+        again = multilevel_roi_pool_backward(g, shapes, rois)
         want = multilevel_roi_align_backward(g, shapes, rois)
         torch.cuda.synchronize()
         err, ok = 0.0, True
+        same = all(bool(torch.equal(a, a2)) for a, a2 in zip(got, again))
         for a, b in zip(got, want):
             check(bool(torch.isfinite(a).all()), f"roi_pool_backward {name}: non-finite output")
             err = max(err, (a - b).abs().max().item())
             ok = ok and torch.allclose(a, b, **ROI_BWD_TOL)
-        del got, want
+        del again, want
         log(f"roi_pool_backward {name} grads of {shapes}: max_abs_err {err:.3e} "
-            f"(atol {ROI_BWD_TOL['atol']}, rtol {ROI_BWD_TOL['rtol']}) -> {'ok' if ok else 'FAIL'}")
+            f"(atol {ROI_BWD_TOL['atol']}, rtol {ROI_BWD_TOL['rtol']}) -> {'ok' if ok else 'FAIL'}; "
+            f"two launches {'bit-identical' if same else 'DIFFER'}")
         check(ok, f"roi_pool_backward {name}: kernel disagrees with the plain version ({err})")
+        check(same, f"roi_pool_backward {name}: two launches on the same inputs differ")
         ms = event_ms(torch, lambda: multilevel_roi_pool_backward(g, shapes, rois), 20)
-        # the bare launch keeps adding into one set of gradients: the same
-        # atomics on the same rows, without the wrapper's zeroing
-        grads = [torch.zeros_like(f) for f in feats]
+        # the bare launch writes every element itself: into gradients filled
+        # with NaN, it must give the wrapper's bits
+        grads = [torch.full_like(f, float("nan")) for f in feats]
         args_ms, only_ms = pool_split_ms(torch, grads, shapes, rois, P, C, g, True)
-        del grads
+        torch.cuda.synchronize()
+        check(all(bool(torch.equal(a, b)) for a, b in zip(grads, got)),
+              f"roi_pool_backward {name}: the bare launch into NaN-filled gradients left "
+              f"elements unwritten or differs from the wrapper")
+        del grads, got
         plain_ms = event_ms(torch, lambda: multilevel_roi_align_backward(g, shapes, rois), 2)
         torch.cuda.empty_cache()
-        nbytes, flops, design_bytes = roi_backward_work(torch, feats, rois, P)
+        nbytes, flops = roi_backward_work(torch, feats, rois, P)
         b_ms, b_by = bound(nbytes, flops)
-        design_ms = design_bytes / PEAK_BYTES_PER_S * 1e3
         log(f"roi_pool_backward {name}: wrapper {ms:.4f} ms (its argument set-up {args_ms:.4f} "
-            f"ms, the kernel alone {only_ms:.4f} ms, the rest zeroes the level gradients), "
-            f"plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); the "
-            f"atomic design moves {design_bytes / 1e6:.1f} MB ({design_ms:.4f} ms)")
+            f"ms, the plan and gather kernels alone {only_ms:.4f} ms, written into NaN-filled "
+            f"gradients: every element written), plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         res[name] = dict(max_abs_err=err, ms=ms, kernel_only_ms=only_ms, args_ms=args_ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         design_bytes_ms=design_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, deterministic=same,
                          shape=f"g ({B}, {K}, {P}, {P}, {C}) f32 -> levels ({B}, {S // 4}..{S // 32}"
                                f", {S // 4}..{S // 32}, {C}), clustered training ROIs")
     return res, fwd
 
 
+def tile_hits(torch, rois, shapes, P: int, tile: int = 8):
+    """ROIs per level, and the most ROIs whose footprint meets one tile x
+    tile pixel tile of one image and level (kernel C's tiles), from the plain
+    footprints."""
+    import numpy as np
+    from ttdg_mgm_torch.ops.roi_align import roi_footprints
+
+    B, K = rois.shape[:2]
+    lv, y0, y1, x0, x1 = (t.cpu().numpy() for t in roi_footprints(
+        rois.reshape(-1, 4), shapes, output_size=P))
+    grids = [np.zeros((B, -(-h // tile), -(-w // tile)), np.int64) for h, w in shapes]
+    for r in range(B * K):
+        if y1[r] >= y0[r] and x1[r] >= x0[r]:
+            grids[lv[r]][r // K, y0[r] // tile:y1[r] // tile + 1, x0[r] // tile:x1[r] // tile + 1] += 1
+    return np.bincount(lv, minlength=len(shapes)).tolist(), int(max(g.max() for g in grids))
+
+
+def phase_roi_backward_main(torch, dev, record, dump_dir=None):
+    """Kernel C on the inputs the source path gave it (``record``, from
+    :func:`capture_pool_backward`: the box and the mask pools' cotangents and
+    ROIs of one step): against its plain version, two launches bit for bit,
+    its wrapper's and bare launch's times, and what the data asks of it
+    (ROIs per level, ROIs with an all-zero cotangent, the most ROIs on one
+    tile)."""
+    from ttdg_mgm_torch.ops.roi_align import multilevel_roi_align_backward
+    from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool_backward
+
+    check(len(record) == 2, f"roi_pool_backward main path: {len(record)} calls in one step")
+    if dump_dir:
+        os.makedirs(dump_dir, exist_ok=True)
+        torch.save([(g.cpu(), sh, r.cpu(), kw) for g, sh, r, kw in record],
+                   os.path.join(dump_dir, "pool_backward_inputs.pt"))
+    res = {}
+    for g, shapes, rois, kw in record:
+        B, K, P = g.shape[0], g.shape[1], g.shape[2]
+        C = g.shape[-1]
+        name = "box" if P == 7 else "mask"
+        check(tuple(kw.get("strides", (4, 8, 16, 32))) == (4, 8, 16, 32)
+              and kw.get("sampling_ratio", 0) == 0 and kw.get("min_level", 2) == 2,
+              f"roi_pool_backward main path: options {kw} are not the flagship's")
+        check_roi_footprints(torch, rois, shapes, P, f"roi_pool_backward main path {name}")
+        got = multilevel_roi_pool_backward(g, shapes, rois)
+        again = multilevel_roi_pool_backward(g, shapes, rois)
+        want = multilevel_roi_align_backward(g, shapes, rois)
+        torch.cuda.synchronize()
+        same = all(bool(torch.equal(a, a2)) for a, a2 in zip(got, again))
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        ok = all(torch.allclose(a, b, **ROI_BWD_TOL) for a, b in zip(got, want))
+        del got, again, want
+        check(ok and same, f"roi_pool_backward main path {name}: max_abs_err {err}, "
+                           f"bit-identical {same}")
+        ms = event_ms(torch, lambda: multilevel_roi_pool_backward(g, shapes, rois), 20)
+        grads = [torch.empty((B, h, w, C), device=dev) for h, w in shapes]
+        _, only_ms = pool_split_ms(torch, grads, shapes, rois, P, C, g, True)
+        del grads
+        plain_ms = event_ms(torch, lambda: multilevel_roi_align_backward(g, shapes, rois), 2)
+        torch.cuda.empty_cache()
+        feats = [torch.empty((B, h, w, C), device="meta") for h, w in shapes]
+        nbytes, flops = roi_backward_work(torch, feats, rois, P)
+        b_ms, b_by = bound(nbytes, flops)
+        per_level, max_hits = tile_hits(torch, rois, shapes, P)
+        zero = int((g.reshape(B * K, -1).abs().amax(1) == 0).sum())
+        log(f"roi_pool_backward main path {name} (g {tuple(g.shape)}): max_abs_err {err:.3e}, two "
+            f"launches bit-identical; wrapper {ms:.4f} ms, kernels alone {only_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; ROIs per level {per_level}, "
+            f"{zero} of {B * K} with an all-zero cotangent, at most {max_hits} on one 8 x 8 tile")
+        res[name] = dict(ms=ms, kernel_only_ms=only_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err, deterministic=same,
+                         rois_per_level=per_level, zero_cotangent_rois=zero,
+                         max_rois_per_tile=max_hits)
+    return res
+
+
 # -- phase 7: batched Sinkhorn -----------------------------------------------------
 
-def phase_sinkhorn(torch, dev, record, iters: int = 20, tau: float = 1 / 200):
+def sinkhorn_work(s, nr, nc, max_iter: int):
+    """What kernel D needs for one batch: bytes (each entry read once and
+    written once, the counts and tau), float32 operations (per sweep and live
+    entry a max, a subtract, an add and the final subtract), transcendentals
+    (an exp per sweep and live entry, a log per live slice, an exp per real
+    entry at the end), and the floor of its dependent chain: ``max_iter``
+    normalisations, each two butterflies of log2(8) = 3 shuffle stages over a
+    slice's 8 lanes (``csrc/sinkhorn.cu``), at the measured shuffle latency."""
+    rows = [int(max(a, b)) for a, b in zip(nr.tolist(), nc.tolist())]
+    cols = [int(b) for b in nc.tolist()]
+    live = sum(r * c for r, c in zip(rows, cols))
+    real = sum(int(a) * int(b) for a, b in zip(nr.tolist(), nc.tolist()))
+    slices = sum((r if it % 2 == 0 else c) for r, c in zip(rows, cols) for it in range(max_iter))
+    nbytes = 2 * s.numel() * 4 + 2 * s.shape[0] * 4 + 4
+    flops = 4.0 * max_iter * live
+    sfu = float(max_iter * live + slices + real)
+    chain_ms = max_iter * 2 * 3 * SHUFFLE_CYCLES / SM_CLOCK_HZ * 1e3
+    return nbytes, flops, sfu, chain_ms
+
+
+def sinkhorn_bare_ms(torch, s, nr, nc, tau, max_iter: int, dummy_row: bool = True,
+                     generic=False, reps: int = 200) -> float:
+    """Kernel D's bare launch through its C entry point, by CUDA events: its
+    wrapper's host work (a few small tensor operations) outlasts the kernel.
+    ``generic`` None calls a C entry point without that argument (a package
+    older than the kernel's two paths)."""
+    from ttdg_mgm_torch.ops import _cuda
+
+    nr = nr.to(torch.int32).contiguous()
+    nc = nc.to(torch.int32).contiguous()
+    t = torch.as_tensor(tau, dtype=torch.float32, device=s.device).reshape(1).contiguous()
+    out = torch.empty_like(s)
+    flag = [] if generic is None else [int(generic)]
+    args = [s.data_ptr(), nr.data_ptr(), nc.data_ptr(), t.data_ptr(), *s.shape, int(max_iter),
+            int(dummy_row), *flag, out.data_ptr(), _cuda.stream_ptr(s.device)]
+    fn = _cuda.lib().ttdg_sinkhorn
+    return event_ms(torch, lambda: _cuda.check(fn(*args), "sinkhorn"), reps)
+
+
+def phase_sinkhorn(torch, dev, record, iters: int = 20, tau: float = 1 / 200, dump_dir=None):
     """Kernel D against the plain Sinkhorn on every projection input HiPPI
     gave it in the source phase (``record``, from :func:`capture_hippi`),
     timed on the first; the HiPPI call with the most iterations rerun with
-    the plain projection; one synthetic batch with mixed valid counts."""
+    the plain projection; one synthetic batch with mixed valid counts, on the
+    kernel's register path and on its shared-memory path, and a batch of
+    matrices larger than 64 x 64 (that path's own)."""
     import ttdg_mgm_torch.graph.solvers as solvers
     from ttdg_mgm_torch.ops.sinkhorn import sinkhorn, sinkhorn_batched
 
     proj = record["projections"]
     check(len(proj) > 0, "sinkhorn: HiPPI made no projection in the source phase")
+    if dump_dir:
+        os.makedirs(dump_dir, exist_ok=True)
+        s, nr, nc, kw = proj[0]
+        torch.save((s.cpu(), nr.cpu(), nc.cpu(), {k: (v.cpu() if torch.is_tensor(v) else v)
+                                                  for k, v in kw.items()}),
+                   os.path.join(dump_dir, "sinkhorn_input.pt"))
     err = 0.0
     for s, nr, nc, kw in proj:
         got = sinkhorn_batched(s, nr, nc, **kw)
@@ -470,27 +645,40 @@ def phase_sinkhorn(torch, dev, record, iters: int = 20, tau: float = 1 / 200):
     snr = torch.cat([counts, torch.full((N // 2,), 32, dtype=torch.int32)]).to(dev)
     snc = torch.cat([torch.full((N // 2,), 32, dtype=torch.int32), counts]).to(dev)
     tt = torch.tensor(tau, device=dev)
-    got = sinkhorn_batched(syn, snr, snc, tau=tt, max_iter=iters, dummy_row=True)
-    want = sinkhorn(syn, snr, snc, tau=tt, max_iter=iters, dummy_row=True)
-    syn_err = (got - want).abs().max().item()
-    ok = bool(torch.isfinite(got).all()) and syn_err <= SINKHORN_ATOL
-    log(f"sinkhorn synthetic ({N}, {n}, {n}), uniform scores in [0, 1e3), tau {tau:g}, mixed "
-        f"valid counts: max_abs_err {syn_err:.3e} (atol {SINKHORN_ATOL}) -> {'ok' if ok else 'FAIL'}")
-    check(ok, f"sinkhorn: kernel disagrees with the plain version ({syn_err})")
+    big = (torch.rand((4, 100, 70), generator=gen) * 1e3).to(dev)
+    bnr = torch.tensor([100, 70, 31, 0], dtype=torch.int32, device=dev)
+    bnc = torch.tensor([70, 70, 64, 70], dtype=torch.int32, device=dev)
+    syn_err = 0.0
+    for what, x, a, b, generic in (("synthetic (16, 60, 60)", syn, snr, snc, False),
+                                   ("synthetic (16, 60, 60), shared-memory path", syn, snr, snc,
+                                    True),
+                                   ("synthetic (4, 100, 70)", big, bnr, bnc, False)):
+        got = sinkhorn_batched(x, a, b, tau=tt, max_iter=iters, dummy_row=True, _generic=generic)
+        want = sinkhorn(x, a, b, tau=tt, max_iter=iters, dummy_row=True)
+        e = (got - want).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and e <= SINKHORN_ATOL
+        log(f"sinkhorn {what}, uniform scores in [0, 1e3), tau {tau:g}, mixed valid counts: "
+            f"max_abs_err {e:.3e} (atol {SINKHORN_ATOL}) -> {'ok' if ok else 'FAIL'}")
+        check(ok, f"sinkhorn {what}: kernel disagrees with the plain version ({e})")
+        syn_err = max(syn_err, e)
 
     ms_k = event_ms(torch, lambda: sinkhorn_batched(s, nr, nc, **kw), 200)
+    only_ms = sinkhorn_bare_ms(torch, s, nr, nc, kw["tau"], kw["max_iter"], kw["dummy_row"])
+    ms_generic = sinkhorn_bare_ms(torch, s, nr, nc, kw["tau"], kw["max_iter"], kw["dummy_row"],
+                                  generic=True)
     plain_ms = event_ms(torch, lambda: sinkhorn(s, nr, nc, **kw), 20)
-    # each entry: read once, written once; per iteration and live entry a
-    # max, a subtract, an exp, an add and a final subtract (5 operations),
-    # plus a log per live slice
-    live = sum(int(max(a, b)) * int(b) for a, b in zip(nr.tolist(), nc.tolist()))
-    flops = kw["max_iter"] * 5.0 * live
-    nbytes = 2 * s.numel() * 4 + 2 * s.shape[0] * 4 + 4
-    b_ms, b_by = bound(nbytes, flops)
-    log(f"sinkhorn: kernel {ms_k:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} "
-        f"({nbytes / 1e3:.1f} kB, {flops / 1e6:.2f} MFLOP)")
-    return dict(max_abs_err=max(err, syn_err), ms=ms_k, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=b_by, projections_checked=len(proj),
+    nbytes, flops, sfu, chain_ms = sinkhorn_work(s, nr, nc, kw["max_iter"])
+    b_ms, b_by = bound(nbytes, flops, sfu)
+    log(f"sinkhorn: wrapper {ms_k:.4f} ms, the kernel alone {only_ms:.4f} ms (its shared-memory "
+        f"path {ms_generic:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} ({nbytes / 1e3:.1f} kB, "
+        f"{flops / 1e6:.2f} MFLOP, {sfu / 1e6:.3f} M transcendentals at "
+        f"{PEAK_SFU_PER_S / 1e12:.2f} T/s); dependent-chain floor {chain_ms:.5f} ms "
+        f"({kw['max_iter']} normalisations x 6 shuffle stages x {SHUFFLE_CYCLES} cycles)")
+    return dict(max_abs_err=max(err, syn_err), ms=ms_k, kernel_only_ms=only_ms,
+                generic_path_ms=ms_generic,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, chain_floor_ms=chain_ms,
+                transcendentals=sfu, projections_checked=len(proj),
                 hippi_rerun={"iterations_kernel": steps_k, "iterations_plain": steps_p,
                              "max_abs_diff": hippi_diff},
                 shape=f"{tuple(s.shape)} f32 from HiPPI's first projection of the source phase, "
@@ -568,6 +756,28 @@ def capture_hippi():
     return record, undo
 
 
+def capture_pool_backward():
+    """Wraps kernel C's wrapper as the training pools' autograd backward calls
+    it (``ops/roi_pool.py:_TrainPool``) to keep a copy of each call's inputs.
+    Returns the record and the function that undoes it."""
+    import ttdg_mgm_torch.ops.roi_pool as rp
+
+    record, real = [], rp.multilevel_roi_pool_backward
+
+    def backward(grad, level_shapes, rois, **kw):
+        record.append((grad.detach().clone(), [tuple(s) for s in level_shapes], rois.clone(), kw))
+        return real(grad, level_shapes, rois, **kw)
+
+    def undo():
+        real.launches = backward.launches
+        rp.multilevel_roi_pool_backward = real
+
+    # the wrapper counts its launches on the function the module name holds
+    backward.launches = real.launches
+    rp.multilevel_roi_pool_backward = backward
+    return record, undo
+
+
 def phase_source(torch, dev, size: int = 800, B: int | None = None, steps: int = 5,
                  profile: bool = False, **model_kw):
     from ttdg_mgm_torch.build import SOURCE_SOLVER
@@ -613,11 +823,19 @@ def phase_source(torch, dev, size: int = 800, B: int | None = None, steps: int =
     if profile:
         profile_source(torch, step, batches[-1], gen,
                        lambda: model.multi_matching_sup.last_hippi_steps)
+    # one more step, untimed, keeping the inputs kernel C gets on this path
+    pools, undo = capture_pool_backward()
+    try:
+        step(batches[-1], gen)
+    finally:
+        undo()
+    torch.cuda.synchronize()
     del model, step, batches
     torch.cuda.empty_cache()
     return dict(batch=B, step_ms=step_ms, steady_ms=steady, images_per_s=B * 1e3 / steady,
                 total_loss=totals, peak_gib=peak_gb, launches_per_step=per_step,
-                launches={k: sum(p[k] for p in per_step) for k in per_step[0]}, hippi=record)
+                launches={k: sum(p[k] for p in per_step) for k in per_step[0]}, hippi=record,
+                pools=pools)
 
 
 def profile_source(torch, step, batch, gen, hippi_steps):
@@ -922,7 +1140,7 @@ def profile_call(torch, fn, what: str, extra=lambda: "", top: int = 25):
 def kernel_class(name: str) -> str:
     """Coarse class of a device kernel, by its name."""
     if any(k in name for k in ("roi_pool_kernel", "roi_pool_backward_kernel", "gagm_kernel",
-                               "sinkhorn_kernel", "roi_geometry_kernel")):
+                               "sinkhorn_kernel", "roi_geometry_kernel", "roi_plan_kernel")):
         return "port kernels"
     if any(k in name for k in ("cudnn", "fft", "fprop", "dgrad", "wgrad", "winograd", "cf32",
                                "DSE::", "conv")):
@@ -944,8 +1162,8 @@ def phase_small_reference(torch, dev):
     kernel path is held in phases 6 and 7): each loss within rtol 1e-3, and
     each parameter's gradient within 1e-2 of its largest value plus 1e-6 of
     the largest of any leaf (convolution algorithms, the backward kernel's
-    atomics, and ReLUs whose input lies within round-off of 0 move the
-    gradients of the layers before them)."""
+    summation order, and ReLUs whose input lies within round-off of 0 move
+    the gradients of the layers before them)."""
     from ttdg_mgm_torch.build import build_model
     from ttdg_mgm_torch.synth import synth_batch
 
@@ -1132,7 +1350,8 @@ def main() -> int:
     phase_small_reference(torch, dev)
     roi_bwd, roi_train = phase_roi_backward(torch, dev)
     src = phase_source(torch, dev, profile=profile)
-    sk = phase_sinkhorn(torch, dev, src.pop("hippi"))
+    bwd_main = phase_roi_backward_main(torch, dev, src.pop("pools"), dump_dir=dump_dir)
+    sk = phase_sinkhorn(torch, dev, src.pop("hippi"), dump_dir=dump_dir)
     if "--warm" in sys.argv[1:]:
         phase_warm(torch, dev)
 
@@ -1169,18 +1388,20 @@ def main() -> int:
              max_abs_err=max(bbox["max_abs_err"], bmask["max_abs_err"]),
              ms=bbox["ms"], plain_ms=bbox["plain_ms"], bound_ms=bbox["bound_ms"],
              bound_by=bbox["bound_by"], library_ms=None, shape=bbox["shape"],
-             design_bytes_ms=bbox["design_bytes_ms"], kernel_only_ms=bbox["kernel_only_ms"],
-             args_ms=bbox["args_ms"],
+             kernel_only_ms=bbox["kernel_only_ms"], args_ms=bbox["args_ms"],
+             deterministic=bbox["deterministic"] and bmask["deterministic"],
+             main_path=bwd_main,
              mask_pool={k: bmask[k] for k in ("ms", "kernel_only_ms", "args_ms", "plain_ms",
-                                              "bound_ms", "bound_by",
-                                              "design_bytes_ms", "max_abs_err", "shape")}),
+                                              "bound_ms", "bound_by", "max_abs_err", "shape")}),
         dict(name="sinkhorn", route="cuda", source="ttdg_mgm_torch/csrc/sinkhorn.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/sinkhorn_pallas.py:31",
              launches=src["launches"]["sinkhorn"], launches_by_path=by_path["sinkhorn"],
              max_abs_err=sk["max_abs_err"], ms=sk["ms"], plain_ms=sk["plain_ms"],
              bound_ms=sk["bound_ms"], bound_by=sk["bound_by"], library_ms=None,
-             shape=sk["shape"], projections_checked=sk["projections_checked"],
-             hippi_rerun=sk["hippi_rerun"]),
+             shape=sk["shape"], chain_floor_ms=sk["chain_floor_ms"],
+             transcendentals=sk["transcendentals"], kernel_only_ms=sk["kernel_only_ms"],
+             generic_path_ms=sk["generic_path_ms"],
+             projections_checked=sk["projections_checked"], hippi_rerun=sk["hippi_rerun"]),
     ]
     e2e_line = {k: e2e[k] for k in ("step_ms", "steady_ms", "images_per_s", "losses",
                                     "infer_ms", "peak_gib")}

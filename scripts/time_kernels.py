@@ -2,7 +2,8 @@
 """Time the port's kernel wrappers on one NVIDIA GPU, for comparing two
 versions of the package inside one run on one card.
 
-    python3 scripts/time_kernels.py [--root DIR] [--gagm-input FILE] [--tag NAME]
+    python3 scripts/time_kernels.py [--root DIR] [--gagm-input FILE] [--sinkhorn-input FILE]
+                                    [--pool-input FILE] [--tag NAME]
 
 ``--root`` is a directory that holds the ``ttdg_mgm_torch`` package to time
 (default: this repository).  To compare a commit with the working tree,
@@ -14,12 +15,20 @@ unpack it beside the tree and run the script on both in turns:
 Timed, by CUDA events after a warm-up, at the shapes ``chip_smoke.py`` uses
 (its generators make the inputs): the ROI pool wrapper at the TTA shapes
 (4 x 1000 ROIs at P=7, 4 x 100 at P=14) and the training shapes (8 x 512,
-8 x 128), the pool's backward wrapper at the training shapes, and the fused
-GA-GM solver on the three planted problems and, with ``--gagm-input`` (the
-file ``chip_smoke.py --dump-dir`` writes), on the first input a TTA step gave
-it, with the steps per round and a checksum of the result.  Prints one JSON
-line; every time is milliseconds per call, the card's name and power limit
-beside them.
+8 x 128), the pool's backward wrapper at the training shapes and its bare
+launch through the C entry point (for a package whose backward adds into
+zeroed gradients, into one set of gradients over and over), the fused GA-GM
+solver on the three planted problems and, with ``--gagm-input`` (the file
+``chip_smoke.py --dump-dir`` writes), on the first input a TTA step gave it,
+with the steps per round and a checksum of the result, and the batched
+Sinkhorn on ``chip_smoke.py``'s synthetic batch (16 x 60 x 60, mixed valid
+counts, tau 1/200, 20 iterations) and, with ``--sinkhorn-input`` (also
+written by ``--dump-dir``), on HiPPI's first projection input, each through
+its wrapper and by its bare launch; with ``--pool-input`` (also written by
+``--dump-dir``), the pool's backward on the cotangents and ROIs one source
+step gave it.  Prints one
+JSON line; every time is milliseconds per call, the card's name and power
+limit beside them.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--gagm-input", default=None)
+    ap.add_argument("--sinkhorn-input", default=None)
+    ap.add_argument("--pool-input", default=None)
     ap.add_argument("--tag", default=None)
     args = ap.parse_args()
     import torch
@@ -49,8 +60,10 @@ def main() -> int:
     sys.path.insert(0, root)   # the package under test, found first
     import chip_smoke as cs
     from ttdg_mgm_torch.ops import _cuda
+    from ttdg_mgm_torch.ops import roi_pool as rp
     from ttdg_mgm_torch.ops.gagm import ga_gm_fused
     from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_backward
+    from ttdg_mgm_torch.ops.sinkhorn import sinkhorn_batched
     from ttdg_mgm_torch.synth import planted_matching_problem
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -77,8 +90,22 @@ def main() -> int:
                 g = torch.randn((B, K, P, P, 256), generator=gen).to(dev)
                 res[f"roi_pool_backward_{name}_ms"] = cs.event_ms(
                     torch, lambda: multilevel_roi_pool_backward(g, lshapes, rois), 20)
+                res[f"roi_pool_backward_{name}_bare_ms"] = backward_bare_ms(
+                    torch, cs, _cuda, rp, feats, lshapes, rois, g, P)
                 del g
         del feats
+        torch.cuda.empty_cache()
+
+    if args.pool_input:
+        for g, lshapes, rois, _ in torch.load(args.pool_input):
+            g, rois = g.to(dev), rois.to(dev)
+            name = "box" if g.shape[2] == 7 else "mask"
+            feats = [torch.empty((g.shape[0], h, w, g.shape[-1]), device=dev) for h, w in lshapes]
+            res[f"roi_pool_backward_main_{name}_ms"] = cs.event_ms(
+                torch, lambda: multilevel_roi_pool_backward(g, lshapes, rois), 20)
+            res[f"roi_pool_backward_main_{name}_bare_ms"] = backward_bare_ms(
+                torch, cs, _cuda, rp, feats, lshapes, rois, g, g.shape[2])
+            del g, feats
         torch.cuda.empty_cache()
 
     def checksum(out):
@@ -102,8 +129,45 @@ def main() -> int:
         res["gagm_main_ms"] = cs.event_ms(torch, lambda: ga_gm_fused(*targs, nu, **kw), 10)
         res["gagm_main_steps"] = steps
         res["gagm_main_checksum"] = checksum(out)
+    gen = torch.Generator().manual_seed(3)
+    syn = (torch.rand((16, 60, 60), generator=gen) * 1e3).to(dev)
+    counts = torch.tensor([60, 41, 22, 57, 60, 12, 33, 48], dtype=torch.int32)
+    snr = torch.cat([counts, torch.full((8,), 32, dtype=torch.int32)]).to(dev)
+    snc = torch.cat([torch.full((8,), 32, dtype=torch.int32), counts]).to(dev)
+    skw = dict(tau=torch.tensor(1 / 200, device=dev), max_iter=20, dummy_row=True)
+    # the C entry point of a package with the two-path kernel takes `generic`
+    generic = False if len(_cuda.lib().ttdg_sinkhorn.argtypes) == 12 else None
+    res["sinkhorn_synthetic_ms"] = cs.event_ms(
+        torch, lambda: sinkhorn_batched(syn, snr, snc, **skw), 200)
+    res["sinkhorn_synthetic_bare_ms"] = cs.sinkhorn_bare_ms(torch, syn, snr, snc, skw["tau"], 20,
+                                                            generic=generic)
+    if args.sinkhorn_input:
+        s, nr, nc, kw = torch.load(args.sinkhorn_input)
+        s, nr, nc = s.to(dev), nr.to(dev), nc.to(dev)
+        kw = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in kw.items()}
+        res["sinkhorn_hippi_ms"] = cs.event_ms(
+            torch, lambda: sinkhorn_batched(s, nr, nc, **kw), 200)
+        res["sinkhorn_hippi_bare_ms"] = cs.sinkhorn_bare_ms(
+            torch, s, nr, nc, kw["tau"], kw["max_iter"], kw["dummy_row"], generic=generic)
     print(json.dumps(res), flush=True)
     return 0
+
+
+def backward_bare_ms(torch, cs, _cuda, rp, feats, shapes, rois, g, P: int) -> float:
+    """Kernel C's bare launch through its C entry point, by CUDA events.  A
+    package with ``roi_footprints_device`` has the gather backward, which
+    writes every element and takes a plan buffer; an older one adds into the
+    gradients it is given, here one zeroed set, over and over."""
+    grads = [torch.zeros_like(f) for f in feats]
+    args = rp._kernel_args("backward", grads, shapes, rois, feats[0].shape[-1], P,
+                           (4, 8, 16, 32), 0, 2)
+    if hasattr(rp, "roi_footprints_device"):
+        plan = torch.empty((rois.shape[0] * rois.shape[1], rp.plan_words(P, 0)),
+                           dtype=torch.int32, device=rois.device)
+        args.append(plan.data_ptr())
+    stream = _cuda.stream_ptr(rois.device)
+    fn = _cuda.lib().ttdg_roi_pool_backward
+    return cs.event_ms(torch, lambda: _cuda.check(fn(*args, g.data_ptr(), stream), "bare"), 20)
 
 
 if __name__ == "__main__":

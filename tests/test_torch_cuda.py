@@ -9,7 +9,9 @@ conftest imports JAX; skip it there):
 Tolerances are those of the CPU tests that hold the plain versions against
 the JAX package: ROI pool atol 2e-5, rtol 1e-4 (same float32 bilinear
 arithmetic, another summation order); its backward atol 3e-4, rtol 1e-3
-(float32 atomics add in an order that changes from run to run); GA-GM atol
+(the JAX package's bound for its windowed backward; the kernel merges each
+pixel's sample weights and sums in ROI order, the plain version adds corner
+by corner), and two of its launches equal bit for bit; GA-GM atol
 1e-5 with identical 0/1 assignments on planted problems; batched Sinkhorn
 atol 1e-5.  The device ROI geometry must pick the plain geometry's levels and
 sample counts exactly and place the samples within 1 ulp.  On a random (not
@@ -27,10 +29,12 @@ from ttdg_mgm_torch.graph.solvers import _project_blocks, ga_gm
 from ttdg_mgm_torch.ops.lap import lap_slots_to_nodes
 from ttdg_mgm_torch.ops import _cuda
 from ttdg_mgm_torch.ops.gagm import ga_gm_fused, padded_sizes, resident_smem_bytes
+from ttdg_mgm_torch.ops import roi_pool as roi_pool_mod
 from ttdg_mgm_torch.ops.roi_align import (multilevel_roi_align, multilevel_roi_align_backward,
-                                          roi_geometry)
+                                          roi_footprints, roi_geometry)
 from ttdg_mgm_torch.ops.roi_pool import (multilevel_roi_pool, multilevel_roi_pool_backward,
-                                         multilevel_roi_pool_train, roi_geometry_device)
+                                         multilevel_roi_pool_train, roi_footprints_device,
+                                         roi_geometry_device)
 from ttdg_mgm_torch.ops.sinkhorn import sinkhorn, sinkhorn_batched
 from ttdg_mgm_torch.synth import planted_matching_problem
 
@@ -156,23 +160,99 @@ def test_gagm_kernel_matches_plain(dev, G, n, univ, ms):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5)
 
 
-def test_roi_pool_backward_kernel_matches_plain(dev):
+def _backward_rois(rng, B, K, size):
+    """Training-like ROIs on a ``size`` canvas: clustered around two boxes
+    per image, then elongated, edge-crossing and zero-size ones."""
+    centres = rng.uniform(0.2 * size, 0.8 * size, (B, 2, 2)).astype(np.float32)
+    c = centres[:, rng.randint(0, 2, K)] + rng.uniform(-10, 10, (B, K, 2)).astype(np.float32)
+    half = rng.uniform(3, 0.2 * size, (B, K, 2)).astype(np.float32)
+    rois = np.concatenate([c - half, c + half], -1)
+    odd = np.array([[2, 3, size - 6, 18], [4, 2, 20, size - 3], [-30, -12, 40, 50],
+                    [size - 40, size - 30, size + 25, size + 9], [40, 40, 40, 40],
+                    [30, 30, 30.5, 31]], np.float32)
+    rois[:, :len(odd)] = odd
+    return torch.from_numpy(rois)
+
+
+@pytest.mark.parametrize("P,ratio", [(7, 0), (14, 0), (32, 2)])
+def test_roi_pool_backward_kernel_matches_plain(dev, P, ratio):
+    """Kernel C against its plain version (P=32 stages no cotangent bins:
+    the tile reads them from device memory), two launches bit for bit."""
     rng = np.random.RandomState(12)
     sizes = [(64, 64), (32, 32), (16, 16), (8, 8)]
-    # ROIs clustered around two boxes per image, as sampled training ROIs are
-    centres = rng.uniform(40, 200, (2, 2, 2)).astype(np.float32)
-    c = centres[:, rng.randint(0, 2, 40)] + rng.uniform(-10, 10, (2, 40, 2)).astype(np.float32)
-    half = rng.uniform(6, 50, (2, 40, 2)).astype(np.float32)
-    rois = torch.from_numpy(np.concatenate([c - half, c + half], -1)).to(dev)
-    for P in (7, 14):
-        g = torch.from_numpy(rng.randn(2, 40, P, P, 64).astype(np.float32)).to(dev)
-        before = multilevel_roi_pool_backward.launches
-        got = multilevel_roi_pool_backward(g, sizes, rois)
-        want = multilevel_roi_align_backward(g, sizes, rois)
-        torch.cuda.synchronize()
-        assert multilevel_roi_pool_backward.launches == before + 1
-        for a, b in zip(got, want):
-            np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=3e-4, rtol=1e-3)
+    rois = _backward_rois(rng, 2, 40, 256).to(dev)
+    g = torch.from_numpy(rng.randn(2, 40, P, P, 64).astype(np.float32)).to(dev)
+    before = multilevel_roi_pool_backward.launches
+    got = multilevel_roi_pool_backward(g, sizes, rois, sampling_ratio=ratio)
+    again = multilevel_roi_pool_backward(g, sizes, rois, sampling_ratio=ratio)
+    want = multilevel_roi_align_backward(g, sizes, rois, sampling_ratio=ratio)
+    torch.cuda.synchronize()
+    assert multilevel_roi_pool_backward.launches == before + 2
+    for a, a2, b in zip(got, again, want):
+        assert torch.equal(a, a2)
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=3e-4, rtol=1e-3)
+
+
+def test_roi_pool_backward_padding_rows(dev):
+    """Zero boxes with an all-zero cotangent, as pad the mask pool's rows
+    (the kernel skips them), among zero boxes and tiny ROIs whose cotangent
+    is not zero (it must not): equal to the plain version, bit for bit over
+    two launches."""
+    rng = np.random.RandomState(19)
+    sizes = [(50, 50), (25, 25), (13, 13), (7, 7)]
+    rois = _backward_rois(rng, 2, 48, 200)
+    rois[:, 24:] = 0.0                        # padding rows
+    rois[:, 20:22] = torch.tensor([3.0, 5.0, 3.5, 5.25])  # tiny, live
+    g = torch.from_numpy(rng.randn(2, 48, 14, 14, 32).astype(np.float32))
+    g[:, 24:] = 0.0
+    g[:, 22:24] = 0.0                         # live rows may have a zero cotangent too
+    rois[:, 23] = 0.0
+    rois, g = rois.to(dev), g.to(dev)
+    got = multilevel_roi_pool_backward(g, sizes, rois)
+    again = multilevel_roi_pool_backward(g, sizes, rois)
+    want = multilevel_roi_align_backward(g, sizes, rois)
+    torch.cuda.synchronize()
+    for a, a2, b in zip(got, again, want):
+        assert torch.equal(a, a2)
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=3e-4, rtol=1e-3)
+
+
+def test_roi_pool_backward_writes_every_element(dev):
+    """The bare C entry into level gradients pre-filled with NaN: every
+    element is written (zeros where no ROI reaches), equal to the wrapper's
+    result.  72 channels: a partial channel chunk."""
+    rng = np.random.RandomState(17)
+    sizes = [(50, 50), (25, 25), (13, 13), (7, 7)]
+    rois = _backward_rois(rng, 3, 24, 200).to(dev)
+    g = torch.from_numpy(rng.randn(3, 24, 7, 7, 72).astype(np.float32)).to(dev)
+    want = multilevel_roi_pool_backward(g, sizes, rois)
+    grads = [torch.full((3, h, w, 72), float("nan"), device=dev) for h, w in sizes]
+    args = roi_pool_mod._kernel_args("backward", grads, sizes, rois, 72, 7, (4, 8, 16, 32), 0, 2)
+    plan = torch.empty((3 * 24, roi_pool_mod.plan_words(7, 0)), dtype=torch.int32, device=dev)
+    err = _cuda.lib().ttdg_roi_pool_backward(*args, plan.data_ptr(), g.data_ptr(),
+                                             _cuda.stream_ptr(dev))
+    _cuda.check(err, "roi_pool_backward")
+    torch.cuda.synchronize()
+    for a, b in zip(grads, want):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b)
+    assert any(bool((a == 0).any()) for a in grads)  # tiles no ROI reaches
+
+
+@pytest.mark.parametrize("P,ratio", [(7, 0), (14, 0), (7, 2)])
+def test_device_footprints_match_plain(dev, P, ratio):
+    """The backward's plan (csrc/roi_pool_backward.cu:roi_plan_kernel)
+    against ops/roi_align.py:roi_footprints; its row size as the wrapper
+    allocates it."""
+    assert _cuda.lib().ttdg_roi_plan_words(P, ratio) == roi_pool_mod.plan_words(P, ratio)
+    rng = np.random.RandomState(18)
+    rois = _backward_rois(rng, 1, 300, 800)[0].to(dev)
+    shapes = [(200, 200), (100, 100), (50, 50), (25, 25)]
+    got = roi_footprints_device(rois, shapes, output_size=P, sampling_ratio=ratio)
+    want = roi_footprints(rois, shapes, output_size=P, sampling_ratio=ratio)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_train_pool_autograd_launches_both_kernels(dev):
@@ -192,16 +272,31 @@ def test_train_pool_autograd_launches_both_kernels(dev):
         np.testing.assert_allclose(f.grad.cpu().numpy(), w.cpu().numpy(), atol=3e-4, rtol=1e-3)
 
 
-@pytest.mark.parametrize("dummy_row", [True, False])
-def test_sinkhorn_kernel_matches_plain(dev, dummy_row):
+@pytest.mark.parametrize("shape,dummy_row,max_iter,generic", [
+    ((16, 60, 60), True, 20, False), ((16, 60, 60), False, 20, False),
+    ((16, 60, 60), True, 7, False), ((16, 60, 32), True, 20, False),
+    ((16, 60, 60), True, 20, True), ((4, 100, 70), True, 20, False),
+    ((3, 5, 300), False, 9, False)],
+    ids=["hippi", "no_dummy_row", "odd_max_iter", "non_square", "hippi_generic_path",
+         "larger_than_64", "wide"])
+def test_sinkhorn_kernel_matches_plain(dev, shape, dummy_row, max_iter, generic):
+    """Kernel D against the plain Sinkhorn: both of its paths (entries in
+    registers up to 64 x 64, in shared memory beyond or when asked), with an
+    all-masked matrix (nrows 0) and a matrix with no live column among them."""
+    N, n1, n2 = shape
     rng = np.random.RandomState(14)
-    s = torch.from_numpy(rng.rand(16, 60, 60).astype(np.float32)).to(dev)
-    nr = torch.from_numpy(rng.randint(0, 61, 16).astype(np.int32)).to(dev)
-    nc = torch.from_numpy(rng.randint(1, 61, 16).astype(np.int32)).to(dev)
+    s = torch.from_numpy(rng.rand(N, n1, n2).astype(np.float32)).to(dev)
+    nr_np = rng.randint(0, n1 + 1, N).astype(np.int32)
+    nc_np = rng.randint(1, n2 + 1, N).astype(np.int32)
+    nr_np[0], nc_np[1] = 0, 0
+    nr, nc = torch.from_numpy(nr_np).to(dev), torch.from_numpy(nc_np).to(dev)
     tau = torch.tensor(1 / 200, device=dev)
     before = sinkhorn_batched.launches
-    got = sinkhorn_batched(s, nr, nc, tau=tau, max_iter=20, dummy_row=dummy_row)
-    want = sinkhorn(s, nr, nc, tau=tau, max_iter=20, dummy_row=dummy_row)
+    got = sinkhorn_batched(s, nr, nc, tau=tau, max_iter=max_iter, dummy_row=dummy_row,
+                           _generic=generic)
+    want = sinkhorn(s, nr, nc, tau=tau, max_iter=max_iter, dummy_row=dummy_row)
     torch.cuda.synchronize()
     assert sinkhorn_batched.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert not bool(got[0].any()) and not bool(got[1].any())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5)

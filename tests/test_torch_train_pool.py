@@ -1,6 +1,8 @@
 """The plain versions of the training pool's backward (kernel C) and of the
 batched Sinkhorn (kernel D) against the JAX package; the CUDA kernels
-against these plain versions are in tests/test_torch_cuda.py.
+against these plain versions are in tests/test_torch_cuda.py.  Also the
+plain ``roi_footprints``, the plan kernel C works from, against the plain
+backward's support.
 
 Tolerances:
 
@@ -27,7 +29,8 @@ from ttdg_mgm_tpu.ops.pallas.sinkhorn_pallas import sinkhorn_pallas
 from ttdg_mgm_tpu.ops.roi_align import mask_roi_align as j_mask_roi_align
 from ttdg_mgm_tpu.ops.roi_align import multilevel_roi_align as j_pool
 from ttdg_mgm_tpu.ops.sinkhorn import sinkhorn_masked as j_sinkhorn_masked
-from ttdg_mgm_torch.ops.roi_align import mask_roi_align, multilevel_roi_align_backward
+from ttdg_mgm_torch.ops.roi_align import (mask_roi_align, multilevel_roi_align_backward,
+                                          roi_footprints, roi_geometry)
 from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool_backward, multilevel_roi_pool_train
 from ttdg_mgm_torch.ops.sinkhorn import sinkhorn, sinkhorn_batched, sinkhorn_masked
 
@@ -81,25 +84,89 @@ def test_train_pool_autograd_on_cpu():
         torch.testing.assert_close(f.grad, w, rtol=0, atol=0)
 
 
-def test_batched_sinkhorn_matches_pallas():
-    """HiPPI's shape: 16 square 60 x 60 matrices, mixed valid counts (dummy
-    rows where nrows < ncols), tau 1/200, 20 iterations."""
+@pytest.mark.parametrize("shape,dummy_row,max_iter", [
+    ((16, 60, 60), True, 20), ((16, 60, 60), False, 20), ((16, 60, 60), True, 7),
+    ((16, 60, 32), True, 20)], ids=["hippi", "no_dummy_row", "odd_max_iter", "non_square"])
+def test_batched_sinkhorn_matches_pallas(shape, dummy_row, max_iter):
+    """HiPPI's shape (16 square 60 x 60 matrices, mixed valid counts, dummy
+    rows where nrows < ncols, tau 1/200, 20 iterations) and the other cases
+    the CUDA kernel takes: no dummy rows, an odd iteration count (ends on a
+    row sweep), a non-square batch."""
+    N, n1, n2 = shape
     rng = np.random.RandomState(1)
-    s = rng.rand(16, 60, 60).astype(np.float32)
-    nrows = rng.randint(0, 61, 16).astype(np.int32)
-    ncols = rng.randint(1, 61, 16).astype(np.int32)
-    nrows[:3] = [60, 32, 0]
-    ncols[:3] = [32, 60, 60]
+    s = rng.rand(N, n1, n2).astype(np.float32)
+    nrows = rng.randint(0, n1 + 1, N).astype(np.int32)
+    ncols = rng.randint(1, n2 + 1, N).astype(np.int32)
+    nrows[:3] = [n1, 32, 0]
+    ncols[:3] = [min(32, n2), n2, n2]
     want = np.asarray(sinkhorn_pallas(jnp.asarray(s), jnp.asarray(nrows), jnp.asarray(ncols),
-                                      tau=1 / 200, max_iter=20, dummy_row=True, interpret=True))
+                                      tau=1 / 200, max_iter=max_iter, dummy_row=dummy_row,
+                                      interpret=True))
     before = sinkhorn_batched.launches
     got = sinkhorn_batched(torch.from_numpy(s), torch.from_numpy(nrows), torch.from_numpy(ncols),
-                           tau=torch.tensor(1 / 200), max_iter=20, dummy_row=True)
+                           tau=torch.tensor(1 / 200), max_iter=max_iter, dummy_row=dummy_row)
     assert sinkhorn_batched.launches == before
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
     plain = sinkhorn(torch.from_numpy(s), torch.from_numpy(nrows), torch.from_numpy(ncols),
-                     tau=1 / 200, max_iter=20, dummy_row=True)
+                     tau=1 / 200, max_iter=max_iter, dummy_row=dummy_row)
     torch.testing.assert_close(got, plain, rtol=0, atol=0)
+
+
+def _corner_span(pos, w, n):
+    """Span of the clamped bilinear corners of the samples with weight, in
+    numpy; None when there is none."""
+    pos, w = pos.numpy(), w.numpy()
+    ok = (w > 0) & (pos > -1) & (pos < n)
+    if not ok.any():
+        return None
+    c0 = np.floor(np.clip(pos, 0, n - 1))
+    c1 = np.minimum(c0 + 1, n - 1)
+    return c0[ok].min(), c1[ok].max()
+
+
+@pytest.mark.parametrize("P,ratio", [(7, 0), (7, 2), (14, 0), (14, 2)])
+def test_roi_footprints_bound_the_plain_backward(P, ratio):
+    """``roi_footprints``, the plan the gather backward kernel relies on: for
+    each ROI alone, with a cotangent of ones on that ROI only, the plain
+    backward's nonzero support lies on the ROI's level inside its footprint,
+    at most one pixel inside its far edges (a corner of weight 0), and the
+    footprint is no larger than the span of its samples' corners.  Compact,
+    elongated, degenerate, inverted and edge ROIs."""
+    rng = np.random.RandomState(8)
+    wh = np.exp(rng.uniform(np.log(2.0), np.log(240.0), (24, 2)))
+    xy = rng.uniform(-20, 250, (24, 2))
+    odd = [[-20, 5, 30, 60], [230, 240, 290, 300], [2, 3, 250, 18], [3, 2, 18, 250],
+           [8, 8, 8, 8], [-40, -30, -2, -1], [0, 0, 256, 256], [10, 10, 9, 200],
+           [255.5, 100, 256, 140]]
+    rois = torch.from_numpy(
+        np.concatenate([np.concatenate([xy, xy + wh], -1), odd]).astype(np.float32))
+    R = rois.shape[0]
+    level, y0, y1, x0, x1 = roi_footprints(rois, SIZES, output_size=P, sampling_ratio=ratio)
+    want_level, ys, wy, xs, wx, _ = roi_geometry(rois, SIZES, output_size=P,
+                                                 sampling_ratio=ratio)
+    assert torch.equal(level, want_level)
+    assert all(t.dtype == torch.int32 and t.shape == (R,) for t in (level, y0, y1, x0, x1))
+    # one image per ROI, so each ROI's gradient stands alone
+    grads = multilevel_roi_align_backward(torch.ones((R, 1, P, P, 1)), SIZES, rois[:, None],
+                                          sampling_ratio=ratio)
+    nonempty = 0
+    for r in range(R):
+        lv = int(level[r])
+        assert all(not bool(g[r].any()) for j, g in enumerate(grads) if j != lv)
+        H, W = SIZES[lv]
+        for lo, hi, span in ((y0[r], y1[r], _corner_span(ys[r], wy[r], H)),
+                             (x0[r], x1[r], _corner_span(xs[r], wx[r], W))):
+            if span is None:
+                assert hi < lo
+            else:
+                assert span[0] <= lo <= hi <= span[1]
+        yy, xx = torch.nonzero(grads[lv][r, ..., 0], as_tuple=True)
+        if yy.numel() == 0:
+            continue
+        nonempty += 1
+        for idx, lo, hi in ((yy, y0[r], y1[r]), (xx, x0[r], x1[r])):
+            assert lo == idx.min() and idx.max() <= hi <= idx.max() + 1
+    assert nonempty >= R - 2
 
 
 def test_sinkhorn_masked_matches_jax():

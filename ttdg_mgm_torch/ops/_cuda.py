@@ -112,9 +112,19 @@ def lib() -> ctypes.CDLL:
         cdll.ttdg_gagm.restype = I
         cdll.ttdg_gagm_smem_bytes.argtypes = [I, I, I]
         cdll.ttdg_gagm_smem_bytes.restype = I
-        cdll.ttdg_roi_pool_backward.argtypes = pool_args
+        # the backward: the pool's arguments, then the plan scratch, the
+        # cotangent and the stream
+        cdll.ttdg_roi_pool_backward.argtypes = pool_args[:-2] + [P, P, P]
         cdll.ttdg_roi_pool_backward.restype = I
-        cdll.ttdg_sinkhorn.argtypes = [P] * 4 + [I] * 5 + [P, P]
+        # level count and shapes, 4 strides, min_level, P, the sampling
+        # ratio, R, the ROIs, the plan, stream
+        cdll.ttdg_roi_plan.argtypes = [I] * 9 + [F] * 4 + [I] * 4 + [P, P, P]
+        cdll.ttdg_roi_plan.restype = I
+        cdll.ttdg_roi_plan_words.argtypes = [I, I]
+        cdll.ttdg_roi_plan_words.restype = I
+        # s, nrows, ncols, tau; N, n1, n2, max_iter, dummy_row, generic; out,
+        # stream
+        cdll.ttdg_sinkhorn.argtypes = [P] * 4 + [I] * 6 + [P, P]
         cdll.ttdg_sinkhorn.restype = I
         _lib = cdll
     return _lib

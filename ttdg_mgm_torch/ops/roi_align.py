@@ -14,8 +14,9 @@ The geometry helpers (:func:`assign_fpn_levels`, :func:`_axis_samples`,
 :func:`roi_geometry`) are shared with the CUDA kernels' wrappers, so kernel
 and plain version agree up to summation order.  Also here: the pool's
 feature gradient (:func:`multilevel_roi_align_backward`, the plain version
-of the CUDA backward kernel) and :func:`mask_roi_align`, the GT-mask crop of
-the mask loss.
+of the CUDA backward kernel), each ROI's pixel footprint
+(:func:`roi_footprints`, the plain version of that kernel's plan) and
+:func:`mask_roi_align`, the GT-mask crop of the mask loss.
 """
 
 from __future__ import annotations
@@ -80,6 +81,43 @@ def roi_geometry(rois, level_shapes, *, strides=(4, 8, 16, 32),
     ys, wy, m = _axis_samples(b[:, 1], bin_h, P, sampling_ratio)
     xs, wx, _ = _axis_samples(b[:, 0], bin_w, P, sampling_ratio)
     return levels, ys, wy, xs, wx, m
+
+
+def _axis_span(pos, w, size):
+    """Inclusive ``(lo, hi)`` ``(R,)`` int32 span of the clamped bilinear
+    corners of the samples ``pos``/``w`` ``(R, S)`` that carry weight on an
+    axis of ``size`` ``(R, 1)`` pixels; ``(0, -1)`` where none does."""
+    lim = size.to(torch.float32)
+    ok = (w > 0) & (pos > -1.0) & (pos < lim)
+    c0 = torch.floor(torch.minimum(pos.clamp(min=0.0), lim - 1))
+    c1 = torch.minimum(c0 + 1, lim - 1)
+    big = torch.iinfo(torch.int32).max
+    lo = torch.where(ok, c0.to(torch.int32), big).amin(1)
+    hi = torch.where(ok, c1.to(torch.int32), -1).amax(1)
+    return torch.where(hi < 0, torch.zeros_like(lo), lo), hi
+
+
+def roi_footprints(rois, level_shapes, *, strides=(4, 8, 16, 32), output_size: int = 7,
+                   sampling_ratio: int = 0, min_level: int = 2):
+    """Each ROI's level and inclusive pixel footprint: the plan the gather
+    backward kernel (``csrc/roi_pool_backward.cu``) works from, which tiles
+    of which level an ROI's gradient can reach.
+
+    rois ``(R, 4)``; level_shapes ``[(H_l, W_l)]``.  Returns ``(level, y0,
+    y1, x0, x1)``, each ``(R,)`` int32: ``[y0, y1] x [x0, x1]`` is the span
+    of the bilinear corners of the samples that carry weight (so the ROI's
+    gradient is zero outside it), ``y0 > y1`` or ``x0 > x1`` when no sample
+    on that axis does.
+    """
+    levels, ys, wy, xs, wx, _ = roi_geometry(rois, level_shapes, strides=strides,
+                                             output_size=output_size,
+                                             sampling_ratio=sampling_ratio, min_level=min_level)
+    lv = levels.long()
+    Hs = torch.tensor([h for h, _ in level_shapes], device=rois.device)[lv][:, None]
+    Ws = torch.tensor([w for _, w in level_shapes], device=rois.device)[lv][:, None]
+    y0, y1 = _axis_span(ys, wy, Hs)
+    x0, x1 = _axis_span(xs, wx, Ws)
+    return levels, y0, y1, x0, x1
 
 
 def _bilinear_corners(off, H, W, yy, xx):

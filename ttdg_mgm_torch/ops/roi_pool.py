@@ -11,14 +11,18 @@ PyTorch versions ``ops/roi_align.py:multilevel_roi_align`` and
 * :func:`multilevel_roi_pool_train` replaces its differentiable training
   pooler (``multilevel_roi_align_windowed_train``): a
   ``torch.autograd.Function`` whose forward is the pool kernel and whose
-  backward is :func:`multilevel_roi_pool_backward`, the scatter-accumulate
-  kernel.  No gradient reaches the ROIs, as in the JAX package.
+  backward is :func:`multilevel_roi_pool_backward`, the gather-ordered
+  backward kernel (deterministic: every gradient element is the sum of the
+  same terms in ROI order).  No gradient reaches the ROIs, as in the JAX
+  package.
 
 On CPU tensors the plain versions run; on CUDA tensors the kernels launch
 (or the call raises).  Each kernel wrapper counts its launches.  A wrapper
-starts no device work but its kernel (and, for the backward, the zeroing of
-the level gradients): both kernels compute the sample geometry themselves
-(``csrc/roi_geometry.cuh``, the device copy of
+starts no device work but its kernels (the backward's C entry launches a
+small plan kernel, each ROI's level and pixel footprint, before its gather
+kernel; :func:`roi_footprints_device` returns that plan for checks against
+``ops/roi_align.py:roi_footprints``).  Both compute the sample geometry
+themselves (``csrc/roi_geometry.cuh``, the device copy of
 ``ops/roi_align.py:roi_geometry``; :func:`roi_geometry_device` returns it for
 checks).  The ROIs must be contiguous float32 and the channel count a
 multiple of 4.
@@ -35,10 +39,18 @@ from ttdg_mgm_torch.ops.roi_align import (ADAPTIVE_CAP, multilevel_roi_align,
                                           multilevel_roi_align_backward)
 
 __all__ = ["multilevel_roi_pool", "multilevel_roi_pool_backward", "multilevel_roi_pool_train",
-           "multilevel_roi_align", "roi_geometry_device"]
+           "multilevel_roi_align", "roi_footprints_device", "roi_geometry_device"]
 
 #: sample slots per axis (``P * m``) the kernels hold (``csrc/roi_geometry.cuh``)
 MAX_AXIS_SAMPLES = 64
+
+
+def plan_words(P: int, sampling_ratio: int) -> int:
+    """32-bit words per ROI of the backward's plan (``csrc/roi_pool_backward.cu``:
+    a 4-word ``HitTest``, a 12-word ``RoiPlan`` header, then ``P * m``
+    samples per axis of 4 words each)."""
+    m = sampling_ratio if sampling_ratio > 0 else ADAPTIVE_CAP
+    return 16 + 8 * P * m
 
 
 def _kernel_args(name, tensors, level_shapes, rois, C: int, P: int, strides,
@@ -99,6 +111,37 @@ def roi_geometry_device(rois: torch.Tensor, num_levels: int, *, strides=(4, 8, 1
     return (level, *geo, m)
 
 
+def roi_footprints_device(rois: torch.Tensor, level_shapes, *, strides=(4, 8, 16, 32),
+                          output_size: int = 7, sampling_ratio: int = 0, min_level: int = 2):
+    """Each ROI's level and inclusive pixel footprint as the backward kernel's
+    plan computes them (``csrc/roi_pool_backward.cu:roi_plan_kernel``), for
+    checks against its plain version ``ops/roi_align.py:roi_footprints``:
+    rois ``(R, 4)`` float32 on a CUDA device -> ``(level, y0, y1, x0, x1)``,
+    each ``(R,)`` int32."""
+    dev = rois.device
+    if dev.type != "cuda":
+        raise ValueError(f"roi_footprints_device runs on CUDA tensors, got {dev}")
+    _cuda.require_cuda_f32("rois", rois, dev)
+    R = rois.shape[0]
+    L = len(level_shapes)
+    words = plan_words(output_size, sampling_ratio)
+    plan = torch.empty((R, words), dtype=torch.int32, device=dev)
+    # the headers of the rows after the R four-word HitTests: words 4..8
+    rows = plan.view(-1)[4 * R:].view(R, words - 4)
+    if R == 0:
+        return tuple(rows[:, 4:9].unbind(1))
+    hw, st = [], []
+    for i in range(4):
+        j = min(i, L - 1)
+        hw += [int(v) for v in level_shapes[j]]
+        st.append(float(strides[j]))
+    err = _cuda.lib().ttdg_roi_plan(L, *hw, *st, int(min_level), output_size,
+                                    int(sampling_ratio), R, rois.data_ptr(), plan.data_ptr(),
+                                    _cuda.stream_ptr(dev))
+    _cuda.check(err, "roi_plan kernel")
+    return tuple(rows[:, 4:9].unbind(1))
+
+
 def multilevel_roi_pool(feats: Sequence[torch.Tensor], rois: torch.Tensor, *,
                         strides=(4, 8, 16, 32), output_size: int = 7,
                         sampling_ratio: int = 0, min_level: int = 2):
@@ -129,9 +172,10 @@ def multilevel_roi_pool_backward(grad: torch.Tensor, level_shapes, rois: torch.T
                                  strides=(4, 8, 16, 32), sampling_ratio: int = 0,
                                  min_level: int = 2):
     """Feature gradient of :func:`multilevel_roi_pool`: grad ``(B, K, P, P,
-    C)`` -> ``[(B, H_l, W_l, C)]`` per level.  On CUDA tensors the atomic
-    scatter kernel adds into zeroed level gradients, so the last bits of a
-    sum change from run to run."""
+    C)`` -> ``[(B, H_l, W_l, C)]`` per level.  On CUDA tensors the gather
+    kernel writes every element of the level gradients once (they are not
+    zeroed first), each a sum in ROI order, so two calls give the same
+    bits."""
     if grad.device.type == "cpu":
         return multilevel_roi_align_backward(grad, level_shapes, rois, strides=strides,
                                              sampling_ratio=sampling_ratio,
@@ -145,12 +189,14 @@ def multilevel_roi_pool_backward(grad: torch.Tensor, level_shapes, rois: torch.T
     if tuple(grad.shape) != (B, K, P, P, C):
         raise ValueError(f"grad must be {(B, K, P, P, C)}, got {tuple(grad.shape)}")
     shapes = [tuple(s) for s in level_shapes]
-    out = [torch.zeros((B, h, w, C), dtype=torch.float32, device=dev) for h, w in shapes]
+    out = [torch.empty((B, h, w, C), dtype=torch.float32, device=dev) for h, w in shapes]
     args = _kernel_args("multilevel_roi_pool_backward", out, shapes, rois, C, P, strides,
                         sampling_ratio, min_level)
     if B * K == 0:
-        return out
-    err = _cuda.lib().ttdg_roi_pool_backward(*args, grad.data_ptr(), _cuda.stream_ptr(dev))
+        return [t.zero_() for t in out]
+    plan = torch.empty((B * K, plan_words(P, sampling_ratio)), dtype=torch.int32, device=dev)
+    err = _cuda.lib().ttdg_roi_pool_backward(*args, plan.data_ptr(), grad.data_ptr(),
+                                             _cuda.stream_ptr(dev))
     _cuda.check(err, "roi_pool_backward kernel")
     multilevel_roi_pool_backward.launches += 1
     return out

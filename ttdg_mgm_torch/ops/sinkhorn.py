@@ -92,10 +92,13 @@ def sinkhorn_masked(s, row_mask, *, tau: float = 1.0, max_iter: int = 10):
 
 
 def sinkhorn_batched(s, nrows=None, ncols=None, *, tau=1.0, max_iter: int = 10,
-                     dummy_row: bool = False):
+                     dummy_row: bool = False, _generic: bool = False):
     """:func:`sinkhorn` on a ``(N, n1, n2)`` float32 batch, no gradient:
     the CUDA kernel on CUDA tensors, the plain version on CPU tensors.
-    ``tau`` is a number or a one-element tensor on ``s``'s device."""
+    ``tau`` is a number or a one-element tensor on ``s``'s device.  The
+    kernel keeps a matrix of up to 64 x 64 in registers and a larger one in
+    shared memory; ``_generic`` sends a small one down the second path too
+    (for checks of that path)."""
     if s.device.type == "cpu":
         return sinkhorn(s, nrows, ncols, tau=tau, max_iter=max_iter, dummy_row=dummy_row)
     dev = s.device
@@ -118,8 +121,8 @@ def sinkhorn_batched(s, nrows=None, ncols=None, *, tau=1.0, max_iter: int = 10,
     if N == 0:
         return out
     err = _cuda.lib().ttdg_sinkhorn(s.data_ptr(), nr.data_ptr(), nc.data_ptr(), t.data_ptr(),
-                                    N, n1, n2, int(max_iter), int(dummy_row), out.data_ptr(),
-                                    _cuda.stream_ptr(dev))
+                                    N, n1, n2, int(max_iter), int(dummy_row), int(_generic),
+                                    out.data_ptr(), _cuda.stream_ptr(dev))
     _cuda.check(err, "sinkhorn kernel")
     sinkhorn_batched.launches += 1
     return out
