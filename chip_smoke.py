@@ -14,7 +14,9 @@ Phases, each of which exits non-zero when it fails:
    each pool, the kernels' device geometry (``csrc/roi_geometry.cuh``)
    against ``ops/roi_align.py:roi_geometry`` on the same ROIs (levels and
    sample counts equal, positions within 1 ulp); the wrapper's time apart
-   from the bare kernel's;
+   from the bare kernel's; then all of it again on the rectangular levels of
+   the 832 x 1216 canvas a Drishti-GS image pads onto at the test geometry
+   (p2 208 x 304 down to p5 26 x 38), the ROIs stretched onto it;
 3. the fused GA-GM kernel (``csrc/gagm.cu``) against its plain version on
    planted problems at the flagship size (4 graphs of 60 nodes, a 32-slot
    universe), one with 2 graphs, one with every graph at or below the
@@ -59,15 +61,30 @@ Phases, each of which exits non-zero when it fails:
    HiPPI call that took the most iterations rerun with the plain projection;
    one synthetic batch with mixed valid counts on both of the kernel's
    paths (registers up to 64 x 64, shared memory beyond), and one of 100 x
-   70 matrices.
+   70 matrices;
+8. the command line as a user runs the paper's method:
+   ``train_net_torch.main(["--eval-only", "--config",
+   "configs/test_segment.yaml", ...])`` in process, on a synthetic
+   Drishti-GS test split written in the reference's layout (8 fundus-like
+   PNG images of 800 x 1192 with disc and cup, RLE ground truth) with the
+   flagship's seeded random weights saved as a d2 checkpoint, float32,
+   ``TEST.DICE_THRES 0.0``: two TTA steps and the evaluation at batch 4 on
+   the 832 x 1216 canvas; kernel counters read around the call; it fails
+   unless ``result_ap.txt`` holds the split and its family mean, Dice, E and
+   S are finite, a TTA loss is above 0, kernels A and B launched, and
+   neither Pillow, OpenCV nor PyYAML was imported; it logs each TTA step's
+   time, the evaluation's data, inference and evaluation seconds per image
+   and the peak device memory.
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off).  Bounds use the H100
 SXM's published peaks: 3.35 TB/s of device memory, 67 TFLOP/s float32
 outside the tensor cores, 16 transcendentals per clock per SM (4.18e12/s at
 1.98 GHz).  The last lines are the card's name and power
-limit (nvidia-smi), one JSON object with each kernel's numbers, and the
-device line ``{"ok": true, "device": {...}}``.
+limit (nvidia-smi), one JSON object with each kernel's numbers (its
+launches on the TTA, source and command-line paths under
+``launches_by_path``), and the device line ``{"ok": true, "device":
+{...}}``.
 
 ``--profile`` adds, after each end-to-end phase, more timed steps and one
 step under ``torch.profiler`` (device time by kernel, device busy share):
@@ -318,16 +335,36 @@ def check_roi_footprints(torch, rois, shapes, P: int, what: str):
 
 
 def phase_roi_pool(torch, dev, B: int = 4, S: int = 800, C: int = 256,
-                   box_rois: int = 1000, mask_rois: int = 100, profile: bool = False):
+                   box_rois: int = 1000, mask_rois: int = 100, profile: bool = False,
+                   rect=(832, 1216)):
+    """The pools on the square ``S`` canvas, then on the rectangular canvas
+    ``rect`` (``(832, 1216)``: a Drishti-GS image at the test geometry), its
+    ROIs the square's stretched onto it (results ``box_832x1216``, ...)."""
+    gen = torch.Generator().manual_seed(1)
+    res = {}
+    for (Hc, Wc), tag in (((S, S), ""), (tuple(rect), f"_{rect[0]}x{rect[1]}")):
+        feats = [torch.randn((B, Hc // s, Wc // s, C), generator=gen).to(dev)
+                 for s in (4, 8, 16, 32)]
+        res.update(roi_pool_canvas(torch, dev, feats, gen, B, max(Hc, Wc), box_rois, mask_rois,
+                                   tag, profile and not tag))
+        del feats
+        torch.cuda.empty_cache()
+    return res
+
+
+def roi_pool_canvas(torch, dev, feats, gen, B, side, box_rois, mask_rois, tag, profile):
     from ttdg_mgm_torch.ops.roi_align import multilevel_roi_align
     from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool
 
-    gen = torch.Generator().manual_seed(1)
-    feats = [torch.randn((B, S // s, S // s, C), generator=gen).to(dev) for s in (4, 8, 16, 32)]
     res = {}
+    C = feats[0].shape[-1]
     shapes = [(f.shape[1], f.shape[2]) for f in feats]
-    for name, K, P in (("box", box_rois, 7), ("mask", mask_rois, 14)):
-        rois = make_rois(torch, gen, B, K, S).to(dev)
+    Hc, Wc = shapes[0][0] * 4, shapes[0][1] * 4
+    for name, K, P in (("box" + tag, box_rois, 7), ("mask" + tag, mask_rois, 14)):
+        rois = make_rois(torch, gen, B, K, side)
+        rois[..., 0::2] *= Wc / side
+        rois[..., 1::2] *= Hc / side
+        rois = rois.contiguous().to(dev)
         ulps = check_roi_geometry(torch, rois, shapes, P, f"roi_pool {name}")
         got = multilevel_roi_pool(feats, rois, output_size=P)
         want = multilevel_roi_align(feats, rois, output_size=P)
@@ -350,8 +387,8 @@ def phase_roi_pool(torch, dev, B: int = 4, S: int = 800, C: int = 256,
             f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
         res[name] = dict(max_abs_err=err, ms=ms, kernel_only_ms=only_ms, args_ms=args_ms,
                          geometry_ulps=ulps, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         shape=f"levels ({B}, {S // 4}..{S // 32}, {S // 4}..{S // 32}, {C}) f32, "
-                               f"rois ({B}, {K}, 4), P={P}")
+                         shape=f"levels ({B}, {Hc // 4}..{Hc // 32}, {Wc // 4}..{Wc // 32}, "
+                               f"{C}) f32, rois ({B}, {K}, 4), P={P}")
         if profile:
             # the wrapper's whole device work is its one kernel
             _, by_kernel = profile_call(
@@ -1309,6 +1346,202 @@ def phase_warm(torch, dev, warm_steps: int = 120, warm_size: int = 320, tta_step
     torch.cuda.empty_cache()
 
 
+# -- phase 8: the command line ------------------------------------------------------
+
+CLI_IMAGES = 8
+
+
+def write_png(path: str, img) -> None:
+    """``img (H, W, 3)`` uint8 as an RGB PNG (no row filters), with zlib."""
+    import struct
+    import zlib
+
+    h, w = img.shape[:2]
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    raw = b"".join(b"\0" + img[y].tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_fundus_split(root: str, n: int, hw, seed: int = 0) -> None:
+    """``n`` fundus-like images of ``hw`` in the reference's layout of the
+    Drishti-GS test split (``Fundus/Drishti_GS_test.json``,
+    ``Fundus/Drishti_GS/test/image/``): a dark red field of view with an
+    optic disc and its cup, two ellipses per image; their masks are the
+    ground truth (disc class 1, cup class 2), as RLE."""
+    import numpy as np
+
+    from ttdg_mgm_torch.utils.rle import rle_encode
+
+    h, w = hw
+    rng = np.random.RandomState(seed)
+    img_dir = os.path.join(root, "Fundus", "Drishti_GS", "test", "image")
+    os.makedirs(img_dir, exist_ok=True)
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    fov = ((yy - h / 2) / (0.49 * h)) ** 2 + ((xx - w / 2) / (0.49 * h)) ** 2 <= 1
+    images, anns = [], []
+    for i in range(n):
+        img = np.zeros((h, w, 3), np.float32)
+        img[fov] = [140, 55, 25]
+        img += rng.normal(0, 6, (h, w, 3)).astype(np.float32) * fov[..., None]
+        cy, cx = rng.uniform(0.35, 0.65) * h, rng.uniform(0.3, 0.7) * w
+        ry, rx = rng.uniform(0.08, 0.12) * h, rng.uniform(0.07, 0.11) * h
+        disc = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+        cup = ((yy - cy) / (0.5 * ry)) ** 2 + ((xx - cx) / (0.55 * rx)) ** 2 <= 1
+        img[disc] = [225, 165, 85]
+        img[cup] = [250, 225, 160]
+        write_png(os.path.join(img_dir, f"d{i}.png"), np.clip(img, 0, 255).astype(np.uint8))
+        images.append({"id": i, "file_name": f"d{i}.png", "height": h, "width": w})
+        for cat, m in ((1, disc), (2, cup)):
+            ys, xs = np.nonzero(m)
+            anns.append({"id": len(anns) + 1, "image_id": i, "category_id": cat, "iscrowd": 0,
+                         "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min() + 1),
+                                  float(ys.max() - ys.min() + 1)],
+                         "area": float(m.sum()), "segmentation": rle_encode(m)})
+    with open(os.path.join(root, "Fundus", "Drishti_GS_test.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "disc"}, {"id": 2, "name": "cup"}]}, f)
+
+
+def capture_cli(torch):
+    """Wraps the trainer's TTA step (timed, its loss kept) and its
+    evaluation (the s/iter log line after every batch), and listens to the
+    package's log.  Returns the record and the function that undoes it."""
+    import logging
+
+    import ttdg_mgm_torch.engine.trainer as trainer
+
+    record = {"tta_ms": [], "tta_loss": [], "eval": None, "total": None, "post_s": 0.0}
+    real_step, real_eval = trainer.make_tta_step, trainer.evaluate_dataset
+    real_post = trainer.postprocess_detections
+
+    def make_tta_step(model, optimizer):
+        step = real_step(model, optimizer)
+
+        def timed(batch):
+            dev = batch["image"].device
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            loss = step(batch)
+            record["tta_loss"].append(float(loss))
+            record["tta_ms"].append((time.perf_counter() - t0) * 1e3)
+            return loss
+
+        return timed
+
+    def evaluate_dataset(*a, **k):
+        return real_eval(*a, **{**k, "log_every": 1})
+
+    def postprocess_detections(det, meta, b, **k):
+        # the paste on the card and the copies of its masks to the host
+        t0 = time.perf_counter()
+        out = real_post(det, meta, b, **k)
+        record["post_s"] += time.perf_counter() - t0
+        return out
+
+    class Listen(logging.Handler):
+        def emit(self, rec):
+            if rec.msg.startswith("Inference done"):
+                record["eval"] = rec.args
+            elif rec.msg.startswith("Total inference time"):
+                record["total"] = rec.args
+
+    lg = logging.getLogger("ttdg_mgm_torch")
+    handler, level = Listen(), lg.level
+    lg.addHandler(handler)
+    lg.setLevel(logging.INFO)
+
+    def undo():
+        trainer.make_tta_step, trainer.evaluate_dataset = real_step, real_eval
+        trainer.postprocess_detections = real_post
+        lg.removeHandler(handler)
+        lg.setLevel(level)
+
+    trainer.make_tta_step, trainer.evaluate_dataset = make_tta_step, evaluate_dataset
+    trainer.postprocess_detections = postprocess_detections
+    return record, undo
+
+
+def phase_cli(torch, dev, card: str = "", hw=(800, 1192), opts=(), model_kw=None):
+    """``train_net_torch.main`` in process, as a user runs the paper's
+    method: ``--eval-only --config configs/test_segment.yaml`` on a
+    synthetic Drishti-GS test split of ``CLI_IMAGES`` PNG images of ``hw``
+    (800 x 1192: a Drishti-GS image after ``ResizeShortestEdge(800, 1333)``,
+    so no resize; batches pad onto the 832 x 1216 canvas) with RLE ground
+    truth, the flagship's seeded random weights saved as a d2 checkpoint,
+    float32, Dice over every detection (``TEST.DICE_THRES 0.0``).  Kernel
+    counters are read around the call; the TTA steps are timed, the
+    evaluation loop's data, inference and evaluation seconds per image read
+    from its log."""
+    import tempfile
+
+    import train_net_torch
+    from ttdg_mgm_torch.build import build_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_fundus_split(tmp, CLI_IMAGES, hw)
+        weights = os.path.join(tmp, "model_final.pth")
+        model = build_model(device="cpu", seed=0, **(model_kw or {}))
+        torch.save({"model": model.state_dict()}, weights)
+        del model
+        out_dir = os.path.join(tmp, "out")
+        argv = ["--eval-only", "--device", str(dev),
+                "--config", os.path.join(HERE, "configs", "test_segment.yaml"),
+                "--datasets-root", tmp, "DATASETS.TEST", '["Drishti_GS_test"]',
+                "MODEL.WEIGHTS", weights, "TPU.PRECISION", "float32", "TEST.DICE_THRES", "0.0",
+                "OUTPUT_DIR", out_dir, *opts]
+        log(f"cli: {CLI_IMAGES} images of {hw[0]}x{hw[1]} and the weights written in "
+            f"{time.perf_counter() - t0:.1f} s; train_net_torch.main({' '.join(argv[:6])} ...)")
+        record, undo = capture_cli(torch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        try:
+            t0 = time.perf_counter()
+            results = train_net_torch.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            undo()
+        launches = read_counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
+        with open(os.path.join(out_dir, "result_ap.txt")) as f:
+            line = json.loads(f.read().strip().splitlines()[-1])
+    check(set(line["results"]) >= {"Drishti_GS_test", "Drishti_mean"},
+          f"result_ap.txt holds {sorted(line['results'])}")
+    metrics = results["Drishti_GS_test"]
+    check(len(metrics) == 3 and all(math.isfinite(v) for v in metrics.values()),
+          f"Dice, E and S not all finite: {metrics}")
+    check(any(v > 0 for v in record["tta_loss"]), f"TTA loss {record['tta_loss']} never > 0")
+    check(launches["roi_pool"] >= 1 and launches["gagm"] >= 1,
+          f"the CLI path launched kernel A {launches['roi_pool']} and kernel B "
+          f"{launches['gagm']} times")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2", "yaml"))
+    check(not foreign, f"the CLI path imported {foreign[:5]}")
+    n_img, data_s, infer_s, eval_s = record["eval"]
+    total_s = record["total"][0]
+    post_s = record["post_s"] / n_img
+    log(f"cli ({card}): TTA step ms {[round(t, 1) for t in record['tta_ms']]}, losses "
+        f"{[round(v, 6) for v in record['tta_loss']]}; evaluation of {n_img} images: data "
+        f"{data_s:.4f}, inference {infer_s:.4f}, eval {eval_s:.4f} s per image (of which the "
+        f"paste and its copy to the host {post_s:.4f}, Dice, E and S on the host the rest), "
+        f"{total_s:.2f} s in all; main() {wall:.1f} s; peak memory {peak_gb:.2f} GiB; launches "
+        f"{launches}; no PIL, cv2 or yaml imported")
+    log(f"cli: results {json.dumps(results)}")
+    return dict(tta_ms=record["tta_ms"], tta_loss=record["tta_loss"], eval_images=n_img,
+                data_s_per_image=data_s, inference_s_per_image=infer_s,
+                eval_s_per_image=eval_s, paste_s_per_image=post_s, eval_total_s=total_s,
+                main_s=wall, peak_gib=peak_gb,
+                launches=launches, metrics=metrics)
+
+
 # -- main ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1352,25 +1585,28 @@ def main() -> int:
     src = phase_source(torch, dev, profile=profile)
     bwd_main = phase_roi_backward_main(torch, dev, src.pop("pools"), dump_dir=dump_dir)
     sk = phase_sinkhorn(torch, dev, src.pop("hippi"), dump_dir=dump_dir)
+    cli = phase_cli(torch, dev, card)
     if "--warm" in sys.argv[1:]:
         phase_warm(torch, dev)
 
     box, mask, g4 = roi["box"], roi["mask"], gagm["G4_M60"]
     bbox, bmask = roi_bwd["box"], roi_bwd["mask"]
-    by_path = {k: {"tta": e2e["launches"][k], "source": src["launches"][k]}
-               for k in e2e["launches"]}
+    by_path = {k: {"tta": e2e["launches"][k], "source": src["launches"][k],
+                   "cli": cli["launches"][k]} for k in e2e["launches"]}
+    rect = {k: v for k, v in roi.items() if k not in ("box", "mask")}
     kernels = [
         dict(name="roi_pool", route="cuda", source="ttdg_mgm_torch/csrc/roi_pool.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:113",
              launches=e2e["launches"]["roi_pool"], launches_by_path=by_path["roi_pool"],
-             max_abs_err=max(r["max_abs_err"] for r in (box, mask, *roi_train.values())),
+             max_abs_err=max(r["max_abs_err"] for r in (*roi.values(), *roi_train.values())),
              ms=box["ms"], plain_ms=box["plain_ms"], bound_ms=box["bound_ms"],
              bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
              kernel_only_ms=box["kernel_only_ms"], args_ms=box["args_ms"],
-             geometry_ulps=max(r["geometry_ulps"] for r in (box, mask, *roi_train.values())),
+             geometry_ulps=max(r["geometry_ulps"] for r in (*roi.values(),
+                                                           *roi_train.values())),
              mask_pool={k: mask[k] for k in ("ms", "kernel_only_ms", "args_ms", "plain_ms",
                                              "bound_ms", "bound_by", "max_abs_err", "shape")},
-             train_pools=roi_train),
+             train_pools=roi_train, rect_canvas=rect),
         dict(name="gagm", route="cuda", source="ttdg_mgm_torch/csrc/gagm.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/gagm_pallas.py:53",
              launches=e2e["launches"]["gagm"], launches_by_path=by_path["gagm"],
@@ -1409,6 +1645,11 @@ def main() -> int:
     src_line = {k: src[k] for k in ("batch", "step_ms", "steady_ms", "images_per_s", "total_loss",
                                     "peak_gib")}
     log(f"source summary: {json.dumps(src_line)}")
+    cli_line = {k: cli[k] for k in ("tta_ms", "tta_loss", "data_s_per_image",
+                                    "inference_s_per_image", "eval_s_per_image",
+                                    "paste_s_per_image", "eval_total_s",
+                                    "main_s", "peak_gib", "metrics")}
+    log(f"cli summary ({card}): {json.dumps(cli_line)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

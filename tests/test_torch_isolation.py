@@ -1,6 +1,8 @@
-"""The port stands alone: ``ttdg_mgm_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the port's entry points run on CUDA
-unless the caller asks for the CPU."""
+"""The port stands alone: ``ttdg_mgm_torch``, ``train_net_torch.py`` and
+``chip_smoke.py`` import neither JAX nor the JAX package, the eval-only CLI
+on PNG images with RLE ground truth imports neither Pillow, OpenCV nor
+PyYAML (the chip machine has none of them), and the port's entry points run
+on CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -19,7 +21,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ttdg_mgm_tpu")
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "train_net_torch.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -45,6 +47,29 @@ def test_fresh_import_loads_no_jax():
     assert res.stdout.strip() == "0 []", res.stdout
     assert len(mods) > 25
     assert "ttdg_mgm_torch.graph.universe" in mods
+    assert "train_net_torch" in mods and "ttdg_mgm_torch.engine.trainer" in mods
+
+
+def test_cli_imports_no_pillow_opencv_or_yaml(tmp_path):
+    """``train_net_torch.main`` on the CPU over PNG images with RLE ground
+    truth (tests/test_cli.py's miniature split, its masks RLE-encoded)
+    leaves no PIL, cv2 or yaml module in sys.modules."""
+    from torch_port_fixture import cli_args, write_mini_split
+
+    write_mini_split(tmp_path, rle=True)
+    out_dir = tmp_path / "out"
+    code = ("import sys\n"
+            f"sys.path.insert(0, {REPO!r})\n"
+            "import train_net_torch\n"
+            f"res = train_net_torch.main({cli_args(str(tmp_path), out_dir)!r})\n"
+            "assert 'Drishti_mean' in res, res\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', 'yaml'))\n"
+            "print('FOREIGN', len(bad), bad[:5])\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=os.path.dirname(REPO), env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "FOREIGN 0 []" in res.stdout, res.stdout[-2000:]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))

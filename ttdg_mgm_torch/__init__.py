@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of ``ttdg_mgm_tpu`` for NVIDIA Hopper (H100, ``sm_90a``).
 
 The JAX package stays the reference; this package mirrors its layout
-(``ops/``, ``models/``, ``graph/``, ``solver/``, ``engine/``,
-``checkpoint/``) and its public tensor layouts (NHWC images and FPN levels,
-``(B, K, 4)`` boxes), with PyTorch modules named after the detectron2 state
-dict.  It imports neither ``jax`` nor anything of ``ttdg_mgm_tpu``.
+(``config.py``, ``data/``, ``ops/``, ``models/``, ``graph/``, ``solver/``,
+``engine/``, ``evaluation/``, ``checkpoint/``, ``utils/``) and its public
+tensor layouts (NHWC images and FPN levels, ``(B, K, 4)`` boxes), with
+PyTorch modules named after the detectron2 state dict.  It imports neither
+``jax`` nor anything of ``ttdg_mgm_tpu``; ``train_net_torch.py`` is its
+command line.
 
 Two hand-written CUDA kernels carry the eval-only TTA path
 (``csrc/roi_pool.cu``, ``csrc/gagm.cu``).  They are compiled with ``nvcc`` at

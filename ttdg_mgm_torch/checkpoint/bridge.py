@@ -16,6 +16,10 @@ dicts of NumPy arrays:
 * the universe learner's attention ``multi_matching_sup/Net_U/g_gene`` goes
   to ``multi_matching_sup.Net_U.g_gene.*`` and the hoisted universe ``U`` to
   ``multi_matching_sup.U``.
+
+:func:`load_reference_checkpoint` and :func:`merge_state_dict` read a d2
+checkpoint (``MODEL.WEIGHTS``) into the port's modules by name, with d2's
+leniency (``build.py:init_params``).
 """
 
 from __future__ import annotations
@@ -154,3 +158,48 @@ def load_d2_state_dict(model: torch.nn.Module, sd: dict) -> list:
                 raise ValueError(f"{k}: shape {tuple(src.shape)} != {tuple(own[k].shape)}")
             own[k].copy_(src)
     return sorted(set(sd) - given)
+
+
+def load_reference_checkpoint(path: str, *, prefer: str = "modelTeacher") -> dict:
+    """A d2 checkpoint (``.pth``, or a pickled ``.pkl``) -> ``{name: NumPy
+    array}``.  A teacher-student checkpoint (``modelTeacher.*`` and
+    ``modelStudent.*``) gives the member ``prefer`` with its prefix removed,
+    as ``ttdg_mgm_tpu/checkpoint/converter.py:load_reference_checkpoint``
+    does.  Checkpoints are pickles: load only files from a trusted source."""
+    if path.endswith(".pkl"):
+        import pickle
+
+        with open(path, "rb") as f:
+            data = pickle.load(f, encoding="latin1")
+    else:
+        data = torch.load(path, map_location="cpu", weights_only=False)
+    sd = data.get("model", data)
+    sd = {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in sd.items()}
+    if "conv1_w" in sd:
+        raise NotImplementedError(
+            f"{path} is a Caffe2 ImageNet pickle; its name map (c2_resnet_to_d2_names) is not "
+            "ported to ttdg_mgm_torch yet (ROADMAP.md, Queue 1: the long tail)")
+    if any(k.startswith("modelTeacher.") for k in sd):
+        pre = prefer + "."
+        sd = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}
+    return sd
+
+
+def merge_state_dict(model: torch.nn.Module, sd: dict) -> dict:
+    """Copy the entries of ``sd`` whose name and shape match one of the
+    model's parameters or buffers under :data:`OWNED_PREFIXES` (d2
+    checkpoint semantics: a shape mismatch skips the entry, a name the
+    checkpoint lacks keeps its current value).  Returns the names
+    ``{"loaded": [...], "shape_mismatch": [...], "missing": [...]}``."""
+    own = model.state_dict()
+    report = {"loaded": [], "shape_mismatch": [], "missing": []}
+    with torch.no_grad():
+        for k in sorted(n for n in own if n.startswith(OWNED_PREFIXES)):
+            if k not in sd:
+                report["missing"].append(k)
+            elif tuple(np.shape(sd[k])) != tuple(own[k].shape):
+                report["shape_mismatch"].append(k)
+            else:
+                own[k].copy_(torch.tensor(np.asarray(sd[k]), dtype=own[k].dtype))
+                report["loaded"].append(k)
+    return report

@@ -178,14 +178,22 @@ def multilevel_roi_align(feats, rois, *, strides=(4, 8, 16, 32),
     flat = torch.cat([f.reshape(-1, C) for f in feats], dim=0)
     off, H, W, _ = _pyramid_layout(shapes, levels, B, K, rois.device)
     S = P * m
-    yy = ys[:, :, None].expand(B * K, S, S)
-    xx = xs[:, None, :].expand(B * K, S, S)
-    rows, wts, valid = _bilinear_corners(off, H, W, yy, xx)
+    R = B * K
+    # only the sample slots of the adaptive grid that carry weight are
+    # gathered; the others stay zero in the (R*S*S, C) samples, so each bin
+    # sums the same terms as over the whole grid
+    swgt = (wy[:, :, None] * wx[:, None, :]).reshape(-1)
+    live = torch.nonzero(swgt > 0).squeeze(1)
+    roi = live // (S * S)
+    sy = (live // S) % S
+    sx = live % S
+    rows, wts, valid = _bilinear_corners(off.reshape(R)[roi], H.reshape(R)[roi],
+                                         W.reshape(R)[roi], ys[roi, sy], xs[roi, sx])
     v = sum(flat[r] * w for r, w in zip(rows, wts))
     v = torch.where(valid, v, v.new_zeros(()))
-    swgt = (wy[:, :, None] * wx[:, None, :]).reshape(-1, 1)
-    v = v * swgt
-    out = v.reshape(B * K, P, m, P, m, C).sum(dim=(2, 4))
+    samples = flat.new_zeros((R * S * S, C))
+    samples[live] = v * swgt[live, None]
+    out = samples.reshape(R, P, m, P, m, C).sum(dim=(2, 4))
     return out.reshape(B, K, P, P, C)
 
 
