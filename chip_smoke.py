@@ -16,15 +16,21 @@ Phases, each of which exits non-zero when it fails:
    sample counts equal, positions within 1 ulp); the wrapper's time apart
    from the bare kernel's; then all of it again on the rectangular levels of
    the 832 x 1216 canvas a Drishti-GS image pads onto at the test geometry
-   (p2 208 x 304 down to p5 26 x 38), the ROIs stretched onto it;
+   (p2 208 x 304 down to p5 26 x 38), the ROIs stretched onto it; then both
+   canvases again on the same draws rounded to bfloat16: kernel A's bf16
+   variant (the bf16 compute policy) against its plain bf16 version, within
+   1 bf16 ulp of the plain value or ``BF16_ATOL``, with its times and its
+   bound at 2 bytes per feature and output value;
 3. the fused GA-GM kernel (``csrc/gagm.cu``) against its plain version on
    planted problems at the flagship size (4 graphs of 60 nodes, a 32-slot
    universe), one with 2 graphs, one with every graph at or below the
    universe size;
 4. the eval-only TTA path end to end: the flagship R50-FPN Mask R-CNN at
    full width with seeded random weights, 3 TTA steps and one
-   ``forward_inference`` on 4 synthetic 800x800 images, with both kernels'
-   launch counters read around it, keeping a copy of every input the TTA
+   ``forward_inference`` on 4 synthetic 800x800 images, in float32 and in
+   bf16 (every parameter and gradient checked float32, the dtypes reaching
+   kernel B logged), with the kernels' launch counters (float32 and bf16
+   variants apart) read around it, keeping a copy of every input the TTA
    steps give the GA-GM solver; then kernel B on those inputs: its time by
    CUDA events, its steps per round and its bound from them, the in-kernel
    clock split of an annealed and of a finale step, and the checks that are
@@ -41,8 +47,15 @@ Phases, each of which exits non-zero when it fails:
    backward's device plan (each ROI's level and pixel footprint) against
    ``ops/roi_align.py:roi_footprints``, two backward launches bit for bit,
    and its bare launch into NaN-filled gradients (every element written);
-6. source training end to end: the flagship at full width in float32,
-   5 ``make_source_step`` steps on 8 synthetic 800x800 disc images with GT
+   then all of it again on the same draws rounded to bfloat16 (kernels A
+   and C's bf16 variants against their plain bf16 versions, kernel C's
+   within 1 bf16 ulp or the smaller of ``BF16_BWD_ATOL`` and ``BWD_REL``
+   of each level's largest value; bounds at 2 bytes per value); kernel C's
+   absolute tolerance is at most ``BWD_REL`` of each level's largest
+   value in float32 too, as on the source step's own small gradients;
+6. source training end to end: the flagship at full width in float32 and
+   in bf16 (kernels A and C's bf16 variants; the dtypes reaching kernel D
+   logged), 5 ``make_source_step`` steps on 8 synthetic 800x800 disc images with GT
    (masks on a 256 canvas), the source solver (lr 0.0025) with the
    global-norm clip 1.0 and warm-up of ``bench.py:warm_params``, the launch
    counters of kernels A, C and D read around every step; a copy of the
@@ -74,10 +87,24 @@ Phases, each of which exits non-zero when it fails:
    S are finite, a TTA loss is above 0, kernels A and B launched, and
    neither Pillow, OpenCV nor PyYAML was imported; it logs each TTA step's
    time, the evaluation's data, inference and evaluation seconds per image
-   and the peak device memory.
+   and the peak device memory; then the same command with no precision
+   override (bf16, the config's default) on 2 fundus-like PNG images of
+   2896 x 1944 (Drishti-GS's size: resized by the loader, scored at that
+   size) with polygon ground truth and on a BKAI split of the 3 committed
+   baseline 4:2:0 JPEGs of 1280 x 959 (``tests/fixtures/torch_jpeg``), with
+   the host's decode and resize seconds per image;
+9. determinism, in both precisions: two runs of 5 TTA steps and two of 5
+   source steps from one saved state give bitwise-equal parameters and
+   gradients under cuDNN's deterministic algorithms (what the entry points
+   set, ``ttdg_mgm_torch.configure_torch``); the same runs under cuDNN's
+   default algorithms report what differs first; then one run of 62 steps
+   with the two settings alternated step by step gives the step-time cost
+   of determinism (the median of 30 steps each, with quartiles).
 
 TF32 is off for convolutions and matrix products throughout (parity
-setting; the end-to-end times are taken with it off).  Bounds use the H100
+setting; the end-to-end times are taken with it off), and cuDNN runs its
+deterministic algorithms (``configure_torch``) except where phase 9 turns
+them off.  Bounds use the H100
 SXM's published peaks: 3.35 TB/s of device memory, 67 TFLOP/s float32
 outside the tensor cores, 16 transcendentals per clock per SM (4.18e12/s at
 1.98 GHz).  The last lines are the card's name and power
@@ -139,6 +166,7 @@ SINKHORN_ATOL = 1e-5  # tests/test_pallas.py:166
 GAGM_KW = dict(quad_weight=0.5, mgm_iter=200, sk_iter=20, sk_tau0=0.1, sk_gamma=0.5,
                min_tau=1e-2, tol=1e-3)
 TTA_LR = 0.005  # configs/test_segment.yaml SOLVER.BASE_LR
+PRECISIONS = ("float32", "bfloat16")
 # bench.py:warm_params: the source solver's lr with a 40-step warm-up from
 # 0.05 and the global-norm clip 1.0, without which training from random
 # weights diverges (bench.py:107-119)
@@ -217,11 +245,11 @@ def make_rois(torch, gen, B: int, K: int, size: int):
     return rois.contiguous()
 
 
-def roi_pool_work(torch, feats, rois, P: int):
+def roi_pool_work(torch, feats, rois, P: int, elem: int = 4):
     """Bytes and float operations this ROI pool needs on these inputs: each
-    feature row (one pixel's C values) that some valid bilinear corner reads,
-    read once; the output written once; 10 operations per valid sample and
-    channel (4 corner FMAs, the weighted accumulate)."""
+    feature row (one pixel's C values of ``elem`` bytes) that some valid
+    bilinear corner reads, read once; the output written once; 10 operations
+    per valid sample and channel (4 corner FMAs, the weighted accumulate)."""
     from ttdg_mgm_torch.ops.roi_align import roi_geometry
 
     B, K = rois.shape[:2]
@@ -251,8 +279,8 @@ def roi_pool_work(torch, feats, rois, P: int):
     live = (yi[:, :, None] >= 0) & (xi[:, None, :] >= 0)
     touched = torch.unique(ids[live]).numel()
     pairs = (vy.sum(1) * vx.sum(1)).sum().item()
-    out_bytes = B * K * P * P * C * 4
-    return touched * C * 4 + out_bytes + rois.numel() * 4, 10.0 * pairs * C
+    out_bytes = B * K * P * P * C * elem
+    return touched * C * elem + out_bytes + rois.numel() * 4, 10.0 * pairs * C
 
 
 def check_roi_geometry(torch, rois, shapes, P: int, what: str):
@@ -336,14 +364,17 @@ def check_roi_footprints(torch, rois, shapes, P: int, what: str):
 
 def phase_roi_pool(torch, dev, B: int = 4, S: int = 800, C: int = 256,
                    box_rois: int = 1000, mask_rois: int = 100, profile: bool = False,
-                   rect=(832, 1216)):
+                   rect=(832, 1216), dtype: str = "float32"):
     """The pools on the square ``S`` canvas, then on the rectangular canvas
     ``rect`` (``(832, 1216)``: a Drishti-GS image at the test geometry), its
-    ROIs the square's stretched onto it (results ``box_832x1216``, ...)."""
+    ROIs the square's stretched onto it (results ``box_832x1216``, ...), on
+    levels of ``dtype``: ``"bfloat16"`` rounds the same draws and holds
+    kernel A's bf16 variant to its plain bf16 version."""
     gen = torch.Generator().manual_seed(1)
+    dt = getattr(torch, dtype)
     res = {}
     for (Hc, Wc), tag in (((S, S), ""), (tuple(rect), f"_{rect[0]}x{rect[1]}")):
-        feats = [torch.randn((B, Hc // s, Wc // s, C), generator=gen).to(dev)
+        feats = [torch.randn((B, Hc // s, Wc // s, C), generator=gen).to(dev).to(dt)
                  for s in (4, 8, 16, 32)]
         res.update(roi_pool_canvas(torch, dev, feats, gen, B, max(Hc, Wc), box_rois, mask_rois,
                                    tag, profile and not tag))
@@ -352,43 +383,123 @@ def phase_roi_pool(torch, dev, B: int = 4, S: int = 800, C: int = 256,
     return res
 
 
+# bf16 outputs of kernel and plain version are each one rounding of float32
+# sums taken in other orders: they agree within 1 bf16 ulp of the plain value
+# (2**-8 to 2**-7 of it), or within an absolute floor where a value near zero
+# makes the sums' float32 order differences larger than its ulp.  The pool
+# sums up to 64 products of |f| < 6 (BF16_ATOL); the backward sums over every
+# ROI that reaches a pixel (BF16_BWD_ATOL).
+BF16_ATOL = 1e-5
+BF16_BWD_ATOL = 1e-4
+# The backward's absolute floor, in both dtypes, is at most BWD_REL of the
+# level's largest plain value, so that the source step's gradients of about
+# 1e-6 are held as tightly as unit-scale ones (a kernel that wrote zeros
+# fails at the largest)
+BWD_REL = 1e-3
+
+
+def bf16_agreement(torch, got, want, atol: float):
+    """``(max_abs_err, values beyond 1 ulp of want, values beyond 1 ulp +
+    atol)`` of two bf16 tensors."""
+    d = (got.float() - want.float()).abs()
+    a = want.float().abs().clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(a)) - 7)
+    return d.max().item(), int((d > ulp).sum()), int((d > ulp + atol).sum())
+
+
+def pool_tolerance(bf16: bool, backward: bool = False) -> str:
+    atol = BF16_BWD_ATOL if bf16 else ROI_BWD_TOL["atol"]
+    floor = (f"min({atol}, {BWD_REL} x the level's largest |plain value|)" if backward
+             else BF16_ATOL if bf16 else ROI_TOL["atol"])
+    if bf16:
+        return f"1 bf16 ulp of the plain value or {floor} absolute"
+    return f"atol {floor}, rtol {(ROI_BWD_TOL if backward else ROI_TOL)['rtol']}"
+
+
+def pool_agreement(torch, got, want, backward: bool = False):
+    """Kernel A's output (``backward``: kernel C's level gradients) against
+    its plain version's, by the rule :func:`pool_tolerance` states for their
+    dtype.  Returns ``(ok, max_abs_err, values beyond 1 bf16 ulp or None)``."""
+    pairs = list(zip(got, want)) if backward else [(got, want)]
+    bf16 = pairs[0][0].dtype == torch.bfloat16
+    ok, err, beyond = True, 0.0, 0
+    for a, b in pairs:
+        atol = BF16_BWD_ATOL if bf16 else ROI_BWD_TOL["atol"]
+        if backward:
+            atol = min(atol, BWD_REL * b.float().abs().max().item())
+        if bf16:
+            e, n_ulp, n_bad = bf16_agreement(torch, a, b, atol if backward else BF16_ATOL)
+            ok, beyond = ok and n_bad == 0, beyond + n_ulp
+        else:
+            e = (a - b).abs().max().item()
+            tol = dict(ROI_BWD_TOL, atol=atol) if backward else ROI_TOL
+            ok = ok and torch.allclose(a, b, **tol)
+        err = max(err, e)
+    return ok, err, beyond if bf16 else None
+
+
+def pool_fns(torch, dtype):
+    """Kernel A's and C's plain versions for levels of ``dtype``: ``(forward,
+    backward, short dtype name)``."""
+    from ttdg_mgm_torch.ops import roi_align as ra
+
+    if dtype == torch.bfloat16:
+        return ra.multilevel_roi_align_bf16, ra.multilevel_roi_align_backward_bf16, "bf16"
+    return ra.multilevel_roi_align, ra.multilevel_roi_align_backward, "f32"
+
+
+def hold_pool(torch, feats, rois, P: int, what: str, shape: str):
+    """Kernel A on ``feats`` and ``rois`` against its plain version for their
+    dtype, then its wrapper's, bare launch's and plain version's times and
+    its bound."""
+    from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool
+
+    plain, _, dt = pool_fns(torch, feats[0].dtype)
+    C = feats[0].shape[-1]
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    got = multilevel_roi_pool(feats, rois, output_size=P)
+    want = plain(feats, rois, output_size=P)
+    torch.cuda.synchronize()
+    check(got.dtype == feats[0].dtype and bool(torch.isfinite(got).all()),
+          f"{what}: output {got.dtype} or non-finite")
+    ok, err, beyond = pool_agreement(torch, got, want)
+    del want
+    tol = pool_tolerance(dt == "bf16")
+    log(f"{what} pool {tuple(got.shape)}: max_abs_err {err:.3e} ({tol}"
+        f"{'' if beyond is None else f'; {beyond} values beyond 1 bf16 ulp'}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{what}: kernel disagrees with the plain version ({err})")
+    ms = event_ms(torch, lambda: multilevel_roi_pool(feats, rois, output_size=P), 20)
+    args_ms, only_ms = pool_split_ms(torch, feats, shapes, rois, P, C, got, False)
+    plain_ms = event_ms(torch, lambda: plain(feats, rois, output_size=P), 2)
+    torch.cuda.empty_cache()
+    nbytes, flops = roi_pool_work(torch, feats, rois, P, elem=feats[0].element_size())
+    b_ms, b_by = bound(nbytes, flops)
+    log(f"{what}: wrapper {ms:.4f} ms (its argument set-up {args_ms:.4f} ms, the kernel alone "
+        f"{only_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+        f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    return dict(max_abs_err=err, beyond_ulp=beyond, ms=ms, kernel_only_ms=only_ms, args_ms=args_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                shape=f"{shape} {dt}, rois ({rois.shape[0]}, {rois.shape[1]}, 4), P={P}")
+
+
 def roi_pool_canvas(torch, dev, feats, gen, B, side, box_rois, mask_rois, tag, profile):
-    from ttdg_mgm_torch.ops.roi_align import multilevel_roi_align
     from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool
 
     res = {}
     C = feats[0].shape[-1]
     shapes = [(f.shape[1], f.shape[2]) for f in feats]
     Hc, Wc = shapes[0][0] * 4, shapes[0][1] * 4
+    dt = pool_fns(torch, feats[0].dtype)[2]
     for name, K, P in (("box" + tag, box_rois, 7), ("mask" + tag, mask_rois, 14)):
         rois = make_rois(torch, gen, B, K, side)
         rois[..., 0::2] *= Wc / side
         rois[..., 1::2] *= Hc / side
         rois = rois.contiguous().to(dev)
-        ulps = check_roi_geometry(torch, rois, shapes, P, f"roi_pool {name}")
-        got = multilevel_roi_pool(feats, rois, output_size=P)
-        want = multilevel_roi_align(feats, rois, output_size=P)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"roi_pool {name}: non-finite output")
-        err = (got - want).abs().max().item()
-        ok = torch.allclose(got, want, **ROI_TOL)
-        del want
-        log(f"roi_pool {name} pool {tuple(got.shape)}: max_abs_err {err:.3e} "
-            f"(atol {ROI_TOL['atol']}, rtol {ROI_TOL['rtol']}) -> {'ok' if ok else 'FAIL'}")
-        check(ok, f"roi_pool {name}: kernel disagrees with the plain version ({err})")
-        ms = event_ms(torch, lambda: multilevel_roi_pool(feats, rois, output_size=P), 20)
-        args_ms, only_ms = pool_split_ms(torch, feats, shapes, rois, P, C, got, False)
-        plain_ms = event_ms(torch, lambda: multilevel_roi_align(feats, rois, output_size=P), 2)
-        torch.cuda.empty_cache()
-        nbytes, flops = roi_pool_work(torch, feats, rois, P)
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"roi_pool {name}: wrapper {ms:.4f} ms (its argument set-up {args_ms:.4f} ms, the "
-            f"kernel alone {only_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        res[name] = dict(max_abs_err=err, ms=ms, kernel_only_ms=only_ms, args_ms=args_ms,
-                         geometry_ulps=ulps, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         shape=f"levels ({B}, {Hc // 4}..{Hc // 32}, {Wc // 4}..{Wc // 32}, "
-                               f"{C}) f32, rois ({B}, {K}, 4), P={P}")
+        ulps = check_roi_geometry(torch, rois, shapes, P, f"roi_pool {dt} {name}")
+        res[name] = hold_pool(torch, feats, rois, P, f"roi_pool {dt} {name}",
+                              f"levels ({B}, {Hc // 4}..{Hc // 32}, {Wc // 4}..{Wc // 32}, {C})")
+        res[name]["geometry_ulps"] = ulps
         if profile:
             # the wrapper's whole device work is its one kernel
             _, by_kernel = profile_call(
@@ -419,76 +530,60 @@ def make_train_rois(torch, gen, B: int, K: int, size: int):
     return rois.clamp(0.0, float(size)).contiguous()
 
 
-def roi_backward_work(torch, feats, rois, P: int):
+def roi_backward_work(torch, feats, rois, P: int, elem: int = 4):
     """Bytes and float operations the pool's backward needs on these inputs:
-    the cotangent and the ROIs read once, every level gradient written once;
-    10 operations per valid sample and channel (the weighted value and four
-    corner adds)."""
+    the cotangent (``elem`` bytes per value) and the ROIs read once, every
+    level gradient written once; 10 operations per valid sample and channel
+    (the weighted value and four corner adds)."""
     touched_and_out, flops = roi_pool_work(torch, feats, rois, P)
     B, K = rois.shape[:2]
     C = feats[0].shape[-1]
-    g_bytes = B * K * P * P * C * 4
-    grad_bytes = sum(f.numel() for f in feats) * 4
+    g_bytes = B * K * P * P * C * elem
+    grad_bytes = sum(f.numel() for f in feats) * elem
     return g_bytes + grad_bytes + rois.numel() * 4, flops
 
 
 def phase_roi_backward(torch, dev, B: int = 8, S: int = 800, C: int = 256,
-                       box_rois: int = 512, mask_rois: int = 128):
-    """The training pools: the ROI pool kernel, then the backward kernel,
-    each against its plain version on the same levels and ROIs.  Returns
-    ``(backward results, forward results)``."""
-    from ttdg_mgm_torch.ops.roi_align import multilevel_roi_align, multilevel_roi_align_backward
-    from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_backward
+                       box_rois: int = 512, mask_rois: int = 128, dtype: str = "float32"):
+    """The training pools on levels of ``dtype``: the ROI pool kernel, then
+    the backward kernel, each against its plain version for that dtype on
+    the same levels and ROIs (``"bfloat16"``: the same draws rounded).
+    Returns ``(backward results, forward results)``."""
+    from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool_backward
 
+    dt_ = getattr(torch, dtype)
+    _, plain, dt = pool_fns(torch, dt_)
     gen = torch.Generator().manual_seed(2)
-    feats = [torch.randn((B, S // s, S // s, C), generator=gen).to(dev) for s in (4, 8, 16, 32)]
+    feats = [torch.randn((B, S // s, S // s, C), generator=gen).to(dev).to(dt_)
+             for s in (4, 8, 16, 32)]
     shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    levels = f"({B}, {S // 4}..{S // 32}, {S // 4}..{S // 32}, {C})"
     res, fwd = {}, {}
     for name, K, P in (("box", box_rois, 7), ("mask", mask_rois, 14)):
         rois = make_train_rois(torch, gen, B, K, S).to(dev)
-        ulps = check_roi_geometry(torch, rois, shapes, P, f"roi_pool train {name}")
-        got = multilevel_roi_pool(feats, rois, output_size=P)
-        want = multilevel_roi_align(feats, rois, output_size=P)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"roi_pool train {name}: non-finite output")
-        err = (got - want).abs().max().item()
-        ok = torch.allclose(got, want, **ROI_TOL)
-        del want
-        log(f"roi_pool train {name} pool of {B} x {K} training ROIs, P={P}: max_abs_err "
-            f"{err:.3e} (atol {ROI_TOL['atol']}, rtol {ROI_TOL['rtol']}) -> {'ok' if ok else 'FAIL'}")
-        check(ok, f"roi_pool train {name}: kernel disagrees with the plain version ({err})")
-        ms = event_ms(torch, lambda: multilevel_roi_pool(feats, rois, output_size=P), 20)
-        args_ms, only_ms = pool_split_ms(torch, feats, shapes, rois, P, C, got, False)
-        del got
-        plain_ms = event_ms(torch, lambda: multilevel_roi_align(feats, rois, output_size=P), 2)
-        torch.cuda.empty_cache()
-        nbytes, flops = roi_pool_work(torch, feats, rois, P)
-        b_ms, b_by = bound(nbytes, flops)
-        log(f"roi_pool train {name}: wrapper {ms:.4f} ms (its argument set-up {args_ms:.4f} ms, "
-            f"the kernel alone {only_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        fwd[name] = dict(max_abs_err=err, ms=ms, kernel_only_ms=only_ms, args_ms=args_ms,
-                         geometry_ulps=ulps, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         shape=f"levels ({B}, {S // 4}..{S // 32}, {S // 4}..{S // 32}, {C}) f32, "
-                               f"rois ({B}, {K}, 4) clustered training ROIs, P={P}")
+        what = f"roi_pool train {dt} {name}"
+        ulps = check_roi_geometry(torch, rois, shapes, P, what)
+        fwd[name] = hold_pool(torch, feats, rois, P, what,
+                              f"levels {levels}, clustered training ROIs")
+        fwd[name]["geometry_ulps"] = ulps
         check_roi_footprints(torch, rois, shapes, P, f"roi_pool_backward {name}")
-        g = torch.randn((B, K, P, P, C), generator=gen).to(dev)
+        what = f"roi_pool_backward {dt} {name}"
+        g = torch.randn((B, K, P, P, C), generator=gen).to(dev).to(dt_)
         got = multilevel_roi_pool_backward(g, shapes, rois)
         again = multilevel_roi_pool_backward(g, shapes, rois)
-        want = multilevel_roi_align_backward(g, shapes, rois)
+        want = plain(g, shapes, rois)
         torch.cuda.synchronize()
-        err, ok = 0.0, True
         same = all(bool(torch.equal(a, a2)) for a, a2 in zip(got, again))
-        for a, b in zip(got, want):
-            check(bool(torch.isfinite(a).all()), f"roi_pool_backward {name}: non-finite output")
-            err = max(err, (a - b).abs().max().item())
-            ok = ok and torch.allclose(a, b, **ROI_BWD_TOL)
+        for a in got:
+            check(a.dtype == dt_ and bool(torch.isfinite(a).all()),
+                  f"{what}: gradient {a.dtype} or non-finite")
+        ok, err, beyond = pool_agreement(torch, got, want, backward=True)
         del again, want
-        log(f"roi_pool_backward {name} grads of {shapes}: max_abs_err {err:.3e} "
-            f"(atol {ROI_BWD_TOL['atol']}, rtol {ROI_BWD_TOL['rtol']}) -> {'ok' if ok else 'FAIL'}; "
-            f"two launches {'bit-identical' if same else 'DIFFER'}")
-        check(ok, f"roi_pool_backward {name}: kernel disagrees with the plain version ({err})")
-        check(same, f"roi_pool_backward {name}: two launches on the same inputs differ")
+        log(f"{what} grads of {shapes}: max_abs_err {err:.3e} ({pool_tolerance(dt == 'bf16', True)}"
+            f"{'' if beyond is None else f'; {beyond} values beyond 1 bf16 ulp'}) -> "
+            f"{'ok' if ok else 'FAIL'}; two launches {'bit-identical' if same else 'DIFFER'}")
+        check(ok, f"{what}: kernel disagrees with the plain version ({err})")
+        check(same, f"{what}: two launches on the same inputs differ")
         ms = event_ms(torch, lambda: multilevel_roi_pool_backward(g, shapes, rois), 20)
         # the bare launch writes every element itself: into gradients filled
         # with NaN, it must give the wrapper's bits
@@ -496,21 +591,22 @@ def phase_roi_backward(torch, dev, B: int = 8, S: int = 800, C: int = 256,
         args_ms, only_ms = pool_split_ms(torch, grads, shapes, rois, P, C, g, True)
         torch.cuda.synchronize()
         check(all(bool(torch.equal(a, b)) for a, b in zip(grads, got)),
-              f"roi_pool_backward {name}: the bare launch into NaN-filled gradients left "
-              f"elements unwritten or differs from the wrapper")
+              f"{what}: the bare launch into NaN-filled gradients left elements unwritten or "
+              f"differs from the wrapper")
         del grads, got
-        plain_ms = event_ms(torch, lambda: multilevel_roi_align_backward(g, shapes, rois), 2)
+        plain_ms = event_ms(torch, lambda: plain(g, shapes, rois), 2)
         torch.cuda.empty_cache()
-        nbytes, flops = roi_backward_work(torch, feats, rois, P)
+        nbytes, flops = roi_backward_work(torch, feats, rois, P, elem=g.element_size())
         b_ms, b_by = bound(nbytes, flops)
-        log(f"roi_pool_backward {name}: wrapper {ms:.4f} ms (its argument set-up {args_ms:.4f} "
-            f"ms, the plan and gather kernels alone {only_ms:.4f} ms, written into NaN-filled "
-            f"gradients: every element written), plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        res[name] = dict(max_abs_err=err, ms=ms, kernel_only_ms=only_ms, args_ms=args_ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, deterministic=same,
-                         shape=f"g ({B}, {K}, {P}, {P}, {C}) f32 -> levels ({B}, {S // 4}..{S // 32}"
-                               f", {S // 4}..{S // 32}, {C}), clustered training ROIs")
+        log(f"{what}: wrapper {ms:.4f} ms (its argument set-up {args_ms:.4f} ms, the plan and "
+            f"gather kernels alone {only_ms:.4f} ms, written into NaN-filled gradients: every "
+            f"element written), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        res[name] = dict(max_abs_err=err, beyond_ulp=beyond, ms=ms, kernel_only_ms=only_ms,
+                         args_ms=args_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         deterministic=same,
+                         shape=f"g ({B}, {K}, {P}, {P}, {C}) {dt} -> levels {levels} {dt}, "
+                               f"clustered training ROIs")
     return res, fwd
 
 
@@ -537,8 +633,9 @@ def phase_roi_backward_main(torch, dev, record, dump_dir=None):
     ROIs of one step): against its plain version, two launches bit for bit,
     its wrapper's and bare launch's times, and what the data asks of it
     (ROIs per level, ROIs with an all-zero cotangent, the most ROIs on one
-    tile)."""
-    from ttdg_mgm_torch.ops.roi_align import multilevel_roi_align_backward
+    tile).  A bfloat16 path's cotangents are held against the plain bf16
+    version by the bf16 rule of :func:`pool_tolerance`, whose floor scales
+    with the step's small gradients."""
     from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool_backward
 
     check(len(record) == 2, f"roi_pool_backward main path: {len(record)} calls in one step")
@@ -550,40 +647,44 @@ def phase_roi_backward_main(torch, dev, record, dump_dir=None):
     for g, shapes, rois, kw in record:
         B, K, P = g.shape[0], g.shape[1], g.shape[2]
         C = g.shape[-1]
-        name = "box" if P == 7 else "mask"
+        _, plain, dt = pool_fns(torch, g.dtype)
+        name = ("box" if P == 7 else "mask") + (" bf16" if dt == "bf16" else "")
         check(tuple(kw.get("strides", (4, 8, 16, 32))) == (4, 8, 16, 32)
               and kw.get("sampling_ratio", 0) == 0 and kw.get("min_level", 2) == 2,
               f"roi_pool_backward main path: options {kw} are not the flagship's")
         check_roi_footprints(torch, rois, shapes, P, f"roi_pool_backward main path {name}")
         got = multilevel_roi_pool_backward(g, shapes, rois)
         again = multilevel_roi_pool_backward(g, shapes, rois)
-        want = multilevel_roi_align_backward(g, shapes, rois)
+        want = plain(g, shapes, rois)
         torch.cuda.synchronize()
         same = all(bool(torch.equal(a, a2)) for a, a2 in zip(got, again))
-        err = max((a - b).abs().max().item() for a, b in zip(got, want))
-        ok = all(torch.allclose(a, b, **ROI_BWD_TOL) for a, b in zip(got, want))
+        ok, err, beyond = pool_agreement(torch, got, want, backward=True)
+        peak = max(b.float().abs().max().item() for b in want)
         del got, again, want
-        check(ok and same, f"roi_pool_backward main path {name}: max_abs_err {err}, "
-                           f"bit-identical {same}")
+        check(ok and same, f"roi_pool_backward main path {name}: max_abs_err {err} (largest "
+                           f"|gradient| {peak:.3e}), bit-identical {same}")
         ms = event_ms(torch, lambda: multilevel_roi_pool_backward(g, shapes, rois), 20)
-        grads = [torch.empty((B, h, w, C), device=dev) for h, w in shapes]
+        grads = [torch.empty((B, h, w, C), dtype=g.dtype, device=dev) for h, w in shapes]
         _, only_ms = pool_split_ms(torch, grads, shapes, rois, P, C, g, True)
         del grads
-        plain_ms = event_ms(torch, lambda: multilevel_roi_align_backward(g, shapes, rois), 2)
+        plain_ms = event_ms(torch, lambda: plain(g, shapes, rois), 2)
         torch.cuda.empty_cache()
         feats = [torch.empty((B, h, w, C), device="meta") for h, w in shapes]
-        nbytes, flops = roi_backward_work(torch, feats, rois, P)
+        nbytes, flops = roi_backward_work(torch, feats, rois, P, elem=g.element_size())
         b_ms, b_by = bound(nbytes, flops)
         per_level, max_hits = tile_hits(torch, rois, shapes, P)
         zero = int((g.reshape(B * K, -1).abs().amax(1) == 0).sum())
-        log(f"roi_pool_backward main path {name} (g {tuple(g.shape)}): max_abs_err {err:.3e}, two "
+        log(f"roi_pool_backward main path {name} (g {tuple(g.shape)}): max_abs_err {err:.3e} "
+            f"({pool_tolerance(dt == 'bf16', True)}, largest |gradient| {peak:.3e}"
+            f"{'' if beyond is None else f', {beyond} values beyond 1 bf16 ulp'}), two "
             f"launches bit-identical; wrapper {ms:.4f} ms, kernels alone {only_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; ROIs per level {per_level}, "
             f"{zero} of {B * K} with an all-zero cotangent, at most {max_hits} on one 8 x 8 tile")
-        res[name] = dict(ms=ms, kernel_only_ms=only_ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=b_by, max_abs_err=err, deterministic=same,
-                         rois_per_level=per_level, zero_cotangent_rois=zero,
-                         max_rois_per_tile=max_hits)
+        res[name.split()[0]] = dict(ms=ms, kernel_only_ms=only_ms, plain_ms=plain_ms,
+                                    bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                                    beyond_ulp=beyond, largest_abs_grad=peak,
+                                    deterministic=same, rois_per_level=per_level,
+                                    zero_cotangent_rois=zero, max_rois_per_tile=max_hits)
     return res
 
 
@@ -724,29 +825,51 @@ def phase_sinkhorn(torch, dev, record, iters: int = 20, tau: float = 1 / 200, du
 
 # -- phase 6: source training ------------------------------------------------------
 
-SOURCE_COUNTERS = ("roi_pool", "roi_pool_backward", "sinkhorn")
+#: the kernels each source step must launch, per precision
+SOURCE_COUNTERS = {"float32": ("roi_pool", "roi_pool_backward", "sinkhorn"),
+                   "bfloat16": ("roi_pool_bf16", "roi_pool_backward_bf16", "sinkhorn")}
 
 
 def kernel_counters():
+    """Each kernel variant's launch counter: ``{name: (wrapper, attribute)}``;
+    the pools count their float32 and bfloat16 launches apart."""
     from ttdg_mgm_torch.ops.gagm import ga_gm_fused
     from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_backward
     from ttdg_mgm_torch.ops.sinkhorn import sinkhorn_batched
 
-    return {"roi_pool": multilevel_roi_pool, "gagm": ga_gm_fused,
-            "roi_pool_backward": multilevel_roi_pool_backward, "sinkhorn": sinkhorn_batched}
+    return {"roi_pool": (multilevel_roi_pool, "launches"),
+            "roi_pool_bf16": (multilevel_roi_pool, "launches_bf16"),
+            "gagm": (ga_gm_fused, "launches"),
+            "roi_pool_backward": (multilevel_roi_pool_backward, "launches"),
+            "roi_pool_backward_bf16": (multilevel_roi_pool_backward, "launches_bf16"),
+            "sinkhorn": (sinkhorn_batched, "launches")}
+
+
+def pool_counter(name: str, prec: str) -> str:
+    """The counter of a pool kernel's variant for ``prec``."""
+    return name + "_bf16" if prec == "bfloat16" else name
 
 
 def reset_counters():
-    for fn in kernel_counters().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counters():
-    return {k: fn.launches for k, fn in kernel_counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in kernel_counters().items()}
+
+
+def check_f32_params(torch, model, what: str) -> None:
+    """Every parameter and every gradient float32 (the bf16 policy keeps the
+    parameters, and the casts' backward brings their gradients, in
+    float32)."""
+    bad = [n for n, p in model.named_parameters()
+           if p.dtype != torch.float32 or (p.grad is not None and p.grad.dtype != torch.float32)]
+    check(not bad, f"{what}: parameters or gradients not float32: {bad[:5]}")
 
 
 def source_setup(torch, dev, size: int, B: int, steps: int, mask_res: int | None = None,
-                 seed: int = 0, **model_kw):
+                 seed: int = 0, prec: str = "float32", **model_kw):
     """The flagship model, ``make_source_step`` with the source solver's lr
     under bench.py's warm-up and clip, and ``steps`` labelled batches (GT
     masks on the source trainer's canvas unless ``mask_res`` is given)."""
@@ -755,7 +878,7 @@ def source_setup(torch, dev, size: int, B: int, steps: int, mask_res: int | None
     from ttdg_mgm_torch.solver.build import build_optimizer, warmup_multistep_schedule
     from ttdg_mgm_torch.synth import synth_batch
 
-    model = build_model(device=dev, seed=seed, **model_kw)
+    model = build_model(device=dev, seed=seed, compute_dtype=prec, **model_kw)
     opt = build_optimizer(model, warmup_multistep_schedule(SOURCE_SOLVER["base_lr"],
                                                            **WARM_SCHEDULE), clip=WARM_CLIP)
     step = make_source_step(model, opt)
@@ -806,25 +929,25 @@ def capture_pool_backward():
         return real(grad, level_shapes, rois, **kw)
 
     def undo():
-        real.launches = backward.launches
+        real.launches, real.launches_bf16 = backward.launches, backward.launches_bf16
         rp.multilevel_roi_pool_backward = real
 
     # the wrapper counts its launches on the function the module name holds
-    backward.launches = real.launches
+    backward.launches, backward.launches_bf16 = real.launches, real.launches_bf16
     rp.multilevel_roi_pool_backward = backward
     return record, undo
 
 
 def phase_source(torch, dev, size: int = 800, B: int | None = None, steps: int = 5,
-                 profile: bool = False, **model_kw):
+                 profile: bool = False, prec: str = "float32", **model_kw):
     from ttdg_mgm_torch.build import SOURCE_SOLVER
 
     B = B or SOURCE_SOLVER["ims_per_batch"]
     t0 = time.perf_counter()
-    model, step, batches = source_setup(torch, dev, size, B, steps, **model_kw)
-    log(f"source: R50-FPN {model_kw or 'flagship'} built in {time.perf_counter() - t0:.1f} s, "
-        f"batch {tuple(batches[0]['image'].shape)} with GT, lr schedule of bench.py:warm_params, "
-        f"global-norm clip 1.0, TF32 off")
+    model, step, batches = source_setup(torch, dev, size, B, steps, prec=prec, **model_kw)
+    log(f"source {prec}: R50-FPN {model_kw or 'flagship'} built in "
+        f"{time.perf_counter() - t0:.1f} s, batch {tuple(batches[0]['image'].shape)} with GT, "
+        f"lr schedule of bench.py:warm_params, global-norm clip 1.0, TF32 off")
     gen = torch.Generator(device=dev).manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -842,19 +965,23 @@ def phase_source(torch, dev, size: int = 800, B: int | None = None, steps: int =
             per_step.append(launches)
             m = {k: float(v) for k, v in metrics.items()}
             totals.append(m["total_loss"])
-            log(f"source step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items())
+            log(f"source {prec} step {i}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items())
                 + f"; HiPPI steps {model.multi_matching_sup.last_hippi_steps}; launches "
                 f"{launches}; {step_ms[-1]:.1f} ms")
             for k, v in m.items():
                 check(math.isfinite(v), f"source step {i}: {k} = {v} is not finite")
             check(m["loss_matching"] > 0.0, f"source step {i}: loss_matching {m['loss_matching']}")
-            for k in SOURCE_COUNTERS:
+            for k in SOURCE_COUNTERS[prec]:
                 check(launches[k] >= 1, f"source step {i}: kernel {k} was not launched")
+            check_f32_params(torch, model, f"source {prec} step {i}")
     finally:
         undo()
+    dtypes = sorted({str(t.dtype) for rec in record["hippi"] for t in rec[:2]}
+                    | {str(rec[0].dtype) for rec in record["projections"]})
+    log(f"source {prec}: dtypes reaching HiPPI and kernel D (its projection input s): {dtypes}")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = statistics.median(step_ms[1:])
-    log(f"source: step ms {[round(t, 1) for t in step_ms]} (first includes warm-up); median "
+    log(f"source {prec}: step ms {[round(t, 1) for t in step_ms]} (first includes warm-up); median "
         f"after warm-up {steady:.1f} ms = {B * 1e3 / steady:.2f} images/s; peak memory "
         f"{peak_gb:.2f} GiB; launches per step {per_step[-1]}")
     if profile:
@@ -872,7 +999,7 @@ def phase_source(torch, dev, size: int = 800, B: int | None = None, steps: int =
     return dict(batch=B, step_ms=step_ms, steady_ms=steady, images_per_s=B * 1e3 / steady,
                 total_loss=totals, peak_gib=peak_gb, launches_per_step=per_step,
                 launches={k: sum(p[k] for p in per_step) for k in per_step[0]}, hippi=record,
-                pools=pools)
+                pools=pools, kernel_d_dtypes=dtypes)
 
 
 def profile_source(torch, step, batch, gen, hippi_steps):
@@ -1052,19 +1179,20 @@ def phase_gagm_main(torch, dev, record, dump_dir=None):
 
 # -- phase 4: end to end -----------------------------------------------------------
 
-def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
+def phase_e2e(torch, dev, size: int = 800, profile: bool = False, prec: str = "float32",
+              **model_kw):
     from ttdg_mgm_torch.build import build_model
     from ttdg_mgm_torch.engine.steps import make_tta_step
     from ttdg_mgm_torch.solver.build import build_optimizer
     from ttdg_mgm_torch.synth import synth_batch
 
     t0 = time.perf_counter()
-    model = build_model(device=dev, seed=0, **model_kw)
+    model = build_model(device=dev, seed=0, compute_dtype=prec, **model_kw)
     opt = build_optimizer(model, lambda _: TTA_LR)
     step = make_tta_step(model, opt)
     data = synth_batch(size, 4, seed=0)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
-    log(f"e2e: R50-FPN {model_kw or 'flagship'} built in {time.perf_counter() - t0:.1f} s, "
+    log(f"e2e {prec}: R50-FPN {model_kw or 'flagship'} built in {time.perf_counter() - t0:.1f} s, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f} M parameters, "
         f"batch {tuple(batch['image'].shape)}, TF32 off")
 
@@ -1083,14 +1211,17 @@ def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
             losses.append(loss)
             mgm = model.multi_matching_unsup
             nodes = mgm.last_node_counts
-            log(f"e2e TTA step {i}: loss {loss:.6f}, valid nodes per graph {nodes}, "
+            log(f"e2e {prec} TTA step {i}: loss {loss:.6f}, valid nodes per graph {nodes}, "
                 f"solver steps {mgm.last_solver_steps}, {step_ms[-1]:.1f} ms")
             check(math.isfinite(loss) and loss > 0.0,
                   f"step {i}: loss {loss} is not finite and > 0")
             check(sum(1 for c in nodes if c > 0) >= 2,
                   f"step {i}: fewer than two graphs with nodes")
+            check_f32_params(torch, model, f"e2e {prec} TTA step {i}")
     finally:
         undo()
+    gagm_dtypes = sorted({str(t.dtype) for rec in gagm_inputs for t in rec[:3]})
+    log(f"e2e {prec}: dtypes reaching kernel B (A, W, U0): {gagm_dtypes}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = model.forward_inference(batch["image"], batch["image_sizes"])
@@ -1099,10 +1230,11 @@ def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steady = statistics.median(step_ms[1:])
-    log(f"e2e: TTA step ms {[round(t, 1) for t in step_ms]} (first includes warm-up); "
+    log(f"e2e {prec}: TTA step ms {[round(t, 1) for t in step_ms]} (first includes warm-up); "
         f"median after warm-up {steady:.1f} ms = {4e3 / steady:.2f} images/s; forward_inference "
         f"{infer_ms:.1f} ms; peak memory {peak_gb:.2f} GiB; launches {launches}")
-    check(launches["roi_pool"] >= 1, "the ROI pool kernel was not launched on the main path")
+    check(launches[pool_counter("roi_pool", prec)] >= 1,
+          f"the {prec} ROI pool kernel was not launched on the main path")
     check(launches["gagm"] == 3, f"the GA-GM kernel was launched {launches['gagm']} times in "
                                  f"3 TTA steps, not once per step")
 
@@ -1124,7 +1256,7 @@ def phase_e2e(torch, dev, size: int = 800, profile: bool = False, **model_kw):
     torch.cuda.empty_cache()
     return dict(step_ms=step_ms, steady_ms=steady, images_per_s=4e3 / steady, losses=losses,
                 infer_ms=infer_ms, peak_gib=peak_gb, launches=launches,
-                gagm_inputs=gagm_inputs)
+                gagm_inputs=gagm_inputs, kernel_b_dtypes=gagm_dtypes)
 
 
 def profile_step(torch, step, batch, solver_steps, extra_steps: int = 5):
@@ -1206,7 +1338,8 @@ def phase_small_reference(torch, dev):
 
     kw = dict(resnet_width=64, fpn_channels=64, box_fc_dim=128, mask_conv_dim=64,
               pre_nms_topk_test=200, post_nms_topk=100, detections_per_image=16,
-              pre_nms_topk_train=200, batch_size_per_image=64, mask_fg_cap=16, hippi_iters=10)
+              pre_nms_topk_train=200, batch_size_per_image=64, mask_fg_cap=16, hippi_iters=10,
+              compute_dtype="float32")
     cpu = build_model(device="cpu", seed=3, **kw)
     gpu = build_model(device=dev, seed=3, **kw)
     data = synth_batch(160, 2, seed=5, with_gt=True, mask_res=64)
@@ -1368,12 +1501,14 @@ def write_png(path: str, img) -> None:
                 + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
-def write_fundus_split(root: str, n: int, hw, seed: int = 0) -> None:
+def write_fundus_split(root: str, n: int, hw, seed: int = 0, polygons: bool = False) -> None:
     """``n`` fundus-like images of ``hw`` in the reference's layout of the
     Drishti-GS test split (``Fundus/Drishti_GS_test.json``,
     ``Fundus/Drishti_GS/test/image/``): a dark red field of view with an
     optic disc and its cup, two ellipses per image; their masks are the
-    ground truth (disc class 1, cup class 2), as RLE."""
+    ground truth (disc class 1, cup class 2), as RLE, or with ``polygons``
+    as 96-vertex polygon rings around the ellipses (the datasets' own
+    annotation form)."""
     import numpy as np
 
     from ttdg_mgm_torch.utils.rle import rle_encode
@@ -1397,12 +1532,18 @@ def write_fundus_split(root: str, n: int, hw, seed: int = 0) -> None:
         img[cup] = [250, 225, 160]
         write_png(os.path.join(img_dir, f"d{i}.png"), np.clip(img, 0, 255).astype(np.uint8))
         images.append({"id": i, "file_name": f"d{i}.png", "height": h, "width": w})
-        for cat, m in ((1, disc), (2, cup)):
+        t = np.linspace(0.0, 2 * np.pi, 96, endpoint=False)
+        for cat, m, (sy, sx) in ((1, disc, (ry, rx)), (2, cup, (0.5 * ry, 0.55 * rx))):
             ys, xs = np.nonzero(m)
+            if polygons:
+                ring = np.stack([cx + sx * np.cos(t), cy + sy * np.sin(t)], 1).reshape(-1)
+                seg = [[round(float(v), 2) for v in ring]]
+            else:
+                seg = rle_encode(m)
             anns.append({"id": len(anns) + 1, "image_id": i, "category_id": cat, "iscrowd": 0,
                          "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min() + 1),
                                   float(ys.max() - ys.min() + 1)],
-                         "area": float(m.sum()), "segmentation": rle_encode(m)})
+                         "area": float(m.sum()), "segmentation": seg})
     with open(os.path.join(root, "Fundus", "Drishti_GS_test.json"), "w") as f:
         json.dump({"images": images, "annotations": anns,
                    "categories": [{"id": 1, "name": "disc"}, {"id": 2, "name": "cup"}]}, f)
@@ -1416,7 +1557,8 @@ def capture_cli(torch):
 
     import ttdg_mgm_torch.engine.trainer as trainer
 
-    record = {"tta_ms": [], "tta_loss": [], "eval": None, "total": None, "post_s": 0.0}
+    record = {"tta_ms": [], "tta_loss": [], "eval": None, "total": None, "post_s": 0.0,
+              "evals": [], "post_by_dataset": []}
     real_step, real_eval = trainer.make_tta_step, trainer.evaluate_dataset
     real_post = trainer.postprocess_detections
 
@@ -1436,6 +1578,7 @@ def capture_cli(torch):
         return timed
 
     def evaluate_dataset(*a, **k):
+        record["post_by_dataset"].append(0.0)
         return real_eval(*a, **{**k, "log_every": 1})
 
     def postprocess_detections(det, meta, b, **k):
@@ -1443,6 +1586,7 @@ def capture_cli(torch):
         t0 = time.perf_counter()
         out = real_post(det, meta, b, **k)
         record["post_s"] += time.perf_counter() - t0
+        record["post_by_dataset"][-1] += time.perf_counter() - t0
         return out
 
     class Listen(logging.Handler):
@@ -1450,6 +1594,7 @@ def capture_cli(torch):
             if rec.msg.startswith("Inference done"):
                 record["eval"] = rec.args
             elif rec.msg.startswith("Total inference time"):
+                record["evals"].append(record["eval"])
                 record["total"] = rec.args
 
     lg = logging.getLogger("ttdg_mgm_torch")
@@ -1542,6 +1687,250 @@ def phase_cli(torch, dev, card: str = "", hw=(800, 1192), opts=(), model_kw=None
                 launches=launches, metrics=metrics)
 
 
+# -- determinism --------------------------------------------------------------------
+
+def _snapshot(model):
+    """Device copies of every parameter and its gradient, by name."""
+    return {n: (p.detach().clone(), None if p.grad is None else p.grad.detach().clone())
+            for n, p in model.named_parameters()}
+
+
+def _first_differences(torch, a, b, limit: int = 6):
+    """Names (model order) whose parameter or gradient differs between two
+    snapshots, with the largest difference of each."""
+    out = []
+    for n in a:
+        for what, x, y in (("param", a[n][0], b[n][0]), ("grad", a[n][1], b[n][1])):
+            if x is None or y is None or torch.equal(x, y):
+                continue
+            out.append(f"{what} {n} {float((x.float() - y.float()).abs().max()):.3g}")
+    return len(out), out[:limit]
+
+
+def _run_from(torch, model, state, make_step, batches, settings, keep: bool = True):
+    """Load ``state``, make a fresh optimizer and step (``make_step(model) ->
+    (step, call)``), take one step for each entry of ``settings``, under
+    ``cudnn.deterministic`` set to it; returns each step's wall ms and, with
+    ``keep``, a snapshot after each."""
+    model.load_state_dict(state)
+    step, call = make_step(model)
+    times, snaps = [], []
+    for i, det in enumerate(settings):
+        torch.backends.cudnn.deterministic = det
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call(step, batches[i % len(batches)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if keep:
+            snaps.append(_snapshot(model))
+    return times, snaps
+
+
+# steps of each bitwise-compared run; timed steps per cuDNN setting, the
+# settings alternated step by step so that host noise falls on both alike
+DET_STEPS = 5
+DET_TIMED_STEPS = 30
+
+
+def phase_determinism(torch, dev, tta_size: int = 800, src_size: int = 800, src_batch: int = 8,
+                      **model_kw):
+    """For each precision and cuDNN setting (``cudnn.deterministic``), two
+    runs of ``DET_STEPS`` TTA steps and two of ``DET_STEPS`` source steps,
+    each run from one saved state with a fresh optimizer (and, for the
+    source step, a generator seeded alike), compared parameter by parameter
+    and gradient by gradient after every step.  The gate: bitwise-equal runs
+    under the deterministic setting.  The default setting is reported (what
+    differs first), not gated.  Then the cost of the setting: one run from
+    the state of ``2 * DET_TIMED_STEPS + 2`` steps with the two settings
+    alternated step by step, the first step of each left out; the median
+    step time of each setting with its quartiles, and the median difference
+    of each deterministic step and the default step after it."""
+    from ttdg_mgm_torch.build import SOURCE_SOLVER, build_model
+    from ttdg_mgm_torch.engine.steps import make_source_step, make_tta_step
+    from ttdg_mgm_torch.solver.build import build_optimizer, warmup_multistep_schedule
+    from ttdg_mgm_torch.synth import synth_batch
+
+    def tta_step(model):
+        return make_tta_step(model, build_optimizer(model, lambda _: TTA_LR)), \
+            lambda step, batch: step(batch)
+
+    def source_step(model):
+        opt = build_optimizer(model, warmup_multistep_schedule(SOURCE_SOLVER["base_lr"],
+                                                               **WARM_SCHEDULE), clip=WARM_CLIP)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return make_source_step(model, opt), lambda step, batch: step(batch, gen)
+
+    tta_batch = [{k: torch.from_numpy(v).to(dev) for k, v in
+                  synth_batch(tta_size, 4, seed=0).items()}]
+    src_batches = [{k: torch.from_numpy(v).to(dev) for k, v in
+                    synth_batch(src_size, src_batch, seed=i, with_gt=True,
+                                mask_res=SOURCE_SOLVER["mask_res"]).items()}
+                   for i in range(DET_STEPS)]
+    result = {}
+    old = torch.backends.cudnn.deterministic
+    try:
+        for prec in PRECISIONS:
+            kw = dict(model_kw, compute_dtype=prec)
+            for path, make, batches in (("tta", tta_step, tta_batch),
+                                        ("source", source_step, src_batches)):
+                model = build_model(device=dev, seed=0, **kw)
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+                key = f"{path}_{prec}"
+                res = result[key] = {}
+                for det in (True, False):
+                    setting = "det" if det else "nondet"
+                    _, a = _run_from(torch, model, state, make, batches, [det] * DET_STEPS)
+                    _, b = _run_from(torch, model, state, make, batches, [det] * DET_STEPS)
+                    diffs = [_first_differences(torch, x, y) for x, y in zip(a, b)]
+                    equal = all(n == 0 for n, _ in diffs)
+                    res[f"{setting}_equal"] = equal
+                    res[f"{setting}_differing"] = [n for n, _ in diffs]
+                    log(f"determinism {key} {setting}: {'bitwise equal' if equal else 'DIFFERENT'}"
+                        f" over {DET_STEPS} steps")
+                    for i, (n, fd) in enumerate(diffs):
+                        if n:
+                            log(f"determinism {key} {setting}: after step {i} {n} tensors "
+                                f"differ, first {fd}")
+                    if det:
+                        check(equal, f"determinism {key}: two runs from one state differ")
+                    del a, b
+                order = [i % 2 == 0 for i in range(2 * DET_TIMED_STEPS + 2)]
+                t, _ = _run_from(torch, model, state, make, batches, order, keep=False)
+                for det in (True, False):
+                    setting = "det" if det else "nondet"
+                    ts = [x for x, d in zip(t[2:], order[2:]) if d == det]
+                    q1, med, q3 = statistics.quantiles(ts, n=4)
+                    res[f"{setting}_ms"] = dict(median=med, q1=q1, q3=q3, min=min(ts),
+                                                max=max(ts), steps=ts)
+                cost = res["det_ms"]["median"] / res["nondet_ms"]["median"] - 1
+                # each deterministic step less the default step after it
+                paired = statistics.median(t[i] - t[i + 1] for i in range(2, len(t), 2))
+                res["cost_of_determinism"] = cost
+                res["paired_diff_ms"] = paired
+                log(f"determinism {key}: step ms median (quartiles) deterministic "
+                    f"{res['det_ms']['median']:.1f} ({res['det_ms']['q1']:.1f}-"
+                    f"{res['det_ms']['q3']:.1f}), default {res['nondet_ms']['median']:.1f} "
+                    f"({res['nondet_ms']['q1']:.1f}-{res['nondet_ms']['q3']:.1f}), "
+                    f"{DET_TIMED_STEPS} steps each in turns: cost {100 * cost:+.1f} %, median of "
+                    f"the paired differences {paired:+.1f} ms")
+                del model, state
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = old
+    return result
+
+
+DRISHTI_HW = (1944, 2896)  # a Drishti-GS image, (h, w)
+CLI_BF16_IMAGES = 2
+JPEG_FIXTURES = os.path.join(HERE, "tests", "fixtures", "torch_jpeg")
+
+
+def host_decode_s(paths, min_size: int = 800, max_size: int = 1333) -> float:
+    """Mean host seconds per image of the test loader's decode and resize
+    (``load_image`` and ``resize_shortest_edge``) on ``paths``: the work its
+    prefetch thread does for each image."""
+    from ttdg_mgm_torch.data.loader import load_image
+    from ttdg_mgm_torch.data.transforms import resize_shortest_edge
+
+    t0 = time.perf_counter()
+    for p in paths:
+        resize_shortest_edge(load_image(p), min_size, max_size)
+    return (time.perf_counter() - t0) / len(paths)
+
+
+def phase_cli_bf16(torch, dev, card: str = "", hw=DRISHTI_HW, opts=(), model_kw=None):
+    """``train_net_torch.main`` with the flagship command as it stands,
+    ``--eval-only --config configs/test_segment.yaml`` with no precision
+    override, so the config's default ``TPU.PRECISION bfloat16`` (the bf16
+    policy), with ``TEST.DICE_THRES 0.0`` as in the float32 CLI phase (the
+    config's 0.9 scores no detection of random weights, whose class scores
+    sit near 1/3, and Dice, E and S of no detection are NaN): on a synthetic
+    Drishti-GS split of ``CLI_BF16_IMAGES`` fundus-like PNG images at the
+    dataset's own 2896 x 1944 with polygon ground truth (resized to 800 x 1192
+    by the loader, evaluated at 2896 x 1944), and on a BKAI split of the
+    committed baseline 4:2:0 JPEGs of 1280 x 959 (``tests/fixtures/torch_jpeg``)
+    with polygon ground truth.  Passes only if both splits give finite Dice,
+    E and S, kernels A (bf16 variant) and B launched, and neither Pillow,
+    OpenCV nor PyYAML was imported.  Logs the host's decode and resize
+    seconds per image, the evaluation loop's data, inference and evaluation
+    seconds per image at the original sizes, and the peak memory."""
+    import shutil
+    import tempfile
+
+    import train_net_torch
+    from ttdg_mgm_torch.build import build_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_fundus_split(tmp, CLI_BF16_IMAGES, hw, seed=1, polygons=True)
+        jpg_dir = os.path.join(tmp, "Polyp", "BKAI", "test", "image")
+        os.makedirs(jpg_dir)
+        jpgs = sorted(f for f in os.listdir(JPEG_FIXTURES) if f.endswith(".jpg"))
+        for f in jpgs:
+            shutil.copy(os.path.join(JPEG_FIXTURES, f), jpg_dir)
+        shutil.copy(os.path.join(JPEG_FIXTURES, "annotations.json"),
+                    os.path.join(tmp, "Polyp", "BKAI_test.json"))
+        weights = os.path.join(tmp, "model_final.pth")
+        model = build_model(device="cpu", seed=0, **(model_kw or {}))
+        torch.save({"model": model.state_dict()}, weights)
+        del model
+        png_dir = os.path.join(tmp, "Fundus", "Drishti_GS", "test", "image")
+        decode_png_s = host_decode_s([os.path.join(png_dir, f) for f in
+                                      sorted(os.listdir(png_dir))])
+        decode_jpg_s = host_decode_s([os.path.join(jpg_dir, f) for f in jpgs])
+        out_dir = os.path.join(tmp, "out")
+        argv = ["--eval-only", "--device", str(dev),
+                "--config", os.path.join(HERE, "configs", "test_segment.yaml"),
+                "--datasets-root", tmp, "DATASETS.TEST", '["Drishti_GS_test", "BKAI_test"]',
+                "MODEL.WEIGHTS", weights, "OUTPUT_DIR", out_dir, "TEST.DICE_THRES", "0.0",
+                *opts]
+        log(f"cli bf16: {CLI_BF16_IMAGES} PNG images of {hw[1]}x{hw[0]} with "
+            f"polygon ground truth and {len(jpgs)} JPEGs of 1280x959 written in "
+            f"{time.perf_counter() - t0:.1f} s; host decode and resize per image: PNG "
+            f"{decode_png_s:.4f} s, JPEG {decode_jpg_s:.4f} s; "
+            f"train_net_torch.main({' '.join(argv[:6])} ...), no precision override")
+        record, undo = capture_cli(torch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        try:
+            t0 = time.perf_counter()
+            results = train_net_torch.main(argv)
+            wall = time.perf_counter() - t0
+        finally:
+            undo()
+        launches = read_counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
+    for name in ("Drishti_GS_test", "BKAI_test"):
+        m = results.get(name, {})
+        check(len(m) == 3 and all(math.isfinite(v) for v in m.values()),
+              f"cli bf16: {name} Dice, E and S not all finite: {m}")
+    check(launches["roi_pool_bf16"] >= 1 and launches["gagm"] >= 1 and launches["roi_pool"] == 0,
+          f"cli bf16: kernel launches {launches}: kernel A's bf16 variant and kernel B must run, "
+          f"the float32 pool must not")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2", "yaml"))
+    check(not foreign, f"cli bf16: the CLI path imported {foreign[:5]}")
+    check(len(record["evals"]) == 2, f"cli bf16: {len(record['evals'])} evaluation logs")
+    per = {}
+    for name, ev, post in zip(("png_2896x1944", "jpeg_1280x959"), record["evals"],
+                              record["post_by_dataset"]):
+        n_img, data_s, infer_s, eval_s = ev
+        per[name] = dict(images=n_img, data_s_per_image=data_s, inference_s_per_image=infer_s,
+                         eval_s_per_image=eval_s, paste_s_per_image=post / n_img)
+    per["png_2896x1944"]["decode_resize_s_per_image"] = decode_png_s
+    per["jpeg_1280x959"]["decode_resize_s_per_image"] = decode_jpg_s
+    log(f"cli bf16 ({card}): TTA step ms {[round(t, 1) for t in record['tta_ms']]}, losses "
+        f"{[round(v, 6) for v in record['tta_loss']]}; per split {json.dumps(per)}; main() "
+        f"{wall:.1f} s; peak memory {peak_gb:.2f} GiB; launches {launches}; no PIL, cv2 or "
+        f"yaml imported")
+    log(f"cli bf16: results {json.dumps(results)}")
+    return dict(tta_ms=record["tta_ms"], tta_loss=record["tta_loss"], splits=per, main_s=wall,
+                peak_gib=peak_gb, launches=launches, metrics={k: results[k] for k in
+                                                              ("Drishti_GS_test", "BKAI_test")})
+
+
 # -- main ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1554,8 +1943,9 @@ def main() -> int:
         print("chip_smoke: ttdg_mgm_torch/ not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from ttdg_mgm_torch import configure_torch
+
+    configure_torch()
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
@@ -1572,63 +1962,80 @@ def main() -> int:
     log(f"kernels built from ttdg_mgm_torch/csrc in {_cuda.build_seconds:.1f} s "
         f"(load {time.perf_counter() - t0:.1f} s)")
 
-    profile = "--profile" in sys.argv[1:]
-    dump_dir = None
-    if "--dump-dir" in sys.argv[1:]:
-        dump_dir = sys.argv[sys.argv.index("--dump-dir") + 1]
+    argv = sys.argv[1:]
+    profile = "--profile" in argv
+    dump_dir = argv[argv.index("--dump-dir") + 1] if "--dump-dir" in argv else None
     roi = phase_roi_pool(torch, dev, profile=profile)
+    roi16 = phase_roi_pool(torch, dev, dtype="bfloat16")
     gagm = phase_gagm(torch, dev)
     e2e = phase_e2e(torch, dev, profile=profile)
     gagm_main = phase_gagm_main(torch, dev, e2e.pop("gagm_inputs"), dump_dir=dump_dir)
+    e2e16 = phase_e2e(torch, dev, profile=profile, prec="bfloat16")
+    del e2e16["gagm_inputs"]
     phase_small_reference(torch, dev)
     roi_bwd, roi_train = phase_roi_backward(torch, dev)
+    roi_bwd16, roi_train16 = phase_roi_backward(torch, dev, dtype="bfloat16")
     src = phase_source(torch, dev, profile=profile)
     bwd_main = phase_roi_backward_main(torch, dev, src.pop("pools"), dump_dir=dump_dir)
     sk = phase_sinkhorn(torch, dev, src.pop("hippi"), dump_dir=dump_dir)
+    src16 = phase_source(torch, dev, profile=profile, prec="bfloat16")
+    del src16["hippi"]
+    bwd_main16 = phase_roi_backward_main(torch, dev, src16.pop("pools"))
+    det = phase_determinism(torch, dev)
     cli = phase_cli(torch, dev, card)
-    if "--warm" in sys.argv[1:]:
+    cli16 = phase_cli_bf16(torch, dev, card)
+    if "--warm" in argv:
         phase_warm(torch, dev)
 
-    box, mask, g4 = roi["box"], roi["mask"], gagm["G4_M60"]
-    bbox, bmask = roi_bwd["box"], roi_bwd["mask"]
-    by_path = {k: {"tta": e2e["launches"][k], "source": src["launches"][k],
-                   "cli": cli["launches"][k]} for k in e2e["launches"]}
-    rect = {k: v for k, v in roi.items() if k not in ("box", "mask")}
+    g4 = gagm["G4_M60"]
+    paths = {"tta": e2e, "source": src, "cli": cli, "tta_bf16": e2e16, "source_bf16": src16,
+             "cli_bf16": cli16}
+    by_path = {k: {p: r["launches"][k] for p, r in paths.items()} for k in e2e["launches"]}
+    pick = ("ms", "kernel_only_ms", "args_ms", "plain_ms", "bound_ms", "bound_by",
+            "max_abs_err", "shape")
+
+    def pool_kernel(name, pools, train, tta):
+        box, mask = pools["box"], pools["mask"]
+        return dict(name=name, route="cuda", source="ttdg_mgm_torch/csrc/roi_pool.cu",
+                    replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:113",
+                    launches=tta["launches"][name], launches_by_path=by_path[name],
+                    max_abs_err=max(r["max_abs_err"] for r in (*pools.values(), *train.values())),
+                    tolerance=pool_tolerance(name.endswith("bf16")),
+                    ms=box["ms"], plain_ms=box["plain_ms"], bound_ms=box["bound_ms"],
+                    bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
+                    kernel_only_ms=box["kernel_only_ms"], args_ms=box["args_ms"],
+                    geometry_ulps=max(r["geometry_ulps"] for r in (*pools.values(),
+                                                                  *train.values())),
+                    mask_pool={k: mask[k] for k in pick}, train_pools=train,
+                    rect_canvas={k: v for k, v in pools.items() if k not in ("box", "mask")})
+
+    def backward_kernel(name, bwd, main_path, source):
+        box, mask = bwd["box"], bwd["mask"]
+        return dict(name=name, route="cuda", source="ttdg_mgm_torch/csrc/roi_pool_backward.cu",
+                    replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:350",
+                    launches=source["launches"][name], launches_by_path=by_path[name],
+                    max_abs_err=max(box["max_abs_err"], mask["max_abs_err"]),
+                    tolerance=pool_tolerance(name.endswith("bf16"), backward=True),
+                    ms=box["ms"], plain_ms=box["plain_ms"], bound_ms=box["bound_ms"],
+                    bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
+                    kernel_only_ms=box["kernel_only_ms"], args_ms=box["args_ms"],
+                    deterministic=box["deterministic"] and mask["deterministic"],
+                    main_path=main_path, mask_pool={k: mask[k] for k in pick})
+
     kernels = [
-        dict(name="roi_pool", route="cuda", source="ttdg_mgm_torch/csrc/roi_pool.cu",
-             replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:113",
-             launches=e2e["launches"]["roi_pool"], launches_by_path=by_path["roi_pool"],
-             max_abs_err=max(r["max_abs_err"] for r in (*roi.values(), *roi_train.values())),
-             ms=box["ms"], plain_ms=box["plain_ms"], bound_ms=box["bound_ms"],
-             bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
-             kernel_only_ms=box["kernel_only_ms"], args_ms=box["args_ms"],
-             geometry_ulps=max(r["geometry_ulps"] for r in (*roi.values(),
-                                                           *roi_train.values())),
-             mask_pool={k: mask[k] for k in ("ms", "kernel_only_ms", "args_ms", "plain_ms",
-                                             "bound_ms", "bound_by", "max_abs_err", "shape")},
-             train_pools=roi_train, rect_canvas=rect),
+        pool_kernel("roi_pool", roi, roi_train, e2e),
+        pool_kernel("roi_pool_bf16", roi16, roi_train16, e2e16),
         dict(name="gagm", route="cuda", source="ttdg_mgm_torch/csrc/gagm.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/gagm_pallas.py:53",
              launches=e2e["launches"]["gagm"], launches_by_path=by_path["gagm"],
              max_abs_err=max(r["max_abs_err"] for r in gagm.values()),
              ms=g4["ms"], plain_ms=g4["plain_ms"], bound_ms=g4["bound_ms"],
              bound_by=g4["bound_by"], library_ms=None, shape=g4["shape"],
-             steps=g4["steps"], **gagm_main,
+             steps=g4["steps"], input_dtypes_bf16_path=e2e16["kernel_b_dtypes"], **gagm_main,
              other_cases={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "steps")}
                           for k, v in gagm.items() if k != "G4_M60"}),
-        dict(name="roi_pool_backward", route="cuda",
-             source="ttdg_mgm_torch/csrc/roi_pool_backward.cu",
-             replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:350",
-             launches=src["launches"]["roi_pool_backward"],
-             launches_by_path=by_path["roi_pool_backward"],
-             max_abs_err=max(bbox["max_abs_err"], bmask["max_abs_err"]),
-             ms=bbox["ms"], plain_ms=bbox["plain_ms"], bound_ms=bbox["bound_ms"],
-             bound_by=bbox["bound_by"], library_ms=None, shape=bbox["shape"],
-             kernel_only_ms=bbox["kernel_only_ms"], args_ms=bbox["args_ms"],
-             deterministic=bbox["deterministic"] and bmask["deterministic"],
-             main_path=bwd_main,
-             mask_pool={k: bmask[k] for k in ("ms", "kernel_only_ms", "args_ms", "plain_ms",
-                                              "bound_ms", "bound_by", "max_abs_err", "shape")}),
+        backward_kernel("roi_pool_backward", roi_bwd, bwd_main, src),
+        backward_kernel("roi_pool_backward_bf16", roi_bwd16, bwd_main16, src16),
         dict(name="sinkhorn", route="cuda", source="ttdg_mgm_torch/csrc/sinkhorn.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/sinkhorn_pallas.py:31",
              launches=src["launches"]["sinkhorn"], launches_by_path=by_path["sinkhorn"],
@@ -1637,19 +2044,21 @@ def main() -> int:
              shape=sk["shape"], chain_floor_ms=sk["chain_floor_ms"],
              transcendentals=sk["transcendentals"], kernel_only_ms=sk["kernel_only_ms"],
              generic_path_ms=sk["generic_path_ms"],
+             input_dtypes_bf16_path=src16["kernel_d_dtypes"],
              projections_checked=sk["projections_checked"], hippi_rerun=sk["hippi_rerun"]),
     ]
-    e2e_line = {k: e2e[k] for k in ("step_ms", "steady_ms", "images_per_s", "losses",
-                                    "infer_ms", "peak_gib")}
-    log(f"e2e summary: {json.dumps(e2e_line)}")
-    src_line = {k: src[k] for k in ("batch", "step_ms", "steady_ms", "images_per_s", "total_loss",
-                                    "peak_gib")}
-    log(f"source summary: {json.dumps(src_line)}")
+    e2e_keys = ("step_ms", "steady_ms", "images_per_s", "losses", "infer_ms", "peak_gib")
+    src_keys = ("batch", "step_ms", "steady_ms", "images_per_s", "total_loss", "peak_gib")
+    for what, keys, runs in (("e2e", e2e_keys, (e2e, e2e16)), ("source", src_keys, (src, src16))):
+        line = {p: {k: r[k] for k in keys} for p, r in zip(PRECISIONS, runs)}
+        log(f"{what} summary: {json.dumps(line)}")
+    log(f"determinism summary: {json.dumps(det)}")
     cli_line = {k: cli[k] for k in ("tta_ms", "tta_loss", "data_s_per_image",
                                     "inference_s_per_image", "eval_s_per_image",
                                     "paste_s_per_image", "eval_total_s",
                                     "main_s", "peak_gib", "metrics")}
     log(f"cli summary ({card}): {json.dumps(cli_line)}")
+    log(f"cli bf16 summary ({card}): {json.dumps(cli16)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,7 +28,7 @@ from ttdg_mgm_torch.data import loader as tloader
 from ttdg_mgm_torch.data import transforms as ttransforms
 from ttdg_mgm_torch.data.catalog import DatasetCatalog as TCatalog
 from ttdg_mgm_torch.data.catalog import MetadataCatalog as TMeta
-from ttdg_mgm_torch.data.png import UnsupportedPNG, decode_png
+from ttdg_mgm_torch.data.png import decode_png
 from ttdg_mgm_torch.utils import rle as trle
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -101,8 +101,8 @@ def test_png_decoder_each_filter_type(ch, filters):
 
 
 def test_load_image_matches_jax(tmp_path):
-    """PNG through the decoder, other formats and PNG variants the decoder
-    does not read (palette) through Pillow: as the JAX package loads them."""
+    """PNG (palette included) and baseline JPEG through the port's own
+    decoders, no Pillow: as the JAX package loads them with Pillow."""
     arr = _image(20, 30, 3, seed=3)
     paths = []
     for name, img in (("a.png", Image.fromarray(arr)), ("b.jpg", Image.fromarray(arr)),
@@ -110,8 +110,8 @@ def test_load_image_matches_jax(tmp_path):
         img.save(tmp_path / name)
         paths.append(str(tmp_path / name))
     with open(paths[2], "rb") as f:
-        with pytest.raises(UnsupportedPNG):
-            decode_png(f.read())
+        np.testing.assert_array_equal(decode_png(f.read()),
+                                      np.asarray(Image.open(paths[2]).convert("RGB")))
     for p in paths:
         np.testing.assert_array_equal(tloader.load_image(p), jloader.load_image(p))
 

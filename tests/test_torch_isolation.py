@@ -1,8 +1,8 @@
 """The port stands alone: ``ttdg_mgm_torch``, ``train_net_torch.py`` and
-``chip_smoke.py`` import neither JAX nor the JAX package, the eval-only CLI
-on PNG images with RLE ground truth imports neither Pillow, OpenCV nor
-PyYAML (the chip machine has none of them), and the port's entry points run
-on CUDA unless the caller asks for the CPU."""
+``chip_smoke.py`` import neither JAX nor the JAX package, nor Pillow,
+OpenCV or PyYAML (the chip machine has none of the three; the eval-only CLI
+on PNG images with RLE ground truth loads none of them either), and the
+port's entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -70,6 +70,29 @@ def test_cli_imports_no_pillow_opencv_or_yaml(tmp_path):
                          cwd=os.path.dirname(REPO), env=env, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "FOREIGN 0 []" in res.stdout, res.stdout[-2000:]
+
+
+#: libraries the card does not have: no module of the port may import them
+HOST_ONLY = ("PIL", "cv2", "yaml")
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_no_pillow_opencv_or_yaml(path):
+    """No import statement of the port, at any depth (lazy imports inside
+    functions included), names Pillow, OpenCV or PyYAML: the port decodes,
+    resizes and rasterizes with its own NumPy code and reads YAML with
+    ``utils/yaml_lite.py``."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in HOST_ONLY, f"{path}:{node.lineno} imports {name}"
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))

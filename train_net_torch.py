@@ -3,7 +3,7 @@
 arguments of ``train_net.py``:
 
     python3 train_net_torch.py --eval-only --config configs/test_segment.yaml \
-        MODEL.WEIGHTS <ckpt> TPU.PRECISION float32 [opts ...]
+        MODEL.WEIGHTS <ckpt> [opts ...]
 
 Eval-only test-time adaptation: the config (defaults, YAML with
 ``_BASE_``, overrides), the medical dataset registry under
@@ -13,10 +13,13 @@ Dice evaluation.  The results are printed and appended, with the weights'
 path, as one JSON line to ``OUTPUT_DIR/result_ap.txt``.
 
 It runs on CUDA unless ``--device cpu`` is given, with TF32 off for
-convolutions and matrix products, in float32 only: ``TPU.PRECISION``
-defaults to ``"bfloat16"`` as in the JAX package, and the port refuses it
-until the bf16 policy is ported, so pass ``TPU.PRECISION float32``.
-Training and multi-machine runs are not ported yet and raise.
+convolutions and matrix products and cuDNN restricted to deterministic
+algorithms (``ttdg_mgm_torch.configure_torch``, set before the first CUDA
+call), so two runs of one command give the same bits.  ``TPU.PRECISION``
+defaults to ``"bfloat16"`` as in the JAX package: the bf16 compute policy
+(``TPU.PRECISION float32`` computes in float32).  Images are read as PNG or
+baseline JPEG by the port's own decoders.  Training and multi-machine runs
+are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -26,8 +29,6 @@ import json
 import logging
 import os
 import sys
-
-import torch
 
 
 def parse_args(argv=None):
@@ -60,12 +61,12 @@ def main(argv=None) -> dict:
         raise NotImplementedError("training is not ported to ttdg_mgm_torch yet (ROADMAP.md, "
                                   "Queue 1: the source train loop); pass --eval-only")
 
+    from ttdg_mgm_torch import configure_torch
     from ttdg_mgm_torch.build import build_trainer
     from ttdg_mgm_torch.config import setup_cfg
     from ttdg_mgm_torch.data.builtin import register_all_medical
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    configure_torch()
     cfg = setup_cfg(args.config_file, args.opts)
     register_all_medical(args.datasets_root or cfg.DATASETS.ROOT, force=True)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)

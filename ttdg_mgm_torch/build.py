@@ -7,14 +7,15 @@ does, :func:`build_schedule` picks the learning-rate schedule,
 ``MODEL.WEIGHTS`` (a d2 ``.pth`` or ``.pkl``) by name, and
 :func:`build_trainer` puts them together for the eval-only TTA path.  The
 port refuses, with a message naming the way out, what it has not ported:
-the VGG backbone, the mean-teacher trainer and the bf16 compute policy
-(``TPU.PRECISION`` defaults to ``"bfloat16"``; pass ``TPU.PRECISION
-float32``).
+the VGG backbone and the mean-teacher trainer.  ``SOLVER.AMP.ENABLED`` or
+``TPU.PRECISION bfloat16`` (the default) selects the bf16 compute policy,
+``compute_dtype="bfloat16"``, as ``ttdg_mgm_tpu/build.py`` does.
 
 ``FLAGSHIP_KWARGS`` is the R50-FPN Mask R-CNN that the JAX package builds
 for ``configs/test_segment.yaml``: full widths, 1000 proposals, 100
 detections, a 32-slot universe and 12 nodes per FPN level
-(``MODEL.GRAPH.MAX_NODES`` 64 // 5), so 60 nodes per graph, and the
+(``MODEL.GRAPH.MAX_NODES`` 64 // 5), so 60 nodes per graph, bf16 compute
+(the config's default ``TPU.PRECISION``), and the
 source-training fields at their ``ttdg_mgm_tpu/config.py`` defaults (2000
 pre-NMS proposals, 512 sampled ROIs per image at 25 % foreground, 128 mask
 ROIs, cross-entropy, 50 HiPPI iterations).  Source training
@@ -22,9 +23,8 @@ ROIs, cross-entropy, 50 HiPPI iterations).  Source training
 ``SOURCE_SOLVER`` holds that file's solver settings (``IMS_PER_BATCH`` 8,
 ``BASE_LR`` 0.0025, over ``config.py``'s defaults, which
 ``solver/build.py`` keeps as its own: momentum 0.9, weight decay 1e-4).
-Fields of the JAX model which only the discriminator, the VGG backbone or
-the bf16 compute policy read are not ported yet; ``OUT_OF_SLICE`` names
-them.
+Fields of the JAX model which only the discriminator or the VGG backbone
+read are not ported yet; ``OUT_OF_SLICE`` names them.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ FLAGSHIP_KWARGS = dict(
     mask_conv_dim=256, mask_num_conv=4,
     anchor_sizes=((32,), (64,), (128,), (256,), (512,)),
     cls_loss_type="CrossEntropy", pre_nms_topk_train=2000, batch_size_per_image=512,
-    roi_positive_fraction=0.25, mask_fg_cap=128, hippi_iters=50,
+    roi_positive_fraction=0.25, mask_fg_cap=128, hippi_iters=50, compute_dtype="bfloat16",
 )
 
 #: ``configs/seg_res50fpn_source.yaml`` SOLVER, and the GT-mask canvas of
@@ -61,27 +61,19 @@ FLAGSHIP_KWARGS = dict(
 SOURCE_SOLVER = dict(ims_per_batch=8, base_lr=0.0025, mask_res=256)
 
 #: JAX ``MaskRCNN`` fields outside this package's slice: the discriminator's
-#: feature level, the VGG backbone switch and the bf16 compute policy
-OUT_OF_SLICE = ("dis_type", "backbone_name", "compute_dtype")
-
-#: what :func:`model_kwargs` says when a config asks for bf16 compute
-BF16_REFUSED = ("ttdg_mgm_torch computes in float32 only until the bf16 compute policy is "
-                "ported (ROADMAP.md, Queue 1); TPU.PRECISION defaults to 'bfloat16' as in the "
-                "JAX package, so pass TPU.PRECISION float32 (and SOLVER.AMP.ENABLED False)")
+#: feature level and the VGG backbone switch
+OUT_OF_SLICE = ("dis_type", "backbone_name")
 
 
 def model_kwargs(cfg: CfgNode) -> dict:
     """The model's fields from ``cfg``, as ``ttdg_mgm_tpu/build.py:build_model``
-    maps them, less ``OUT_OF_SLICE``.  Raises for the VGG backbone and for
-    bf16 compute, which the port has not ported."""
+    maps them, less ``OUT_OF_SLICE``: bf16 compute when
+    ``SOLVER.AMP.ENABLED`` or ``TPU.PRECISION == "bfloat16"``.  Raises for
+    the VGG backbone, which the port has not ported."""
     if "vgg" in cfg.MODEL.BACKBONE.NAME:
         raise NotImplementedError(
             f"MODEL.BACKBONE.NAME {cfg.MODEL.BACKBONE.NAME!r}: the VGG backbone is not ported "
             "to ttdg_mgm_torch yet (ROADMAP.md, Queue 1: the long tail)")
-    if cfg.SOLVER.AMP.ENABLED or cfg.TPU.PRECISION == "bfloat16":
-        raise NotImplementedError(
-            f"compute_dtype bfloat16 (TPU.PRECISION {cfg.TPU.PRECISION!r}, SOLVER.AMP.ENABLED "
-            f"{cfg.SOLVER.AMP.ENABLED}): {BF16_REFUSED}")
     g = cfg.MODEL.GRAPH
     return dict(
         num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
@@ -115,6 +107,8 @@ def model_kwargs(cfg: CfgNode) -> dict:
         hippi_iters=g.HIPPI_ITERS,
         gagm_iters=g.GAGM_ITERS,
         lap_polish_iters=g.LAP_POLISH_ITERS,
+        compute_dtype=("bfloat16" if cfg.SOLVER.AMP.ENABLED or cfg.TPU.PRECISION == "bfloat16"
+                       else "float32"),
     )
 
 

@@ -6,11 +6,13 @@ defaults (the ``TPU.*`` keys too, so that one YAML file means the same in
 both packages), the same merge rules and the same decoding of override
 strings.  It reads YAML with :mod:`ttdg_mgm_torch.utils.yaml_lite`, which
 needs no PyYAML and returns what ``yaml.safe_load`` returns on the files in
-``configs/``; only :meth:`CfgNode.dump` imports PyYAML.
+``configs/``; nothing here imports PyYAML (the JAX package's ``dump`` is not
+ported).
 
-The port runs float32 only: ``TPU.PRECISION`` defaults to ``"bfloat16"``
-as in the JAX package, and ``ttdg_mgm_torch.build`` refuses it until the
-bf16 policy is ported (pass ``TPU.PRECISION float32``).
+``TPU.PRECISION`` defaults to ``"bfloat16"`` as in the JAX package, and
+``ttdg_mgm_torch.build`` maps it (or ``SOLVER.AMP.ENABLED``) onto the bf16
+compute policy, as ``ttdg_mgm_tpu/build.py`` does; ``TPU.PRECISION float32``
+computes in float32.
 """
 
 from __future__ import annotations
@@ -107,11 +109,6 @@ class CfgNode(dict):
                 return default
             node = node[p]
         return node
-
-    def dump(self) -> str:
-        import yaml
-
-        return yaml.safe_dump(to_plain(self), sort_keys=True)
 
 
 def to_plain(node: Any) -> Any:

@@ -15,9 +15,13 @@
 //
 // One axis sample's clamped bilinear corners follow
 // ops/roi_align.py:_bilinear_corners.
+//
+// Also shared by both: the tap weight as the bfloat16 variants multiply it,
+// and the unpacking and packing of four bfloat16 channels.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ttdg {
@@ -164,5 +168,28 @@ inline bool make_pool_spec(PoolSpec* sp, int num_levels, float s0, float s1, flo
 }
 
 inline int channel_threads(int C) { return C >= 256 ? 256 : ((C + 31) / 32) * 32; }
+
+// A tap weight as the kernels multiply it: float32, or rounded to bfloat16
+// for bfloat16 features (the TPU kernel's ry.astype(dtype)).
+__device__ __forceinline__ float tap_weight(float w, float) { return w; }
+__device__ __forceinline__ float tap_weight(float w, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(w));
+}
+
+// Four bfloat16 channels (8 bytes) as float32: bfloat16 is the upper half
+// of a float32, each word holds two channels, the lower one first.
+__device__ __forceinline__ float4 bf16x4(const uint2 r) {
+  return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+}
+
+// Four float32 values rounded to bfloat16 and packed as bf16x4 reads them.
+__device__ __forceinline__ uint2 pack_bf16x4(const float4 v) {
+  const unsigned a = __bfloat16_as_ushort(__float2bfloat16_rn(v.x));
+  const unsigned b = __bfloat16_as_ushort(__float2bfloat16_rn(v.y));
+  const unsigned c = __bfloat16_as_ushort(__float2bfloat16_rn(v.z));
+  const unsigned d = __bfloat16_as_ushort(__float2bfloat16_rn(v.w));
+  return make_uint2(a | (b << 16), c | (d << 16));
+}
 
 }  // namespace ttdg

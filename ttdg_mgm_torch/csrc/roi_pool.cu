@@ -18,8 +18,8 @@
 // * nothing runs before the launch: the ROI's level, sample positions and
 //   weights are computed in the kernel from the ROI's four floats
 //   (roi_geometry.cuh), once per block into shared memory;
-// * every access is 16 bytes wide: a group of C/4 threads covers the
-//   channels of one bin with float4 loads and one float4 store;
+// * every access is 16 bytes wide: a group of C/4 threads (C/8 in bfloat16)
+//   covers the channels of one bin with 16-byte loads and one 16-byte store;
 // * a block of 256 threads holds 256 / (C/4) such groups, which take
 //   different bins of the same ROI, and a small pool (few ROIs) is split over
 //   several blocks per ROI, so the card stays full;
@@ -32,13 +32,26 @@
 // * the output is written with streaming stores (__stcs), so its hundreds of
 //   megabytes do not evict the feature levels from L2, where neighbouring
 //   ROIs re-read them.
+//
+// bfloat16 features (the bf16 compute policy): the TPU kernel casts its
+// per-axis interpolation weights ry, cx to the feature dtype, accumulates
+// both contractions in float32 and writes its output in the feature dtype.
+// This kernel is templated on the element type and does the same: each
+// bin's tap weights are summed in float32 (every product and sum rounded,
+// as the plain version ops/roi_align.py:multilevel_roi_align_bf16 does) and
+// rounded to bfloat16, the products of two such weights and a bfloat16
+// sample are exact in float32, the sum runs in float32 and the output is
+// rounded once.  A 16-byte load is 8 bfloat16 channels (4 float32), so a bin
+// takes C/8 threads and the channel count must be a multiple of 8; the
+// feature reads and the output writes are half the float32 bytes.
+
+#include <cuda_bf16.h>
 
 #include "roi_geometry.cuh"
 
 namespace {
 
 using ttdg::AxisSample;
-using Levels = ttdg::LevelTable<const float>;
 
 constexpr int kThreads = 256;
 
@@ -55,7 +68,7 @@ __device__ __forceinline__ void add_tap(Tap* taps, int* cnt, int off, float w) {
   if (w == 0.0f) return;
   for (int k = 0; k < *cnt; ++k) {
     if (taps[k].off == off) {
-      taps[k].w += w;
+      taps[k].w = __fadd_rn(taps[k].w, w);
       return;
     }
   }
@@ -64,21 +77,48 @@ __device__ __forceinline__ void add_tap(Tap* taps, int* cnt, int off, float w) {
   ++*cnt;
 }
 
+// The channels of one 16-byte load, as float32: 4 float32 or 8 bfloat16.
+template <typename T>
+struct Pack {
+  static constexpr int N = 16 / static_cast<int>(sizeof(T));
+  float v[N];
+};
+
 // A 16-byte read-only load that is made only when `on`.
-__device__ __forceinline__ float4 ldg4_if(bool on, const float* p) {
-  return on ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+__device__ __forceinline__ uint4 ldg16_if(bool on, const void* p) {
+  return on ? __ldg(reinterpret_cast<const uint4*>(p)) : make_uint4(0u, 0u, 0u, 0u);
 }
 
-__device__ __forceinline__ void fma_tap(float4* acc, const float4 v, float w) {
-  acc->x = fmaf(v.x, w, acc->x);
-  acc->y = fmaf(v.y, w, acc->y);
-  acc->z = fmaf(v.z, w, acc->z);
-  acc->w = fmaf(v.w, w, acc->w);
+__device__ __forceinline__ void fma_tap(Pack<float>* acc, const uint4 r, float w) {
+  acc->v[0] = fmaf(__uint_as_float(r.x), w, acc->v[0]);
+  acc->v[1] = fmaf(__uint_as_float(r.y), w, acc->v[1]);
+  acc->v[2] = fmaf(__uint_as_float(r.z), w, acc->v[2]);
+  acc->v[3] = fmaf(__uint_as_float(r.w), w, acc->v[3]);
 }
 
+__device__ __forceinline__ void fma_tap(Pack<__nv_bfloat16>* acc, const uint4 r, float w) {
+  const float4 lo = ttdg::bf16x4(make_uint2(r.x, r.y));
+  const float4 hi = ttdg::bf16x4(make_uint2(r.z, r.w));
+  const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc->v[k] = fmaf(v[k], w, acc->v[k]);
+}
+
+__device__ __forceinline__ uint4 pack16(const Pack<float>& a) {
+  return make_uint4(__float_as_uint(a.v[0]), __float_as_uint(a.v[1]), __float_as_uint(a.v[2]),
+                    __float_as_uint(a.v[3]));
+}
+
+__device__ __forceinline__ uint4 pack16(const Pack<__nv_bfloat16>& a) {
+  const uint2 lo = ttdg::pack_bf16x4(make_float4(a.v[0], a.v[1], a.v[2], a.v[3]));
+  const uint2 hi = ttdg::pack_bf16x4(make_float4(a.v[4], a.v[5], a.v[6], a.v[7]));
+  return make_uint4(lo.x, lo.y, hi.x, hi.y);
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-roi_pool_kernel(Levels lv, ttdg::PoolSpec sp, int C, int K, const float* __restrict__ rois,
-                int bins_per_block, float* __restrict__ out) {
+roi_pool_kernel(ttdg::LevelTable<const T> lv, ttdg::PoolSpec sp, int C, int K,
+                const float* __restrict__ rois, int bins_per_block, T* __restrict__ out) {
   __shared__ AxisSample sy[ttdg::kMaxSamples];
   __shared__ AxisSample sx[ttdg::kMaxSamples];
   __shared__ Tap ty[kMaxTaps];
@@ -93,7 +133,7 @@ roi_pool_kernel(Levels lv, ttdg::PoolSpec sp, int C, int K, const float* __restr
   const int W = lv.W[fr.level];
   const int P = sp.P;
   const int m = sp.m;
-  const float* f = lv.ptr[fr.level] + static_cast<size_t>(b) * H * W * C;
+  const T* f = lv.ptr[fr.level] + static_cast<size_t>(b) * H * W * C;
 
   ttdg::fill_axis_samples(sy, sx, fr, sp, H, W);
   __syncthreads();
@@ -111,22 +151,24 @@ roi_pool_kernel(Levels lv, ttdg::PoolSpec sp, int C, int K, const float* __restr
     for (int i = 0; i < m; ++i) {
       const AxisSample a = src[i];
       if (a.w == 0.0f) continue;
-      add_tap(dst, &cnt, a.c0 * scale, a.w * (1.0f - a.frac));
-      add_tap(dst, &cnt, a.c1 * scale, a.w * a.frac);
+      add_tap(dst, &cnt, a.c0 * scale, __fmul_rn(a.w, __fsub_rn(1.0f, a.frac)));
+      add_tap(dst, &cnt, a.c1 * scale, __fmul_rn(a.w, a.frac));
     }
+    for (int k = 0; k < cnt; ++k) dst[k].w = ttdg::tap_weight(dst[k].w, T());
     (is_y ? ny : nx)[p] = cnt;
   }
   __syncthreads();
 
-  const int lanes = C / 4;                 // threads per bin
+  constexpr int kN = Pack<T>::N;           // channels per thread
+  const int lanes = C / kN;                // threads per bin
   const int groups = blockDim.x / lanes;   // bins in flight per block
   const int group = threadIdx.x / lanes;
   const int lane = threadIdx.x % lanes;
   if (group >= groups) return;
   const int bin_lo = blockIdx.y * bins_per_block;
   const int bin_hi = min(bin_lo + bins_per_block, P * P);
-  const float* fc = f + lane * 4;
-  float* o = out + static_cast<size_t>(r) * P * P * C + lane * 4;
+  const T* fc = f + lane * kN;
+  T* o = out + static_cast<size_t>(r) * P * P * C + lane * kN;
 
   for (int bin = bin_lo + group; bin < bin_hi; bin += groups) {
     const int p = bin / P;
@@ -135,28 +177,30 @@ roi_pool_kernel(Levels lv, ttdg::PoolSpec sp, int C, int K, const float* __restr
     const int cx = nx[q];
     const Tap* ys = ty + p * 2 * m;
     const Tap* xs = tx + q * 2 * m;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    Pack<T> acc;
+#pragma unroll
+    for (int k = 0; k < kN; ++k) acc.v[k] = 0.0f;
     // two rows by four columns at a time: 8 independent 16-byte loads
     for (int i = 0; i < cy; i += 2) {
       const Tap ya = ys[i];
       const bool two = i + 1 < cy;
       const Tap yb = two ? ys[i + 1] : ya;
-      const float* ra = fc + ya.off;
-      const float* rb = fc + yb.off;
+      const T* ra = fc + ya.off;
+      const T* rb = fc + yb.off;
       for (int j = 0; j < cx; j += 4) {
         const int n = min(cx - j, 4);
         const Tap x0 = xs[j];
         const Tap x1 = n > 1 ? xs[j + 1] : x0;
         const Tap x2 = n > 2 ? xs[j + 2] : x0;
         const Tap x3 = n > 3 ? xs[j + 3] : x0;
-        const float4 a0 = ldg4_if(true, ra + x0.off);
-        const float4 a1 = ldg4_if(n > 1, ra + x1.off);
-        const float4 a2 = ldg4_if(n > 2, ra + x2.off);
-        const float4 a3 = ldg4_if(n > 3, ra + x3.off);
-        const float4 b0 = ldg4_if(two, rb + x0.off);
-        const float4 b1 = ldg4_if(two && n > 1, rb + x1.off);
-        const float4 b2 = ldg4_if(two && n > 2, rb + x2.off);
-        const float4 b3 = ldg4_if(two && n > 3, rb + x3.off);
+        const uint4 a0 = ldg16_if(true, ra + x0.off);
+        const uint4 a1 = ldg16_if(n > 1, ra + x1.off);
+        const uint4 a2 = ldg16_if(n > 2, ra + x2.off);
+        const uint4 a3 = ldg16_if(n > 3, ra + x3.off);
+        const uint4 b0 = ldg16_if(two, rb + x0.off);
+        const uint4 b1 = ldg16_if(two && n > 1, rb + x1.off);
+        const uint4 b2 = ldg16_if(two && n > 2, rb + x2.off);
+        const uint4 b3 = ldg16_if(two && n > 3, rb + x3.off);
         fma_tap(&acc, a0, ya.w * x0.w);
         if (n > 1) fma_tap(&acc, a1, ya.w * x1.w);
         if (n > 2) fma_tap(&acc, a2, ya.w * x2.w);
@@ -169,7 +213,7 @@ roi_pool_kernel(Levels lv, ttdg::PoolSpec sp, int C, int K, const float* __restr
         }
       }
     }
-    __stcs(reinterpret_cast<float4*>(o + static_cast<size_t>(bin) * C), acc);
+    __stcs(reinterpret_cast<uint4*>(o + static_cast<size_t>(bin) * C), pack16(acc));
   }
 }
 
@@ -195,30 +239,19 @@ __global__ void roi_geometry_kernel(ttdg::PoolSpec sp, int R, const float* __res
   }
 }
 
-}  // namespace
-
-// Plain C entry points (bound with ctypes).  Each launches on `stream` and
-// returns cudaGetLastError(); the caller raises when it is not 0.
-//
-// ttdg_roi_pool: `rois` is (R, 4) float32, R = B * K; `n` is the sampling
-// ratio (0 = adaptive).  C must be a multiple of 4, at most 1024, and the
-// level pointers 16-byte aligned.
-extern "C" int ttdg_roi_pool(const void* f0, const void* f1, const void* f2, const void* f3,
-                             int num_levels, int H0, int W0, int H1, int W1, int H2, int W2,
-                             int H3, int W3, int C, int R, int K, const void* rois, float s0,
-                             float s1, float s2, float s3, int min_level, int P, int n,
-                             void* out, void* stream) {
-  ttdg::PoolSpec sp;
-  if (!ttdg::make_pool_spec(&sp, num_levels, s0, s1, s2, s3, min_level, P, n) || R <= 0 ||
-      C < 4 || C % 4 != 0 || C / 4 > kThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Levels lv = ttdg::make_level_table(
-      static_cast<const float*>(f0), static_cast<const float*>(f1),
-      static_cast<const float*>(f2), static_cast<const float*>(f3), H0, W0, H1, W1, H2, W2, H3, W3);
+template <typename T>
+int launch_pool(const void* f0, const void* f1, const void* f2, const void* f3, int H0, int W0,
+                int H1, int W1, int H2, int W2, int H3, int W3, const ttdg::PoolSpec& sp, int C,
+                int R, int K, const void* rois, void* out, cudaStream_t stream) {
+  constexpr int kN = Pack<T>::N;
+  if (C < kN || C % kN != 0 || C / kN > kThreads) return static_cast<int>(cudaErrorInvalidValue);
+  const ttdg::LevelTable<const T> lv = ttdg::make_level_table(
+      static_cast<const T*>(f0), static_cast<const T*>(f1), static_cast<const T*>(f2),
+      static_cast<const T*>(f3), H0, W0, H1, W1, H2, W2, H3, W3);
   // a small pool is split over several blocks per ROI (about 2048 blocks in
   // all), each taking a whole number of rounds of its bin groups
-  const int groups = kThreads / (C / 4);
+  const int groups = kThreads / (C / kN);
+  const int P = sp.P;
   const int bins = P * P;
   int splits = (2048 + R - 1) / R;
   const int max_splits = (bins + groups - 1) / groups;
@@ -227,9 +260,37 @@ extern "C" int ttdg_roi_pool(const void* f0, const void* f1, const void* f2, con
   int per_block = (bins + splits - 1) / splits;
   per_block = ((per_block + groups - 1) / groups) * groups;
   splits = (bins + per_block - 1) / per_block;
-  roi_pool_kernel<<<dim3(R, splits), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      lv, sp, C, K, static_cast<const float*>(rois), per_block, static_cast<float*>(out));
+  roi_pool_kernel<T><<<dim3(R, splits), kThreads, 0, stream>>>(
+      lv, sp, C, K, static_cast<const float*>(rois), per_block, static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  Each launches on `stream` and
+// returns cudaGetLastError(); the caller raises when it is not 0.
+//
+// ttdg_roi_pool: `rois` is (R, 4) float32, R = B * K; `n` is the sampling
+// ratio (0 = adaptive); `dtype` 0 for float32 levels and output, 1 for
+// bfloat16.  C must fill whole 16-byte loads (a multiple of 4 in float32, of
+// 8 in bfloat16), at most 1024, and the level pointers be 16-byte aligned.
+extern "C" int ttdg_roi_pool(const void* f0, const void* f1, const void* f2, const void* f3,
+                             int num_levels, int H0, int W0, int H1, int W1, int H2, int W2,
+                             int H3, int W3, int C, int R, int K, const void* rois, float s0,
+                             float s1, float s2, float s3, int min_level, int P, int n, int dtype,
+                             void* out, void* stream) {
+  ttdg::PoolSpec sp;
+  if (!ttdg::make_pool_spec(&sp, num_levels, s0, s1, s2, s3, min_level, P, n) || R <= 0 ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return launch_pool<__nv_bfloat16>(f0, f1, f2, f3, H0, W0, H1, W1, H2, W2, H3, W3, sp, C, R,
+                                      K, rois, out, st);
+  }
+  return launch_pool<float>(f0, f1, f2, f3, H0, W0, H1, W1, H2, W2, H3, W3, sp, C, R, K, rois,
+                            out, st);
 }
 
 extern "C" int ttdg_roi_geometry(int num_levels, float s0, float s1, float s2, float s3,

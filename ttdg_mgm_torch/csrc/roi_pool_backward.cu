@@ -54,7 +54,20 @@
 // (tile, ROI) pair costs a few dependent phases of shared-memory and L2
 // latency, with two 256-thread blocks per SM, and an ROI's cotangent bins are
 // read again by every tile its footprint meets.
+//
+// bfloat16 (the bf16 compute policy): the TPU kernel casts the cotangent to
+// the feature dtype, sums each ROI's window update in float32 but adds the
+// overlapping windows in a bfloat16 scratch and atlas, rounding at every
+// window.  This kernel, templated on the element type, takes a bfloat16
+// cotangent and writes bfloat16 gradients: the tap weights are rounded to
+// bfloat16 as the forward's are (so their products with a bfloat16
+// cotangent are exact in float32), each output element is summed in float32
+// over every ROI in ROI order, as in float32, and rounded once.  That is more
+// exact than the TPU kernel (ROADMAP.md, Queue 3).  A thread still holds 4
+// channels, read and staged as 8 bytes instead of 16, so the cotangent reads
+// and the gradient writes are half the float32 bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 
 #include <climits>
@@ -64,7 +77,6 @@
 namespace {
 
 using ttdg::AxisSample;
-using Grads = ttdg::LevelTable<float>;
 
 constexpr int kTile = 8;                      // tile side in pixels
 constexpr int kChunk = 128;                   // channels per block
@@ -123,8 +135,33 @@ struct TileSpec {
   int n;
 };
 
-__device__ __forceinline__ float4 ldg4(const float* p) {
+// 4 channels of the element type, as float32: loads, shared-memory stages
+// and stores of 16 bytes (float32) or 8 bytes (bfloat16).
+__device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  return ttdg::bf16x4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+__device__ __forceinline__ float4 unstage4(const float4* gs, int t, float) { return gs[t]; }
+__device__ __forceinline__ float4 unstage4(const float4* gs, int t, __nv_bfloat16) {
+  return ttdg::bf16x4(reinterpret_cast<const uint2*>(gs)[t]);
+}
+
+__device__ __forceinline__ void store4(float* p, const float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float4 v) {
+  *reinterpret_cast<uint2*>(p) = ttdg::pack_bf16x4(v);
+}
+
+// Whether a 32-bit word of cotangent holds a value other than +-0.
+__device__ __forceinline__ bool nonzero_word(unsigned w, float) { return (w << 1) != 0u; }
+__device__ __forceinline__ bool nonzero_word(unsigned w, __nv_bfloat16) {
+  return (w & 0x7fff7fffu) != 0u;
 }
 
 __device__ __forceinline__ void fma4(float4* acc, const float4 v, float w) {
@@ -140,8 +177,9 @@ __device__ __forceinline__ void fma4(float4* acc, const float4 v, float w) {
 // zero boxes that pad the mask pool's rows are such ROIs): its cotangent is
 // read here, and the ROI is skipped when it is all zero, which changes no
 // sum.  `g` null: no such test.
-__global__ void roi_plan_kernel(Grads lv, ttdg::PoolSpec sp, int R, int C,
-                                const float* __restrict__ rois, const float* __restrict__ g,
+template <typename T>
+__global__ void roi_plan_kernel(ttdg::LevelTable<T> lv, ttdg::PoolSpec sp, int R, int C,
+                                const float* __restrict__ rois, const T* __restrict__ g,
                                 void* __restrict__ plan) {
   const int r = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -176,15 +214,16 @@ __global__ void roi_plan_kernel(Grads lv, ttdg::PoolSpec sp, int R, int C,
   xhi = __reduce_max_sync(kFull, xhi);
   bool skip = false;
   if (g != nullptr && !(fabsf(fr.bin_w) >= 1.0f && fabsf(fr.bin_h) >= 1.0f)) {
-    const float4* gr = reinterpret_cast<const float4*>(g + static_cast<size_t>(r) * sp.P * sp.P * C);
-    const int n4 = sp.P * sp.P * C / 4;
+    const uint4* gr = reinterpret_cast<const uint4*>(g + static_cast<size_t>(r) * sp.P * sp.P * C);
+    const int n4 = static_cast<int>(sp.P * sp.P * C * sizeof(T) / 16);
     bool nonzero = false;
     for (int t = lane; t < n4 && !nonzero; t += 4 * 32) {  // four loads in flight
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (t + 32 * k < n4) {
-          const float4 v = __ldg(gr + t + 32 * k);
-          nonzero |= (v.x != 0.0f) | (v.y != 0.0f) | (v.z != 0.0f) | (v.w != 0.0f);
+          const uint4 v = __ldg(gr + t + 32 * k);
+          nonzero |= nonzero_word(v.x, T()) | nonzero_word(v.y, T()) |
+                     nonzero_word(v.z, T()) | nonzero_word(v.w, T());
         }
       }
     }
@@ -263,9 +302,10 @@ __device__ void plan_batch(Shared& sh, int h0, int hits, int P) {
   sh.nb = nb;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
-roi_pool_backward_kernel(Grads lv, ttdg::PoolSpec sp, TileSpec ts, int C, int R, int K,
-                         const void* __restrict__ plan, const float* __restrict__ g) {
+roi_pool_backward_kernel(ttdg::LevelTable<T> lv, ttdg::PoolSpec sp, TileSpec ts, int C, int R,
+                         int K, const void* __restrict__ plan, const T* __restrict__ g) {
   extern __shared__ __align__(16) unsigned char smem[];
   Shared& sh = *reinterpret_cast<Shared*>(smem);
   // which level, image and tile this block owns
@@ -363,16 +403,16 @@ roi_pool_backward_kernel(Grads lv, ttdg::PoolSpec sp, TileSpec ts, int C, int R,
             int p = first;
             for (int u = lo; u <= hi; ++u) {
               if (u / sp.m != p) {
-                w_out[p] = w;
+                w_out[p] = ttdg::tap_weight(w, T());
                 w = 0.0f;
                 p = u / sp.m;
               }
               const AxisSample a = smp[u];
               if (a.w == 0.0f) continue;
-              if (a.c0 == pix) w += a.w * (1.0f - a.frac);
-              if (a.c1 == pix) w += a.w * a.frac;
+              if (a.c0 == pix) w = __fadd_rn(w, __fmul_rn(a.w, __fsub_rn(1.0f, a.frac)));
+              if (a.c1 == pix) w = __fadd_rn(w, __fmul_rn(a.w, a.frac));
             }
-            w_out[p] = w;
+            w_out[p] = ttdg::tap_weight(w, T());
           }
           sh.lo[hb][axis][i] = static_cast<short>(lo <= hi ? first : 0);
           sh.n[hb][axis][i] = static_cast<short>(lo <= hi ? last - first + 1 : 0);
@@ -419,11 +459,14 @@ roi_pool_backward_kernel(Grads lv, ttdg::PoolSpec sp, TileSpec ts, int C, int R,
         if (cc < C) {
           const int p = rc[0] + bin / nq;
           const int q = rc[2] + bin % nq;
-          const float* src =
+          const T* src =
               g + (static_cast<size_t>(sh.list[h0 + hb].r) * P * P + p * P + q) * C + cc;
-          __pipeline_memcpy_async(&sh.gs[t], src, sizeof(float4));
-        } else {
+          __pipeline_memcpy_async(reinterpret_cast<char*>(sh.gs) + t * 4 * sizeof(T), src,
+                                  4 * sizeof(T));
+        } else if (sizeof(T) == 4) {
           sh.gs[t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        } else {
+          reinterpret_cast<uint2*>(sh.gs)[t] = make_uint2(0u, 0u);
         }
       }
       __pipeline_commit();
@@ -433,8 +476,8 @@ roi_pool_backward_kernel(Grads lv, ttdg::PoolSpec sp, TileSpec ts, int C, int R,
         const int* rc = sh.rect[hb];
         const int nq = rc[3] - rc[2] + 1;
         const bool staged = sh.stage_off[hb + 1] > sh.stage_off[hb];
-        const float4* gsh = sh.gs + sh.stage_off[hb] + lane;
-        const float* gr = g + static_cast<size_t>(sh.list[h0 + hb].r) * P * P * C + c;
+        const int gsh = sh.stage_off[hb] + lane;
+        const T* gr = g + static_cast<size_t>(sh.list[h0 + hb].r) * P * P * C + c;
         const int qlo = sh.lo[hb][1][col];
         const int qn = sh.n[hb][1][col];
         const float* wx = sh.wt + sh.wt_off[hb] + (kTile + col) * P;
@@ -458,8 +501,10 @@ roi_pool_backward_kernel(Grads lv, ttdg::PoolSpec sp, TileSpec ts, int C, int R,
                 const int q = qlo + qb + j;
                 v[j] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
                 if (qb + j < qn) {
-                  v[j] = staged ? gsh[((pb - rc[0]) * nq + (q - rc[2])) * kLanes]
-                                : ldg4(gr + (static_cast<size_t>(pb) * P + q) * C);
+                  v[j] = staged
+                             ? unstage4(sh.gs, gsh + ((pb - rc[0]) * nq + (q - rc[2])) * kLanes,
+                                        T())
+                             : load4(gr + (static_cast<size_t>(pb) * P + q) * C);
                 }
               }
 #pragma unroll
@@ -475,60 +520,37 @@ roi_pool_backward_kernel(Grads lv, ttdg::PoolSpec sp, TileSpec ts, int C, int R,
   }
 
   if (!has_c) return;
-  float* f = lv.ptr[l] + static_cast<size_t>(b) * H * W * C;
+  T* f = lv.ptr[l] + static_cast<size_t>(b) * H * W * C;
   const int x = x0 + col;
 #pragma unroll
   for (int k2 = 0; k2 < kRowsPerSlot; ++k2) {
     const int y = y0 + row0 + kRowStep * k2;
     if (y < H && x < W) {
-      *reinterpret_cast<float4*>(f + (static_cast<size_t>(y) * W + x) * C + c) = acc[k2];
+      store4(f + (static_cast<size_t>(y) * W + x) * C + c, acc[k2]);
     }
   }
 }
 
-bool make_specs(ttdg::PoolSpec* sp, Grads* lv, int num_levels, int H0, int W0, int H1, int W1,
-                int H2, int W2, int H3, int W3, float s0, float s1, float s2, float s3,
-                int min_level, int P, int n, void* d0, void* d1, void* d2, void* d3) {
-  if (!ttdg::make_pool_spec(sp, num_levels, s0, s1, s2, s3, min_level, P, n)) return false;
-  *lv = ttdg::make_level_table(static_cast<float*>(d0), static_cast<float*>(d1),
-                               static_cast<float*>(d2), static_cast<float*>(d3), H0, W0, H1, W1,
-                               H2, W2, H3, W3);
-  return true;
+template <typename T>
+ttdg::LevelTable<T> make_grads(int H0, int W0, int H1, int W1, int H2, int W2, int H3, int W3,
+                               void* d0, void* d1, void* d2, void* d3) {
+  return ttdg::make_level_table(static_cast<T*>(d0), static_cast<T*>(d1), static_cast<T*>(d2),
+                                static_cast<T*>(d3), H0, W0, H1, W1, H2, W2, H3, W3);
 }
 
-int launch_plan(const Grads& lv, const ttdg::PoolSpec& sp, int R, int C, const void* rois,
-                const void* g, void* plan, cudaStream_t stream) {
+template <typename T>
+int launch_plan(const ttdg::LevelTable<T>& lv, const ttdg::PoolSpec& sp, int R, int C,
+                const void* rois, const void* g, void* plan, cudaStream_t stream) {
   const int per_block = 4;  // ROIs (warps) per block
-  roi_plan_kernel<<<(R + per_block - 1) / per_block, 32 * per_block, 0, stream>>>(
-      lv, sp, R, C, static_cast<const float*>(rois), static_cast<const float*>(g), plan);
+  roi_plan_kernel<T><<<(R + per_block - 1) / per_block, 32 * per_block, 0, stream>>>(
+      lv, sp, R, C, static_cast<const float*>(rois), static_cast<const T*>(g), plan);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Plain C entry points (bound with ctypes), each launching on `stream` and
-// returning cudaGetLastError(); the caller raises when it is not 0.
-//
-// ttdg_roi_pool_backward takes ttdg_roi_pool's arguments with `d0..d3`, the
-// level gradients (B, H_l, W_l, C), as outputs: every element is written, so
-// they need no zeroing.  `plan` is scratch of R * ttdg_roi_plan_words(P, n)
-// 32-bit words, 16-byte aligned (the HitTests, then a RoiPlan and the
-// samples per ROI);
-// `g` is the cotangent (R, P, P, C).  C must be a multiple of 4 and the
-// gradients 16-byte aligned.
-extern "C" int ttdg_roi_pool_backward(void* d0, void* d1, void* d2, void* d3, int num_levels,
-                                      int H0, int W0, int H1, int W1, int H2, int W2, int H3,
-                                      int W3, int C, int R, int K, const void* rois, float s0,
-                                      float s1, float s2, float s3, int min_level, int P, int n,
-                                      void* plan, const void* g, void* stream) {
-  ttdg::PoolSpec sp;
-  Grads lv;
-  if (!make_specs(&sp, &lv, num_levels, H0, W0, H1, W1, H2, W2, H3, W3, s0, s1, s2, s3,
-                  min_level, P, n, d0, d1, d2, d3) ||
-      R <= 0 || K <= 0 || R % K != 0 || C < 4 || C % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+int launch_backward(const ttdg::LevelTable<T>& lv, const ttdg::PoolSpec& sp, int num_levels,
+                    int C, int R, int K, const void* rois, void* plan, const void* g,
+                    cudaStream_t st) {
   const int err = launch_plan(lv, sp, R, C, rois, g, plan, st);
   if (err != 0) return err;
   TileSpec ts;
@@ -544,11 +566,43 @@ extern "C" int ttdg_roi_pool_backward(void* d0, void* d1, void* d2, void* d3, in
   const dim3 grid(ts.start[num_levels], (C + kChunk - 1) / kChunk);
   const int smem = static_cast<int>(sizeof(Shared));
   const cudaError_t e = cudaFuncSetAttribute(
-      roi_pool_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      roi_pool_backward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  roi_pool_backward_kernel<<<grid, kThreads, smem, st>>>(lv, sp, ts, C, R, K, plan,
-                                                      static_cast<const float*>(g));
+  roi_pool_backward_kernel<T><<<grid, kThreads, smem, st>>>(lv, sp, ts, C, R, K, plan,
+                                                         static_cast<const T*>(g));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes), each launching on `stream` and
+// returning cudaGetLastError(); the caller raises when it is not 0.
+//
+// ttdg_roi_pool_backward takes ttdg_roi_pool's arguments with `d0..d3`, the
+// level gradients (B, H_l, W_l, C), as outputs: every element is written, so
+// they need no zeroing.  `dtype` 0: float32 cotangent and gradients, 1:
+// bfloat16.  `plan` is scratch of R * ttdg_roi_plan_words(P, n) 32-bit
+// words, 16-byte aligned (the HitTests, then a RoiPlan and the samples per
+// ROI); `g` is the cotangent (R, P, P, C).  C must be a multiple of 4 and the
+// gradients 16-byte aligned.
+extern "C" int ttdg_roi_pool_backward(void* d0, void* d1, void* d2, void* d3, int num_levels,
+                                      int H0, int W0, int H1, int W1, int H2, int W2, int H3,
+                                      int W3, int C, int R, int K, const void* rois, float s0,
+                                      float s1, float s2, float s3, int min_level, int P, int n,
+                                      int dtype, void* plan, const void* g, void* stream) {
+  ttdg::PoolSpec sp;
+  if (!ttdg::make_pool_spec(&sp, num_levels, s0, s1, s2, s3, min_level, P, n) || R <= 0 ||
+      K <= 0 || R % K != 0 || C < 4 || C % 4 != 0 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    return launch_backward(
+        make_grads<__nv_bfloat16>(H0, W0, H1, W1, H2, W2, H3, W3, d0, d1, d2, d3), sp,
+        num_levels, C, R, K, rois, plan, g, st);
+  }
+  return launch_backward(make_grads<float>(H0, W0, H1, W1, H2, W2, H3, W3, d0, d1, d2, d3), sp,
+                         num_levels, C, R, K, rois, plan, g, st);
 }
 
 // 32-bit words of one ROI's plan row for P bins and sampling ratio n.
@@ -565,11 +619,10 @@ extern "C" int ttdg_roi_plan(int num_levels, int H0, int W0, int H1, int W1, int
                              int min_level, int P, int n, int R, const void* rois, void* plan,
                              void* stream) {
   ttdg::PoolSpec sp;
-  Grads lv;
-  if (!make_specs(&sp, &lv, num_levels, H0, W0, H1, W1, H2, W2, H3, W3, s0, s1, s2, s3,
-                  min_level, P, n, nullptr, nullptr, nullptr, nullptr) ||
-      R <= 0) {
+  if (!ttdg::make_pool_spec(&sp, num_levels, s0, s1, s2, s3, min_level, P, n) || R <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_plan(lv, sp, R, 0, rois, nullptr, plan, static_cast<cudaStream_t>(stream));
+  return launch_plan(
+      make_grads<float>(H0, W0, H1, W1, H2, W2, H3, W3, nullptr, nullptr, nullptr, nullptr), sp,
+      R, 0, rois, nullptr, plan, static_cast<cudaStream_t>(stream));
 }

@@ -11,10 +11,12 @@ arrays and metas:
 * with ``with_gt``, GT padded to ``gt_cap`` slots and masks rasterized on a
   ``(mask_res, mask_res)`` grid over the padded canvas.
 
-:func:`load_image` decodes PNG with :mod:`ttdg_mgm_torch.data.png` (no
-Pillow); other formats, and PNG variants that decoder does not read, go
-through Pillow, imported at that point.  The train and two-crop loaders are
-not ported yet.
+:func:`load_image` decodes PNG (:mod:`ttdg_mgm_torch.data.png`) and
+baseline JPEG (:mod:`ttdg_mgm_torch.data.jpeg`) in NumPy, equal to Pillow's
+``convert("RGB")``; the resize (:mod:`ttdg_mgm_torch.data.resample`) and the
+polygon fill (``utils/polyfill.py``) equal Pillow's and OpenCV's.  Nothing
+here imports Pillow or OpenCV.  The train and two-crop loaders are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -25,25 +27,30 @@ import threading
 import numpy as np
 
 from ttdg_mgm_torch.data.catalog import DatasetCatalog
-from ttdg_mgm_torch.data.png import SIGNATURE, UnsupportedPNG, decode_png
+from ttdg_mgm_torch.data import jpeg, png
+from ttdg_mgm_torch.data.resample import resize_bilinear
 from ttdg_mgm_torch.data.transforms import hflip, resize_shortest_edge, scale_annotations
 from ttdg_mgm_torch.utils.rle import polygons_to_mask, segmentation_to_mask
 
 
+#: leading bytes of the image formats other than PNG and JPEG, for the error
+_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"BM", "BMP"),
+                  (b"GIF8", "GIF"), (b"RIFF", "WebP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"))
+
+
 def load_image(path: str) -> np.ndarray:
-    """``(H, W, 3)`` uint8 RGB, as ``PIL.Image.open(path).convert("RGB")``."""
+    """``(H, W, 3)`` uint8 RGB, as ``PIL.Image.open(path).convert("RGB")``,
+    for PNG and baseline JPEG files; any other format raises ``ValueError``
+    naming it (a JPEG variant the decoder does not read raises
+    ``data/jpeg.py:UnsupportedJPEG``)."""
     with open(path, "rb") as f:
         data = f.read()
-    if data.startswith(SIGNATURE):
-        try:
-            return decode_png(data)
-        except UnsupportedPNG:
-            pass
-    import io
-
-    from PIL import Image
-
-    return np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    if data.startswith(png.SIGNATURE):
+        return png.decode_png(data)
+    if data.startswith(jpeg.SIGNATURE):
+        return jpeg.decode_jpeg(data, path)
+    kind = next((k for sig, k in _OTHER_FORMATS if data.startswith(sig)), "unknown")
+    raise ValueError(f"{path}: {kind} image format; the loader reads PNG and baseline JPEG")
 
 
 class _Prefetcher:
@@ -172,12 +179,9 @@ def pack_batch(samples: list[dict], *, canvas: int | tuple[int, int] = 800,
                 if not segs:
                     continue
                 if isinstance(segs, dict):
-                    from PIL import Image
-
                     full = segmentation_to_mask(segs, s["orig_height"], s["orig_width"])
-                    m = np.asarray(Image.fromarray(full * 255).resize(
-                        (int(round(w * mscale_x)), int(round(h * mscale_y))),
-                        Image.BILINEAR)) > 127
+                    m = resize_bilinear(full * 255, (int(round(h * mscale_y)),
+                                                     int(round(w * mscale_x)))) > 127
                     gt_masks[b, k, :m.shape[0], :m.shape[1]] = m
                 else:
                     scaled = [(np.asarray(p, np.float64).reshape(-1, 2)

@@ -5,9 +5,10 @@ This package's own copy of the geometry of ``ttdg_mgm_tpu/data/transforms.py``.
 Two differences, both on inputs where the result stays the same or the JAX
 package raises:
 
-* :func:`resize_shortest_edge` returns the image itself when the target
-  size equals its size (Pillow's ``Image.resize`` returns an equal copy);
-  otherwise it imports Pillow and resizes as the JAX package does;
+* :func:`resize_shortest_edge` resizes with ``data/resample.py``, which
+  equals the JAX package's Pillow ``Image.resize(..., BILINEAR)`` bit for
+  bit, and returns the image itself when the target size equals its size
+  (Pillow returns an equal copy);
 * RLE segmentations (dicts) pass through :func:`scale_annotations`
   unchanged, since they stay in the original image's coordinates and are
   decoded there; the JAX package's ``scale_annotations`` iterates the dict's
@@ -21,6 +22,8 @@ The strong augmentation of the mean-teacher loader is not ported.
 from __future__ import annotations
 
 import numpy as np
+
+from ttdg_mgm_torch.data.resample import resize_bilinear
 
 
 def resize_shortest_edge_size(h: int, w: int, short: int, max_size: int):
@@ -44,10 +47,7 @@ def resize_shortest_edge(img: np.ndarray, short: int, max_size: int):
     nh, nw = resize_shortest_edge_size(h, w, short, max_size)
     if (nh, nw) == (h, w):
         return img, (1.0, 1.0)
-    from PIL import Image
-
-    out = np.asarray(Image.fromarray(img).resize((nw, nh), Image.BILINEAR), dtype=img.dtype)
-    return out, (nh / h, nw / w)
+    return resize_bilinear(img, (nh, nw)), (nh / h, nw / w)
 
 
 def hflip(img, boxes, polygons):

@@ -11,7 +11,17 @@ package (``checkpoint/bridge.py``) loads by name.
 
 Batch layout as in the JAX package: images ``(B, H, W, 3)`` float RGB 0-255,
 ``image_sizes (B, 2)`` valid (h, w); features leave ``extract_features`` as
-NHWC levels.  Float32 compute only (the bf16 policy is not ported yet).
+NHWC levels.
+
+``compute_dtype="bfloat16"`` is the JAX package's bf16 compute policy, with
+its casts site by site (``ttdg_mgm_tpu/models/rcnn.py``): parameters stay
+float32; the backbone, FPN, RPN head, box head, box predictor and mask head
+compute in bfloat16 (``models/layers.py``), so the features, the pools
+(kernels A and C on bfloat16 levels) and the heads' activations are
+bfloat16; the consumers that need precision upcast their own small outputs
+(RPN logits and deltas, box scores and deltas, mask logits) and the graph
+nodes enter the matching modules as float32; the GT-mask crop stays
+float32.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from ttdg_mgm_torch.graph.mgm import MGM3Unsup
 from ttdg_mgm_torch.graph.node_sampler import PrototypeComputation
 from ttdg_mgm_torch.graph.universe import USup
 from ttdg_mgm_torch.models.fpn import FPN
+from ttdg_mgm_torch.models.layers import set_compute_dtype
 from ttdg_mgm_torch.models.resnet import STAGE_BLOCKS, ResNet
 from ttdg_mgm_torch.models.roi_heads import (BoxHead, BoxPredictor, MaskHead, compact_rows,
                                              crop_gt_masks, fast_rcnn_losses,
@@ -33,6 +44,10 @@ from ttdg_mgm_torch.models.roi_heads import (BoxHead, BoxPredictor, MaskHead, co
                                              roi_box_inference)
 from ttdg_mgm_torch.models.rpn import RPNHead, generate_proposals, level_anchors, rpn_losses
 from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_train
+
+#: compute dtypes of the JAX ``MaskRCNN.compute_dtype`` field (None: the
+#: layers' own float32)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 # d2 defaults (Base-RCNN-FPN): caffe-era pixel statistics
 PIXEL_MEAN = (103.530, 116.280, 123.675)
@@ -72,8 +87,10 @@ class MaskRCNN(nn.Module):
                  mask_conv_dim: int = 256, mask_num_conv: int = 4,
                  anchor_sizes: Sequence = ((32,), (64,), (128,), (256,), (512,))):
         super().__init__()
-        if compute_dtype != "float32":
-            raise NotImplementedError("only compute_dtype='float32' is ported")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got "
+                             f"{compute_dtype!r}")
+        self.compute_dtype = compute_dtype
         self.num_classes = num_classes
         self.univ_size = univ_size
         self.cls_loss_type = cls_loss_type
@@ -106,11 +123,20 @@ class MaskRCNN(nn.Module):
             mgm_iter=gagm_iters, lap_polish_iters=lap_polish_iters)
         self.graph_generator = PrototypeComputation(num_classes, sample_dist,
                                                     node_cap_per_level)
+        # flax dtype= on exactly these modules (JAX rcnn.py setup); the graph
+        # modules stay float32
+        for mod in (self.backbone, self.proposal_generator, self.roi_heads):
+            set_compute_dtype(mod, COMPUTE_DTYPES[compute_dtype])
 
     # -- shared feature path -------------------------------------------------
 
     def _features_nchw(self, images):
+        """The FPN levels, NCHW, in the compute dtype (JAX ``_normalize``:
+        normalised in float32, then cast)."""
         x = (images - self.pixel_mean) / self.pixel_std
+        dt = COMPUTE_DTYPES[self.compute_dtype]
+        if dt is not None:
+            x = x.to(dt)
         return self.backbone(x.permute(0, 3, 1, 2))
 
     def extract_features(self, images):
@@ -120,6 +146,9 @@ class MaskRCNN(nn.Module):
     def _proposals(self, feats_nchw, image_sizes, *, train: bool = False):
         levels = [feats_nchw[f"p{i}"] for i in range(2, 7)]
         logits, regs = self.proposal_generator.rpn_head(levels)
+        # box decode and scoring in float32 (JAX rcnn.py:221-222)
+        logits = [t.float() for t in logits]
+        regs = [t.float() for t in regs]
         anchors = level_anchors([(f.shape[2], f.shape[3]) for f in levels],
                                 sizes=self.anchor_sizes, device=image_sizes.device)
         props = generate_proposals(
@@ -144,7 +173,7 @@ class MaskRCNN(nn.Module):
         B, K = prop_boxes.shape[:2]
         pooled = self._pool(feats, prop_boxes, 7)
         x = self.roi_heads.box_head(pooled.reshape(B * K, *pooled.shape[2:]))
-        scores, deltas = self.roi_heads.box_predictor(x)
+        scores, deltas = (t.float() for t in self.roi_heads.box_predictor(x))
         return roi_box_inference(
             scores.reshape(B, K, -1), deltas.reshape(B, K, -1), prop_boxes, prop_valid,
             image_sizes, num_classes=self.num_classes, score_thresh=self.score_thresh_test,
@@ -165,7 +194,7 @@ class MaskRCNN(nn.Module):
             mask_probs = torch.zeros((B, D, 28, 28), device=boxes.device)
         else:
             pooled = self._pool(feats, boxes, 14)
-            logits = self.roi_heads.mask_head(pooled.reshape(B * D, *pooled.shape[2:]))
+            logits = self.roi_heads.mask_head(pooled.reshape(B * D, *pooled.shape[2:])).float()
             cls_idx = classes.clamp(0, self.num_classes - 1).reshape(B * D)
             sel = logits[torch.arange(B * D, device=logits.device), cls_idx]
             mask_probs = torch.sigmoid(sel).reshape(B, D, *sel.shape[1:])
@@ -216,7 +245,7 @@ class MaskRCNN(nn.Module):
             positive_fraction=self.roi_positive_fraction)
         pooled = self._pool(feats, sb, 7, pack=True)
         x = self.roi_heads.box_head(pooled.reshape(B * S, *pooled.shape[2:]))
-        scores, deltas = self.roi_heads.box_predictor(x)
+        scores, deltas = (t.float() for t in self.roi_heads.box_predictor(x))
         matched = torch.gather(gt_boxes, 1, sm[..., None].expand(B, S, 4))
         det = fast_rcnn_losses(scores.reshape(B, S, -1), deltas.reshape(B, S, -1), sb, matched,
                                sc, sfg, sv, num_classes=self.num_classes,
@@ -230,7 +259,8 @@ class MaskRCNN(nn.Module):
                 sfg, cap, (sb, 0.0), (sc, 0), (sm, 0))
             fg_mask = torch.arange(cap, device=sfg.device) < n_fg[:, None]
             pooled_m = self._pool(feats, fg_boxes, 14, pack=True)
-            mlogits = self.roi_heads.mask_head(pooled_m.reshape(B * cap, *pooled_m.shape[2:]))
+            mlogits = self.roi_heads.mask_head(
+                pooled_m.reshape(B * cap, *pooled_m.shape[2:])).float()
             mlogits = mlogits.reshape(B, cap, *mlogits.shape[1:])
             # GT masks live on a (R, R) canvas of the padded image: per-axis
             # scales (the canvas may be rectangular)

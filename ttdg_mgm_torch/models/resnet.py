@@ -5,6 +5,8 @@ the stride on the first 1x1 conv of each stage (``STRIDE_IN_1X1``), explicit
 torch padding, ``freeze_at`` stages cut from the graph.  Parameter names are
 d2's (``stem.conv1``, ``res2.0.conv1.norm``, ...), so a d2 state dict loads
 as it is.  NCHW inside; callers convert at the package's NHWC boundary.
+Under the bf16 compute policy (``layers.set_compute_dtype``) every conv and
+every FrozenBatchNorm runs in bfloat16, as in ``ttdg_mgm_tpu/models/resnet.py``.
 """
 
 from __future__ import annotations
@@ -15,13 +17,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ttdg_mgm_torch.models import layers
+
 STAGE_BLOCKS = {14: (1, 1, 1, 1), 26: (2, 2, 2, 2), 50: (3, 4, 6, 3),
                 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
 
 
-class FrozenBatchNorm2d(nn.Module):
+class FrozenBatchNorm2d(layers.ComputeDtype, nn.Module):
     """d2 ``FrozenBatchNorm2d``: ``y = x * scale + shift`` from fixed buffers,
-    ``scale = weight / sqrt(running_var + eps)``."""
+    ``scale = weight / sqrt(running_var + eps)``.  With a compute dtype, the
+    scale and shift are cast to it and applied in it (the JAX
+    ``FrozenBatchNorm(dtype=bf16)``), so the activations and their gradients
+    stay bfloat16 along the trunk."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
@@ -34,10 +41,13 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x):
         scale = self.weight * (self.running_var + self.eps).rsqrt()
         shift = self.bias - self.running_mean * scale
+        if self.compute_dtype is not None:
+            x, scale, shift = (x.to(self.compute_dtype), scale.to(self.compute_dtype),
+                               shift.to(self.compute_dtype))
         return x * scale[None, :, None, None] + shift[None, :, None, None]
 
 
-class Conv2d(nn.Conv2d):
+class Conv2d(layers.Conv2d):
     """d2 ``Conv2d``: a convolution with an optional ``norm`` child."""
 
     def __init__(self, *args, norm: nn.Module | None = None, **kwargs):

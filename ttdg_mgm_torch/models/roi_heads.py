@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ttdg_mgm_torch.models.layers import Conv2d, ConvTranspose2d, Linear
 from ttdg_mgm_torch.ops.boxes import clip_boxes, decode_boxes, encode_boxes, pairwise_iou
 from ttdg_mgm_torch.ops.nms import batched_nms_mask, stable_topk
 from ttdg_mgm_torch.ops.roi_align import mask_roi_align
@@ -32,7 +33,7 @@ class BoxHead(nn.Module):
         self.num_fc = num_fc
         dim = in_channels * pool * pool
         for i in range(num_fc):
-            self.add_module(f"fc{i + 1}", nn.Linear(dim, fc_dim))
+            self.add_module(f"fc{i + 1}", Linear(dim, fc_dim))
             dim = fc_dim
 
     def forward(self, x):  # (N, P, P, C)
@@ -47,8 +48,8 @@ class BoxPredictor(nn.Module):
 
     def __init__(self, in_dim: int, num_classes: int):
         super().__init__()
-        self.cls_score = nn.Linear(in_dim, num_classes + 1)
-        self.bbox_pred = nn.Linear(in_dim, num_classes * 4)
+        self.cls_score = Linear(in_dim, num_classes + 1)
+        self.bbox_pred = Linear(in_dim, num_classes * 4)
 
     def forward(self, x):
         return self.cls_score(x), self.bbox_pred(x)
@@ -65,10 +66,10 @@ class MaskHead(nn.Module):
         self.num_conv = num_conv
         c = in_channels
         for i in range(num_conv):
-            self.add_module(f"mask_fcn{i + 1}", nn.Conv2d(c, channels, 3, padding=1))
+            self.add_module(f"mask_fcn{i + 1}", Conv2d(c, channels, 3, padding=1))
             c = channels
-        self.deconv = nn.ConvTranspose2d(c, channels, 2, stride=2)
-        self.predictor = nn.Conv2d(channels, num_classes, 1)
+        self.deconv = ConvTranspose2d(c, channels, 2, stride=2)
+        self.predictor = Conv2d(channels, num_classes, 1)
 
     def forward(self, x):
         x = x.permute(0, 3, 1, 2)

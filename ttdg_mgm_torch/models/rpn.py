@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ttdg_mgm_torch.models.layers import Conv2d
 from ttdg_mgm_torch.ops.boxes import (cell_anchors, clip_boxes, decode_boxes, encode_boxes,
                                       grid_anchors, pairwise_iou)
 from ttdg_mgm_torch.ops.nms import nms_mask, stable_topk
@@ -34,9 +35,9 @@ class RPNHead(nn.Module):
 
     def __init__(self, channels: int = 256, num_anchors: int = 3):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
-        self.objectness_logits = nn.Conv2d(channels, num_anchors, 1)
-        self.anchor_deltas = nn.Conv2d(channels, num_anchors * 4, 1)
+        self.conv = Conv2d(channels, channels, 3, padding=1)
+        self.objectness_logits = Conv2d(channels, num_anchors, 1)
+        self.anchor_deltas = Conv2d(channels, num_anchors * 4, 1)
 
     def forward(self, feats):
         logits, regs = [], []

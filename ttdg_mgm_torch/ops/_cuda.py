@@ -99,8 +99,9 @@ def lib() -> ctypes.CDLL:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # forward and backward pools: 4 level pointers, level count and
         # shapes, C, R, K, the ROIs, 4 strides, min_level, P, the sampling
-        # ratio, the output or cotangent, stream
-        pool_args = [P] * 4 + [I] * 9 + [I, I, I] + [P] + [F] * 4 + [I, I, I, P, P]
+        # ratio, the element type (0 float32, 1 bfloat16), the output,
+        # stream
+        pool_args = [P] * 4 + [I] * 9 + [I, I, I] + [P] + [F] * 4 + [I, I, I, I, P, P]
         cdll.ttdg_roi_pool.argtypes = pool_args
         cdll.ttdg_roi_pool.restype = I
         cdll.ttdg_roi_geometry.argtypes = [I] + [F] * 4 + [I] * 4 + [P] * 7
@@ -140,12 +141,18 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require_cuda_f32(name: str, t: torch.Tensor, device: torch.device) -> None:
-    """Validate a tensor handed to a kernel: on ``device``, float32,
-    contiguous."""
+def require_cuda(name: str, t: torch.Tensor, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Validate a tensor handed to a kernel: on ``device``, of ``dtype``,
+    contiguous.  A wrong dtype raises: nothing is cast silently."""
     if t.device != device:
         raise ValueError(f"{name} must lie on {device}, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_cuda_f32(name: str, t: torch.Tensor, device: torch.device) -> None:
+    """:func:`require_cuda` for float32."""
+    require_cuda(name, t, device, torch.float32)

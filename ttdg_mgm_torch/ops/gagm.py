@@ -90,7 +90,12 @@ def ga_gm_fused(A, W, U0, ms, n_univ: int, *, quad_weight: float = 1.0,
     ``return_clocks`` (CUDA only) also the kernel's clock table as a list
     (``csrc/gagm.cu:ttdg_gagm`` names its slots).  Extras follow the result
     in that order.  The overflow guard of the plain version is left out
-    (identity for ``|V| < 1e30``)."""
+    (identity for ``|V| < 1e30``).  A, W and U0 must be float32 on either
+    path (the bf16 compute policy builds them in float32, as the JAX package
+    does): another dtype raises."""
+    for name, t in (("A", A), ("W", W), ("U0", U0)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"ga_gm_fused: {name} must be float32, got {t.dtype}")
     if A.device.type == "cpu":
         if return_power_step or return_clocks:
             raise ValueError("the power step and the clocks are the CUDA kernel's")

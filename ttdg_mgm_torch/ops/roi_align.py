@@ -197,6 +197,109 @@ def multilevel_roi_align(feats, rois, *, strides=(4, 8, 16, 32),
     return out.reshape(B, K, P, P, C)
 
 
+def _axis_taps(pos, w, size, P: int, m: int):
+    """One axis of the separable pool as taps: each bin's distinct pixels
+    with their summed weights, as the CUDA kernels build them
+    (``csrc/roi_pool.cu``, ``csrc/roi_pool_backward.cu``).
+
+    pos, w ``(R, P*m)`` samples (:func:`roi_geometry`), size ``(R, 1)`` the
+    axis's pixel count.  Each sample puts ``w * (1 - frac)`` on its lower
+    clamped corner and ``w * frac`` on its upper one (zero when out of
+    range); a pixel's weight in a bin is the sum of its terms in sample
+    order, each product and sum rounded to float32, then the sum rounded to
+    bfloat16 (the TPU kernel's ``ry``/``cx`` cast to the feature dtype).
+    Returns ``(pix (R, P, 2m) int64, wt (R, P, 2m) float32)``: the corners
+    in sample order, the last entry of each pixel carrying its bf16-valued
+    sum and the others 0."""
+    R = pos.shape[0]
+    lim = size.to(torch.float32)
+    valid = (pos > -1.0) & (pos < lim)
+    c = torch.minimum(pos.clamp(min=0.0), lim - 1)
+    c0 = torch.floor(c)
+    c1 = torch.minimum(c0 + 1, lim - 1)
+    frac = c - c0
+    wv = torch.where(valid, w, torch.zeros((), device=pos.device))
+    pix = torch.stack([c0, c1], dim=-1).reshape(R, P, 2 * m).long()
+    terms = torch.stack([wv * (1.0 - frac), wv * frac], dim=-1).reshape(R, P, 2 * m)
+    zero = torch.zeros_like(terms[..., 0])
+    sums = torch.zeros_like(terms)
+    for k in range(2 * m):
+        # the pixel's terms in sample order, the sum kept on its last entry
+        acc = zero
+        last = torch.ones_like(valid[:, :P])
+        for j in range(2 * m):
+            same = pix[..., j] == pix[..., k]
+            acc = acc + torch.where(same, terms[..., j], zero)
+            if j > k:
+                last = last & ~same
+        sums[..., k] = torch.where(last, acc, zero)
+    return pix, sums.to(torch.bfloat16).to(torch.float32)
+
+
+def _tap_pairs(rois, level_shapes, strides, P: int, sampling_ratio: int, min_level: int,
+               B: int, K: int):
+    """The nonzero terms of the bf16 pool, ``out[r, p, q] = sum_ij wy[r, p,
+    i] * wx[r, q, j] * f[l_r][y_i, x_j]`` over bf16-rounded tap weights:
+    ``(row into the flat pyramid, output row r*P*P + p*P + q, weight)``,
+    each ``(N,)``, and the level row counts."""
+    levels, ys, wy, xs, wx, m = roi_geometry(
+        rois.reshape(B * K, 4), level_shapes, strides=strides, output_size=P,
+        sampling_ratio=sampling_ratio, min_level=min_level)
+    off, H, W, sizes = _pyramid_layout(level_shapes, levels, B, K, rois.device)
+    R = B * K
+    py, ty = _axis_taps(ys, wy, H.reshape(R, 1), P, m)
+    px, tx = _axis_taps(xs, wx, W.reshape(R, 1), P, m)
+    T = 2 * m
+    wgt = ty[:, :, None, :, None] * tx[:, None, :, None, :]  # (R, P, P, T, T), exact
+    live = torch.nonzero(wgt.reshape(-1) != 0).squeeze(1)
+    r = live // (P * P * T * T)
+    p = (live // (P * T * T)) % P
+    q = (live // (T * T)) % P
+    i = (live // T) % T
+    j = live % T
+    rows = off.reshape(R)[r] + py[r, p, i] * W.reshape(R)[r] + px[r, q, j]
+    return rows, (r * P + p) * P + q, wgt.reshape(-1)[live], sizes
+
+
+def multilevel_roi_align_bf16(feats, rois, *, strides=(4, 8, 16, 32), output_size: int = 7,
+                              sampling_ratio: int = 0, min_level: int = 2):
+    """The pool on bfloat16 levels, with the TPU kernel's bf16 semantics
+    (``ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:_pool_kernel``): each
+    bin's per-axis interpolation weights summed in float32 and rounded to
+    bfloat16, the contraction accumulated in float32, the output rounded to
+    bfloat16 once.  The plain version of the bf16 variant of
+    ``csrc/roi_pool.cu``.  feats ``[(B, H_l, W_l, C)]`` bfloat16, rois
+    ``(B, K, 4)`` float32 -> ``(B, K, P, P, C)`` bfloat16."""
+    B, K = rois.shape[:2]
+    P = output_size
+    C = feats[0].shape[-1]
+    shapes = [(f.shape[1], f.shape[2]) for f in feats]
+    rows, outs, wgt, _ = _tap_pairs(rois, shapes, strides, P, sampling_ratio, min_level, B, K)
+    flat = torch.cat([f.reshape(-1, C) for f in feats], dim=0)
+    out = torch.zeros((B * K * P * P, C), dtype=torch.float32, device=rois.device)
+    out.index_add_(0, outs, flat[rows].to(torch.float32) * wgt[:, None])
+    return out.to(torch.bfloat16).reshape(B, K, P, P, C)
+
+
+def multilevel_roi_align_backward_bf16(grad, level_shapes, rois, *, strides=(4, 8, 16, 32),
+                                       sampling_ratio: int = 0, min_level: int = 2):
+    """Feature gradient of :func:`multilevel_roi_align_bf16`: grad ``(B, K, P,
+    P, C)`` bfloat16 -> ``[(B, H_l, W_l, C)]`` bfloat16, every element the
+    float32 sum of its terms (the bf16-rounded tap weights times the
+    cotangent) rounded to bfloat16 once.  The plain version of the bf16
+    variant of ``csrc/roi_pool_backward.cu``."""
+    B, K, P = rois.shape[0], rois.shape[1], grad.shape[2]
+    C = grad.shape[-1]
+    shapes = [tuple(s) for s in level_shapes]
+    rows, outs, wgt, sizes = _tap_pairs(rois, shapes, strides, P, sampling_ratio, min_level,
+                                        B, K)
+    g = grad.reshape(-1, C)
+    flat = torch.zeros((sum(sizes), C), dtype=torch.float32, device=grad.device)
+    flat.index_add_(0, rows, g[outs].to(torch.float32) * wgt[:, None])
+    parts = torch.split(flat.to(torch.bfloat16), sizes, dim=0)
+    return [t.reshape(B, h, w, C) for t, (h, w) in zip(parts, shapes)]
+
+
 def multilevel_roi_align_backward(grad, level_shapes, rois, *, strides=(4, 8, 16, 32),
                                   sampling_ratio: int = 0, min_level: int = 2):
     """Feature gradient of :func:`multilevel_roi_align`: the plain version of

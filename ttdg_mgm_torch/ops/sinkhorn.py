@@ -98,7 +98,11 @@ def sinkhorn_batched(s, nrows=None, ncols=None, *, tau=1.0, max_iter: int = 10,
     ``tau`` is a number or a one-element tensor on ``s``'s device.  The
     kernel keeps a matrix of up to 64 x 64 in registers and a larger one in
     shared memory; ``_generic`` sends a small one down the second path too
-    (for checks of that path)."""
+    (for checks of that path).  ``s`` must be float32 on either path (HiPPI
+    builds its blocks in float32 under the bf16 policy too): another dtype
+    raises."""
+    if s.dtype != torch.float32:
+        raise ValueError(f"sinkhorn_batched: s must be float32, got {s.dtype}")
     if s.device.type == "cpu":
         return sinkhorn(s, nrows, ncols, tau=tau, max_iter=max_iter, dummy_row=dummy_row)
     dev = s.device

@@ -6,13 +6,15 @@ This package's own copy of ``ttdg_mgm_tpu/utils/rle.py``:
   run lengths (the first run counts zeros);
 * **uncompressed RLE**: ``{"counts": [...], "size": [h, w]}``;
 * **polygons**: a list of flat ``[x0, y0, x1, y1, ...]`` rings, rasterized
-  with OpenCV's ``fillPoly``, imported where a polygon is rasterized (RLE
-  needs no OpenCV).
+  as the JAX package's OpenCV ``fillPoly`` does, by this package's NumPy
+  copy of it (``utils/polyfill.py``; no OpenCV).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ttdg_mgm_torch.utils.polyfill import fill_poly
 
 
 def rle_decode(rle: dict) -> np.ndarray:
@@ -85,9 +87,11 @@ def _encode_counts_string(counts: list) -> str:
 
 
 def polygons_to_mask(polygons, height: int, width: int) -> np.ndarray:
-    """Rasterize COCO polygon ring list -> (h, w) uint8 mask (union)."""
-    import cv2
-
+    """Rasterize a COCO polygon ring list -> ``(h, w)`` uint8 mask, as the
+    JAX package's ``cv2.fillPoly`` on the rings' rounded int32 vertices
+    (``utils/polyfill.py``, bit for bit): the outlines are drawn and the
+    rings filled together by the even-odd rule, so where two rings overlap
+    the overlap is a hole, not a union."""
     mask = np.zeros((height, width), np.uint8)
     pts = [
         np.round(np.asarray(p, np.float64).reshape(-1, 2)).astype(np.int32)
@@ -95,7 +99,7 @@ def polygons_to_mask(polygons, height: int, width: int) -> np.ndarray:
         if len(p) >= 6
     ]
     if pts:
-        cv2.fillPoly(mask, pts, 1)
+        fill_poly(mask, pts, 1)
     return mask
 
 
