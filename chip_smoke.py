@@ -99,7 +99,27 @@ Phases, each of which exits non-zero when it fails:
    set, ``ttdg_mgm_torch.configure_torch``); the same runs under cuDNN's
    default algorithms report what differs first; then one run of 62 steps
    with the two settings alternated step by step gives the step-time cost
-   of determinism (the median of 30 steps each, with quartiles).
+   of determinism (the median of 30 steps each, with quartiles);
+10. source training through the command line, as a user trains the
+   detector: ``train_net_torch.main(["--config",
+   "configs/seg_res50fpn_source.yaml", ...])`` with the shipped config as
+   it stands (R50-FPN, batch 8, bf16 by ``SOLVER.AMP.ENABLED``, the square
+   800 canvas) and random weights, on synthetic splits of its
+   ``DATASETS.TRAIN`` with polygon ground truth (the 3 committed JPEGs, 4
+   PNG frames of 384 x 288, 3 of 1225 x 966) and a ``BKAI_test`` split for
+   the validation loss: 4 steps (checkpoints and validation every 2), the
+   same command to 8 steps resumed at step 4 bit for bit, the same again
+   from a copy holding only the step-4 checkpoint whose final checkpoint
+   equals the second call's bit for bit, and ``--eval-only`` with
+   ``configs/test_segment.yaml`` on that final file (every tensor loaded,
+   finite Dice, E and S); each call fails unless every loss is finite, the
+   checkpoints, ``metrics.json`` lines and validation losses are where
+   they belong, kernels A and C (bf16) and D launched on every step, and
+   neither Pillow, OpenCV nor PyYAML was imported; it logs per step the
+   loader wait and the synchronized step time, s/iter, the validation
+   loss's seconds, the checkpoint's size and its save and load seconds,
+   the peak memory and the launches per step, and the train loader's own
+   host time per batch on one thread, against the step time.
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off), and cuDNN runs its
@@ -109,8 +129,8 @@ SXM's published peaks: 3.35 TB/s of device memory, 67 TFLOP/s float32
 outside the tensor cores, 16 transcendentals per clock per SM (4.18e12/s at
 1.98 GHz).  The last lines are the card's name and power
 limit (nvidia-smi), one JSON object with each kernel's numbers (its
-launches on the TTA, source and command-line paths under
-``launches_by_path``), and the device line ``{"ok": true, "device":
+launches on the TTA, source, eval-only command-line and train command-line
+paths under ``launches_by_path``), and the device line ``{"ok": true, "device":
 {...}}``.
 
 ``--profile`` adds, after each end-to-end phase, more timed steps and one
@@ -1931,6 +1951,432 @@ def phase_cli_bf16(torch, dev, card: str = "", hw=DRISHTI_HW, opts=(), model_kw=
                                                               ("Drishti_GS_test", "BKAI_test")})
 
 
+# -- phase 10: source training through the command line --------------------------
+
+#: the synthetic splits of configs/seg_res50fpn_source.yaml's DATASETS.TRAIN
+#: other than BKAI (the committed JPEGs): (split, images, (h, w))
+POLYP_PNG_SPLITS = (("CVC_ClinicDB_train", 4, (288, 384)),
+                    ("ETIS_LaribPolypDB_train", 3, (966, 1225)))
+#: the kernels each train step must launch under the bf16 policy
+TRAIN_COUNTERS = ("roi_pool_bf16", "roi_pool_backward_bf16", "sinkhorn")
+#: batches the train loader's host time is measured on
+LOADER_BATCHES = 6
+
+
+def write_polyp_split(root: str, split: str, n: int, hw, seed: int = 0) -> None:
+    """``n`` colonoscopy-like frames of ``hw`` in the reference's layout of
+    ``split`` (its entry of ``ttdg_mgm_torch/data/builtin.py:SPLITS``), PNG:
+    a lit pink mucosa with darker folds and one polyp per frame, a raised
+    red ellipse with a highlight; its 64-vertex polygon ring is the ground
+    truth (class 1, "polyp"), the datasets' own annotation form."""
+    import numpy as np
+
+    from ttdg_mgm_torch.data.builtin import SPLITS
+
+    json_rel, img_rel = SPLITS[split]
+    img_dir = os.path.join(root, img_rel)
+    os.makedirs(img_dir, exist_ok=True)
+    h, w = hw
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    light = 1.0 - 0.55 * (((yy - h / 2) / h) ** 2 + ((xx - w / 2) / w) ** 2)
+    images, anns = [], []
+    t = np.linspace(0.0, 2 * np.pi, 64, endpoint=False)
+    for i in range(n):
+        folds = 0.85 + 0.15 * np.sin(xx / (0.05 * w) + rng.uniform(0, 6)) * np.cos(yy / (0.07 * h))
+        img = np.stack([225 * light * folds, 120 * light * folds, 110 * light * folds], -1)
+        img += rng.normal(0, 5, (h, w, 3)).astype(np.float32)
+        cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
+        ry, rx = rng.uniform(0.1, 0.2) * h, rng.uniform(0.1, 0.2) * w
+        polyp = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1
+        img[polyp] = img[polyp] * [0.9, 0.55, 0.5] + [20, 0, 0]
+        spot = ((yy - cy + 0.4 * ry) / (0.15 * ry)) ** 2 + ((xx - cx) / (0.2 * rx)) ** 2 <= 1
+        img[spot] = 245
+        write_png(os.path.join(img_dir, f"p{i}.png"), np.clip(img, 0, 255).astype(np.uint8))
+        ring = np.stack([cx + rx * np.cos(t), cy + ry * np.sin(t)], 1)
+        x0, y0 = ring.min(0)
+        x1, y1 = ring.max(0)
+        images.append({"id": i, "file_name": f"p{i}.png", "height": h, "width": w})
+        anns.append({"id": i + 1, "image_id": i, "category_id": 1, "iscrowd": 0,
+                     "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+                     "area": float(polyp.sum()),
+                     "segmentation": [[round(float(v), 2) for v in ring.reshape(-1)]]})
+    with open(os.path.join(root, json_rel), "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "polyp"}]}, f)
+
+
+def copy_jpeg_split(root: str, split: str) -> None:
+    """The committed 1280 x 959 baseline JPEGs with their polygon ground
+    truth (``tests/fixtures/torch_jpeg``) in the reference's layout of
+    ``split``."""
+    import shutil
+
+    from ttdg_mgm_torch.data.builtin import SPLITS
+
+    json_rel, img_rel = SPLITS[split]
+    os.makedirs(os.path.join(root, img_rel), exist_ok=True)
+    for f in sorted(os.listdir(JPEG_FIXTURES)):
+        if f.endswith(".jpg"):
+            shutil.copy(os.path.join(JPEG_FIXTURES, f), os.path.join(root, img_rel))
+    shutil.copy(os.path.join(JPEG_FIXTURES, "annotations.json"), os.path.join(root, json_rel))
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def capture_train(torch, dev):
+    """Wraps, in the modules the trainer calls them from: the train loader
+    (the seconds each ``next`` blocks), the source step (its synchronized
+    time, its losses and the kernel launches it adds), the resume (a host
+    copy of the state just restored), the validation loss hook and the
+    checkpointer's saves and loads (their seconds); and listens to the log
+    line of ``init_params``.  Returns the record and the function that undoes
+    it."""
+    import logging
+
+    import ttdg_mgm_torch.engine.trainer as trainer
+    from ttdg_mgm_torch.checkpoint.save import Checkpointer
+    from ttdg_mgm_torch.engine.hooks import LossEvalHook
+
+    record = {"wait_s": [], "step_ms": [], "losses": [], "step_launches": [], "resumed": None,
+              "val_s": [], "save_s": [], "save_bytes": [], "load_s": [], "weights": None,
+              "train_s": []}
+    real = dict(loader=trainer.build_train_loader, step=trainer.make_source_step,
+                resume=trainer.BaselineTrainer.resume_or_load,
+                train=trainer.BaselineTrainer.train, val=LossEvalHook.__call__,
+                save=Checkpointer.save, restore=Checkpointer.restore)
+
+    class TimedLoader:
+        def __init__(self, loader):
+            self.loader = loader
+
+        def __next__(self):
+            t0 = time.perf_counter()
+            batch = next(self.loader)
+            record["wait_s"].append(time.perf_counter() - t0)
+            return batch
+
+        def close(self):
+            self.loader.close()
+
+    def make_source_step(model, optimizer):
+        step = real["step"](model, optimizer)
+
+        def timed(batch, generator=None, **kw):
+            before = read_counters()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            metrics = step(batch, generator, **kw)
+            _sync(torch, dev)
+            record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            after = read_counters()
+            record["step_launches"].append({k: after[k] - before[k] for k in after
+                                            if after[k] > before[k]})
+            record["losses"].append({k: float(v) for k, v in metrics.items()})
+            return metrics
+
+        return timed
+
+    def resume_or_load(self, checkpointer):
+        resumed = real["resume"](self, checkpointer)
+        if resumed:
+            sd = self.optimizer.sgd.state_dict()
+            record["resumed"] = dict(
+                model={k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()},
+                momentum={i: s["momentum_buffer"].detach().cpu().clone()
+                          for i, s in sd["state"].items()},
+                iteration=self.optimizer.count)
+        return resumed
+
+    def train(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real["train"](self, *a, **k)
+        finally:
+            _sync(torch, dev)
+            record["train_s"].append(time.perf_counter() - t0)
+
+    def val(self, it, metrics):
+        t0 = time.perf_counter()
+        n = len(self.history)
+        out = real["val"](self, it, metrics)
+        if len(self.history) > n:
+            record["val_s"].append(time.perf_counter() - t0)
+        return out
+
+    def save(self, step, state):
+        t0 = time.perf_counter()
+        path = real["save"](self, step, state)
+        record["save_s"].append(time.perf_counter() - t0)
+        record["save_bytes"].append(os.path.getsize(path))
+        return path
+
+    def restore(self, step=None):
+        t0 = time.perf_counter()
+        out = real["restore"](self, step)
+        if out is not None:
+            record["load_s"].append(time.perf_counter() - t0)
+        return out
+
+    class Listen(logging.Handler):
+        def emit(self, rec):
+            if rec.msg.startswith("loaded %d tensors"):
+                record["weights"] = rec.args
+
+    lg = logging.getLogger("ttdg_mgm_torch")
+    handler, level = Listen(), lg.level
+    lg.addHandler(handler)
+    lg.setLevel(logging.INFO)
+    def build_train_loader(*a, **k):
+        record["loader_call"] = (a, k)
+        return TimedLoader(real["loader"](*a, **k))
+
+    trainer.build_train_loader = build_train_loader
+    trainer.make_source_step = make_source_step
+    trainer.BaselineTrainer.resume_or_load = resume_or_load
+    trainer.BaselineTrainer.train = train
+    LossEvalHook.__call__ = val
+    Checkpointer.save, Checkpointer.restore = save, restore
+
+    def undo():
+        trainer.build_train_loader, trainer.make_source_step = real["loader"], real["step"]
+        trainer.BaselineTrainer.resume_or_load = real["resume"]
+        trainer.BaselineTrainer.train = real["train"]
+        LossEvalHook.__call__ = real["val"]
+        Checkpointer.save, Checkpointer.restore = real["save"], real["restore"]
+        lg.removeHandler(handler)
+        lg.setLevel(level)
+
+    return record, undo
+
+
+def _checkpoint_differences(torch, a: dict, b: dict) -> list:
+    """Names whose tensors differ (or are missing) between two checkpoints
+    of d2's layout: the weights, the momentum buffers and the step."""
+    out = [k for k in a["model"].keys() | b["model"].keys()
+           if k not in a["model"] or k not in b["model"]
+           or not torch.equal(a["model"][k], b["model"][k])]
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    out += [f"momentum {i}" for i in sa.keys() | sb.keys()
+            if i not in sa or i not in sb
+            or not torch.equal(sa[i]["momentum_buffer"], sb[i]["momentum_buffer"])]
+    return out + (["iteration"] if a["iteration"] != b["iteration"] else [])
+
+
+def _log_train_call(record, what: str, card: str, ck_mib: float) -> None:
+    n = len(record["step_ms"])
+    steady = record["step_ms"][1:] or record["step_ms"]
+    log(f"train cli {what} ({card}): loader wait s {[round(x, 4) for x in record['wait_s']]}, "
+        f"step ms {[round(x, 1) for x in record['step_ms']]}; "
+        f"{record['train_s'][0] / n:.3f} s/iter over {n} steps (median step "
+        f"{statistics.median(steady):.1f} ms, median wait {statistics.median(record['wait_s']):.3f}"
+        f" s); validation loss s {[round(x, 3) for x in record['val_s']]}; checkpoint "
+        f"{ck_mib:.1f} MiB, save s {[round(x, 3) for x in record['save_s']]}, load s "
+        f"{[round(x, 3) for x in record['load_s']]}; main() {record['main_s']:.1f} s; peak memory "
+        f"{record['peak_gib']:.2f} GiB; launches per step {record['step_launches']}")
+
+
+def _train_call(torch, dev, argv, what: str):
+    """``train_net_torch.main(argv)`` under :func:`capture_train`, with the
+    kernel counters set to 0 just before and read just after, and the peak
+    device memory over the call."""
+    import train_net_torch
+
+    record, undo = capture_train(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    try:
+        t0 = time.perf_counter()
+        result = train_net_torch.main(argv)
+        record["main_s"] = time.perf_counter() - t0
+    finally:
+        undo()
+    record["launches"] = read_counters()
+    record["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
+    record["result"] = result
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2", "yaml"))
+    check(not foreign, f"train cli {what}: imported {foreign[:5]}")
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return record
+
+
+def _check_train(record, what: str, steps: int, ckdir: str, want_ckpts, val_iters, counters):
+    """The gates every training call passes: finite losses, the checkpoints
+    at the expected steps (at most 5), ``metrics.json`` lines, a finite
+    validation loss at each period, each kernel of the path launched on
+    every step."""
+    check(len(record["losses"]) == steps, f"train cli {what}: {len(record['losses'])} steps, "
+          f"expected {steps}")
+    for i, m in enumerate(record["losses"]):
+        bad = {k: v for k, v in m.items() if not math.isfinite(v)}
+        check(not bad, f"train cli {what} step {i}: non-finite losses {bad}")
+        check(m["loss_matching"] > 0.0, f"train cli {what} step {i}: loss_matching "
+              f"{m['loss_matching']}")
+    names = sorted(f for f in os.listdir(ckdir) if f.endswith(".pth"))
+    check(names == [f"model_{s:07d}.pth" for s in want_ckpts] and len(names) <= 5,
+          f"train cli {what}: checkpoints {names}, expected steps {list(want_ckpts)}")
+    val = record["result"]["validation_loss"]
+    check([it for it, _ in val] == list(val_iters) and all(math.isfinite(v) for _, v in val),
+          f"train cli {what}: validation loss {val}, expected at {list(val_iters)}")
+    for i, launches in enumerate(record["step_launches"]):
+        missing = [k for k in counters if launches.get(k, 0) < 1]
+        check(not missing, f"train cli {what} step {i}: kernels {missing} not launched "
+              f"({launches})")
+
+
+def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
+                    counters=TRAIN_COUNTERS):
+    """Source training as a user runs it: ``train_net_torch.main(["--config",
+    "configs/seg_res50fpn_source.yaml", ...])`` at full width with the
+    shipped config (R50-FPN, batch 8, the bf16 policy of
+    ``SOLVER.AMP.ENABLED``, ``BASE_LR`` 0.0025 with its warm-up,
+    ``MIN_SIZE_TRAIN`` choice, the square 800 canvas, 32 GT slots), random
+    weights (``MODEL.WEIGHTS ""``), on synthetic splits of its
+    ``DATASETS.TRAIN`` in the reference's layout with polygon ground truth:
+    ``BKAI_train`` the 3 committed 1280 x 959 JPEGs, ``CVC_ClinicDB_train``
+    4 PNG frames of 384 x 288, ``ETIS_LaribPolypDB_train`` 3 PNG frames of
+    1225 x 966 (10 records), and ``BKAI_test`` the JPEGs again for the
+    validation loss.  Call 1 trains 4 steps (checkpoints every 2, the
+    validation loss every 2); call 2 the same command to 8 steps, resumed
+    at step 4 bit for bit; call 3 call 2 again from a directory that holds
+    only the step-4 checkpoint, its final checkpoint bit for bit call 2's
+    (the loader, its prefetch thread and the generator restart
+    deterministically); call 4 ``--eval-only --config
+    configs/test_segment.yaml`` on call 2's final file (every tensor loaded,
+    finite Dice, E and S on ``BKAI_test``).  Logs per step the loader wait
+    and the synchronized step time, s/iter, the validation loss's seconds,
+    the checkpoints' size and save and load seconds, the peak memory and
+    the kernels' launches per step; then the train loader's host time per
+    batch on one thread (the waits hide behind the first step's set-up and
+    the validation loss) against the step time."""
+    import shutil
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "data")
+        copy_jpeg_split(data, "BKAI_train")
+        copy_jpeg_split(data, "BKAI_test")
+        for i, (split, n, hw) in enumerate(POLYP_PNG_SPLITS):
+            write_polyp_split(data, split, n, hw, seed=i)
+        cfg = os.path.join(HERE, "configs", "seg_res50fpn_source.yaml")
+        out = os.path.join(tmp, "out")
+
+        def argv(out_dir, max_iter):
+            return ["--device", str(dev), "--config", cfg, "--datasets-root", data,
+                    "MODEL.WEIGHTS", "", "OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(max_iter),
+                    "SOLVER.CHECKPOINT_PERIOD", "2", "TEST.EVAL_PERIOD", "2", *opts]
+
+        log(f"train cli: 10 training records (3 JPEG 1280x959, 4 PNG 384x288, 3 PNG 1225x966) "
+            f"and BKAI_test written in {time.perf_counter() - t0:.1f} s; "
+            f"train_net_torch.main({' '.join(argv(out, 4)[2:4])} ...)")
+        ckdir = os.path.join(out, "checkpoints")
+        calls = {}
+        calls[1] = _train_call(torch, dev, argv(out, 4), "call 1")
+        ck_mib = calls[1]["save_bytes"][0] / 2 ** 20
+        _log_train_call(calls[1], "call 1", card, ck_mib)
+        _check_train(calls[1], "call 1", 4, ckdir, (2, 4), (2, 4), counters)
+        check(calls[1]["resumed"] is None, "train cli call 1 resumed from a checkpoint")
+        lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json")).read().splitlines()]
+        check([x["iteration"] for x in lines] == [3] and "total_loss" in lines[0],
+              f"train cli call 1: metrics.json lines {lines}")
+        out3 = os.path.join(tmp, "out3")
+        os.makedirs(os.path.join(out3, "checkpoints"))
+        shutil.copy(os.path.join(ckdir, "model_0000004.pth"), os.path.join(out3, "checkpoints"))
+
+        calls[2] = _train_call(torch, dev, argv(out, 8), "call 2")
+        _log_train_call(calls[2], "call 2", card, ck_mib)
+        _check_train(calls[2], "call 2", 4, ckdir, (2, 4, 6, 8), (6, 8), counters)
+        step4 = torch.load(os.path.join(ckdir, "model_0000004.pth"), map_location="cpu",
+                           weights_only=False)
+        res = calls[2]["resumed"]
+        check(res is not None, "train cli call 2 did not resume")
+        diff = _checkpoint_differences(torch, {"model": res["model"], "iteration":
+                                               res["iteration"], "optimizer": {"state": {
+                                                   i: {"momentum_buffer": v} for i, v in
+                                                   res["momentum"].items()}}}, step4)
+        check(not diff, f"train cli call 2: the resumed state differs from the step-4 file in "
+              f"{diff[:6]}")
+        lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json")).read().splitlines()]
+        check([x["iteration"] for x in lines] == [3, 7], f"train cli call 2: metrics.json {lines}")
+
+        calls[3] = _train_call(torch, dev, argv(out3, 8), "call 3")
+        _log_train_call(calls[3], "call 3", card, ck_mib)
+        _check_train(calls[3], "call 3", 4, os.path.join(out3, "checkpoints"), (4, 6, 8), (6, 8),
+                     counters)
+        final2 = torch.load(os.path.join(ckdir, "model_0000008.pth"), map_location="cpu",
+                            weights_only=False)
+        final3 = torch.load(os.path.join(out3, "checkpoints", "model_0000008.pth"),
+                            map_location="cpu", weights_only=False)
+        diff = _checkpoint_differences(torch, final2, final3)
+        check(not diff, f"train cli call 3: its final checkpoint differs from call 2's in "
+              f"{diff[:6]}")
+        check([m["total_loss"] for m in calls[3]["losses"]]
+              == [m["total_loss"] for m in calls[2]["losses"]],
+              "train cli call 3: losses differ from call 2's")
+
+        # the loader's own host time per batch, with no step or hook to hide
+        # it: the train call's loader (same records, geometry and seed) on
+        # the calling thread
+        from ttdg_mgm_torch.data.loader import build_train_loader
+
+        a, k = calls[1]["loader_call"]
+        loader = build_train_loader(*a, **{**k, "prefetch": 0})
+        host_s = []
+        for _ in range(LOADER_BATCHES):
+            t1 = time.perf_counter()
+            next(loader)
+            host_s.append(time.perf_counter() - t1)
+
+        weights = os.path.join(ckdir, "model_0000008.pth")
+        # after 8 steps from random weights every polyp score is below the
+        # config's SCORE_THRESH_TEST 0.05: no detection, and Dice, E and S of
+        # nothing are NaN; a floor of 0 keeps the top detections scored
+        ev = ["--eval-only", "--device", str(dev), "--config",
+              os.path.join(HERE, "configs", "test_segment.yaml"), "--datasets-root", data,
+              "MODEL.WEIGHTS", weights, "MODEL.ROI_HEADS.NUM_CLASSES", "1",
+              "DATASETS.TEST", '["BKAI_test"]', "TEST.DICE_THRES", "0.0",
+              "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
+              "OUTPUT_DIR", os.path.join(tmp, "eval"), *eval_opts]
+        calls[4] = _train_call(torch, dev, ev, "call 4")
+        log(f"train cli call 4 ({card}): eval-only on the trained file {calls[4]['main_s']:.1f} "
+            f"s, init_params {calls[4]['weights']}, results "
+            f"{json.dumps(calls[4]['result'].get('BKAI_test'))}, launches "
+            f"{ {k: v for k, v in calls[4]['launches'].items() if v} }")
+        n_loaded, _, n_shape, n_absent = calls[4]["weights"] or (0, "", -1, -1)
+        check(n_loaded == len(final2["model"]) and n_shape == 0 and n_absent == 0,
+              f"train cli call 4: {n_loaded} of {len(final2['model'])} tensors loaded, "
+              f"{n_shape} of another shape, {n_absent} absent")
+        metrics = calls[4]["result"]["BKAI_test"]
+        check(len(metrics) == 3 and all(math.isfinite(v) for v in metrics.values()),
+              f"train cli call 4: Dice, E and S not all finite: {metrics}")
+
+    summary = {}
+    for c in (1, 2, 3):
+        r = calls[c]
+        summary[f"call{c}"] = dict(
+            wait_s=r["wait_s"], step_ms=r["step_ms"],
+            s_per_iter=r["train_s"][0] / len(r["step_ms"]), train_s=r["train_s"][0], main_s=r["main_s"], val_s=r["val_s"], save_s=r["save_s"],
+            load_s=r["load_s"], peak_gib=r["peak_gib"],
+            total_loss=[m["total_loss"] for m in r["losses"]],
+            launches_per_step=r["step_launches"], launches=r["launches"])
+    steps = [s for c in (1, 2, 3) for s in calls[c]["step_ms"][1:]]
+    ratio = statistics.median(host_s) * 1e3 / statistics.median(steps)
+    log(f"train cli ({card}): the loader's host time per batch of 8 on one thread "
+        f"{[round(x, 3) for x in host_s]} s, median {statistics.median(host_s):.3f} s, against "
+        f"the median step after the first {statistics.median(steps):.1f} ms: loader / step "
+        f"{ratio:.1f}")
+    return dict(summary=summary, launches=calls[1]["launches"], checkpoint_mib=ck_mib,
+                loader_host_s=host_s, loader_over_step=ratio, eval_metrics=metrics,
+                eval_main_s=calls[4]["main_s"])
+
+
 # -- main ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1984,12 +2430,13 @@ def main() -> int:
     det = phase_determinism(torch, dev)
     cli = phase_cli(torch, dev, card)
     cli16 = phase_cli_bf16(torch, dev, card)
+    train = phase_train_cli(torch, dev, card)
     if "--warm" in argv:
         phase_warm(torch, dev)
 
     g4 = gagm["G4_M60"]
     paths = {"tta": e2e, "source": src, "cli": cli, "tta_bf16": e2e16, "source_bf16": src16,
-             "cli_bf16": cli16}
+             "cli_bf16": cli16, "train_cli": train}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items()} for k in e2e["launches"]}
     pick = ("ms", "kernel_only_ms", "args_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "shape")
@@ -2059,6 +2506,7 @@ def main() -> int:
                                     "main_s", "peak_gib", "metrics")}
     log(f"cli summary ({card}): {json.dumps(cli_line)}")
     log(f"cli bf16 summary ({card}): {json.dumps(cli16)}")
+    log(f"train cli summary ({card}): {json.dumps(train)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -113,12 +113,25 @@ def test_flatten_and_family_means_match_jax():
 
 
 def test_evaluator_dispatch():
+    """Each evaluator type gives the JAX dispatch's evaluator class, type
+    and settings; an unknown type raises as there."""
+    from ttdg_mgm_torch.evaluation.coco_eval import COCOEvaluator
+    from ttdg_mgm_torch.evaluation.pascal_voc import PascalVOCDetectionEvaluator
+
     MetadataCatalog.get("_eval_untyped")
     ev, et = teval_build.build_evaluator("_eval_untyped", dice_threshold=0.4)
     assert et == "dice" and isinstance(ev, tdice.DiceEvaluator) and ev.score_threshold == 0.4
-    for etype in ("coco", "pascal_voc", "pascal_voc_water"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            teval_build.build_evaluator("_eval_untyped", evaluator_type=etype)
+    for etype, cls in (("coco", COCOEvaluator), ("pascal_voc", PascalVOCDetectionEvaluator),
+                       ("pascal_voc_water", PascalVOCDetectionEvaluator)):
+        for mask_on in (True, False):
+            ev, et = teval_build.build_evaluator("_eval_untyped", evaluator_type=etype,
+                                                 mask_on=mask_on)
+            jev, jet = jeval_build.build_evaluator("_eval_untyped", evaluator_type=etype,
+                                                   mask_on=mask_on)
+            assert isinstance(ev, cls) and type(ev).__name__ == type(jev).__name__
+            assert et == jet
+            assert {k: v for k, v in vars(ev).items() if k != "_images"} == {
+                k: v for k, v in vars(jev).items() if k != "_images"}
     with pytest.raises(NotImplementedError, match="no Evaluator"):
         teval_build.build_evaluator("_eval_untyped", evaluator_type="cityscapes")
 

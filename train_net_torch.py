@@ -2,15 +2,31 @@
 """Command line of the PyTorch/CUDA port (``ttdg_mgm_torch``), with the
 arguments of ``train_net.py``:
 
+    python3 train_net_torch.py --config configs/seg_res50fpn_source.yaml [opts ...]
     python3 train_net_torch.py --eval-only --config configs/test_segment.yaml \
         MODEL.WEIGHTS <ckpt> [opts ...]
 
-Eval-only test-time adaptation: the config (defaults, YAML with
-``_BASE_``, overrides), the medical dataset registry under
-``--datasets-root``, the trainer of ``ttdg_mgm_torch/build.py``, then per
-test dataset one TTA step per batch of ``TEST.BATCH`` images followed by
-Dice evaluation.  The results are printed and appended, with the weights'
-path, as one JSON line to ``OUTPUT_DIR/result_ap.txt``.
+Both read the config (defaults, YAML with ``_BASE_``, overrides), register
+the medical datasets under ``--datasets-root`` and build the trainer of
+``ttdg_mgm_torch/build.py``.
+
+Source training (without ``--eval-only``): checkpoints go to
+``OUTPUT_DIR/checkpoints`` (``model_{step:07d}.pth`` in d2's layout, the 5
+newest kept, ``last_checkpoint`` naming the newest) every
+``SOLVER.CHECKPOINT_PERIOD`` steps and once at the end.  Resume is forced,
+as in the reference: a run restores the weights, the momentum and the step
+count of the latest checkpoint there and trains on to ``SOLVER.MAX_ITER``;
+its loader and sampling generator restart from ``SEED``, as in the JAX
+package.  The losses go to ``OUTPUT_DIR/metrics.json`` every 20 steps and
+after the last; with ``TEST.EVAL_PERIOD > 0`` the validation loss on
+``DATASETS.TEST[0]`` is logged at that period.  A final checkpoint feeds
+``--eval-only`` as ``MODEL.WEIGHTS``.
+
+Eval-only test-time adaptation: per test dataset, one TTA step per batch of
+``TEST.BATCH`` images followed by evaluation (Dice, or COCO or VOC AP by the
+dataset's type or ``TEST.EVALUATOR``).  The results are printed and
+appended, with the weights' path, as one JSON line to
+``OUTPUT_DIR/result_ap.txt``.
 
 It runs on CUDA unless ``--device cpu`` is given, with TF32 off for
 convolutions and matrix products and cuDNN restricted to deterministic
@@ -18,8 +34,8 @@ algorithms (``ttdg_mgm_torch.configure_torch``, set before the first CUDA
 call), so two runs of one command give the same bits.  ``TPU.PRECISION``
 defaults to ``"bfloat16"`` as in the JAX package: the bf16 compute policy
 (``TPU.PRECISION float32`` computes in float32).  Images are read as PNG or
-baseline JPEG by the port's own decoders.  Training and multi-machine runs
-are not ported yet and raise.
+baseline JPEG by the port's own decoders.  Multi-machine runs are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -51,15 +67,13 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     """Run the command line ``argv`` (``sys.argv[1:]`` when None); returns
-    the results of the eval-only run."""
+    the results of an eval-only run, or of training ``{"iteration",
+    "checkpoint", "validation_loss"}``."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
     if args.num_machines > 1 or args.dist_url:
         raise NotImplementedError("multi-machine runs are not ported to ttdg_mgm_torch yet "
                                   "(ROADMAP.md, Queue 1: data parallelism)")
-    if not args.eval_only:
-        raise NotImplementedError("training is not ported to ttdg_mgm_torch yet (ROADMAP.md, "
-                                  "Queue 1: the source train loop); pass --eval-only")
 
     from ttdg_mgm_torch import configure_torch
     from ttdg_mgm_torch.build import build_trainer
@@ -71,6 +85,8 @@ def main(argv=None) -> dict:
     register_all_medical(args.datasets_root or cfg.DATASETS.ROOT, force=True)
     os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
     trainer = build_trainer(cfg, device=args.device)
+    if not args.eval_only:
+        return train(cfg, trainer)
     results = trainer.test(
         cfg.DATASETS.TEST,
         ttt=cfg.TEST.TTT,
@@ -87,6 +103,29 @@ def main(argv=None) -> dict:
         f.write(json.dumps({"weights": cfg.MODEL.WEIGHTS, "results": results}) + "\n")
     print(json.dumps(results, indent=2))
     return results
+
+
+def train(cfg, trainer) -> dict:
+    """Source training as ``train_net.py`` runs it: forced resume, the
+    default hooks, the validation loss when ``TEST.EVAL_PERIOD > 0``, and a
+    final checkpoint."""
+    from ttdg_mgm_torch.checkpoint.save import Checkpointer
+    from ttdg_mgm_torch.engine.hooks import LossEvalHook
+
+    ckpt = Checkpointer(os.path.join(cfg.OUTPUT_DIR, "checkpoints"))
+    trainer.resume_or_load(ckpt)
+    hooks = trainer.default_hooks(checkpointer=ckpt,
+                                  checkpoint_period=cfg.SOLVER.CHECKPOINT_PERIOD,
+                                  output_dir=cfg.OUTPUT_DIR)
+    val = None
+    if cfg.TEST.EVAL_PERIOD > 0 and cfg.DATASETS.TEST:
+        val = LossEvalHook(trainer, cfg.DATASETS.TEST[0], cfg.TEST.EVAL_PERIOD)
+        hooks.append(val)
+    trainer.train(cfg.DATASETS.TRAIN, max_iter=cfg.SOLVER.MAX_ITER,
+                  batch_size=cfg.SOLVER.IMS_PER_BATCH, seed=cfg.SEED, hooks=hooks)
+    path = ckpt.save(trainer.optimizer.count, trainer.state_dict())
+    return {"iteration": trainer.optimizer.count, "checkpoint": path,
+            "validation_loss": val.history if val is not None else []}
 
 
 if __name__ == "__main__":

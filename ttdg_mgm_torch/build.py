@@ -4,8 +4,9 @@ Counterpart of ``ttdg_mgm_tpu/build.py``: :func:`model_kwargs` maps a
 config onto the model's fields as ``ttdg_mgm_tpu/build.py:build_model``
 does, :func:`build_schedule` picks the learning-rate schedule,
 :func:`init_params` draws the seeded initial weights and merges
-``MODEL.WEIGHTS`` (a d2 ``.pth`` or ``.pkl``) by name, and
-:func:`build_trainer` puts them together for the eval-only TTA path.  The
+``MODEL.WEIGHTS`` (a d2 ``.pth`` or ``.pkl``, or a checkpoint this package
+wrote) by name, and :func:`build_trainer` puts them together with the train
+and test geometry.  The
 port refuses, with a message naming the way out, what it has not ported:
 the VGG backbone and the mean-teacher trainer.  ``SOLVER.AMP.ENABLED`` or
 ``TPU.PRECISION bfloat16`` (the default) selects the bf16 compute policy,
@@ -169,10 +170,25 @@ def _clip(cfg: CfgNode) -> dict | None:
             "value": float(c.get("CLIP_VALUE", 1.0))}
 
 
+def _canvas_size(cfg: CfgNode) -> int | str:
+    """The train canvas of ``TPU.TRAIN_CANVAS``: ``"auto"`` (d2's per-batch
+    buckets), or the square side ``MIN_SIZE_TEST`` rounded up to
+    ``TPU.IMAGE_DIVISIBILITY``."""
+    if cfg.TPU.TRAIN_CANVAS == "auto":
+        return "auto"
+    d = cfg.TPU.IMAGE_DIVISIBILITY
+    return ((cfg.INPUT.MIN_SIZE_TEST + d - 1) // d) * d
+
+
 def build_trainer(cfg: CfgNode, *, device=None, seed: int = 0):
-    """The eval-only trainer of ``cfg`` on ``device`` (CUDA unless the
-    caller names another): the model with its weights, SGD under
-    :func:`build_schedule` and the test geometry of ``INPUT.*_TEST``."""
+    """The trainer of ``cfg`` on ``device`` (CUDA unless the caller names
+    another): the model with its weights, SGD under :func:`build_schedule`,
+    and the geometry of ``ttdg_mgm_tpu/build.py:build_trainer``: the train
+    canvas of :func:`_canvas_size`, ``TPU.MAX_GT_PER_IMAGE`` GT slots, the
+    shortest edges of ``INPUT.MIN_SIZE_TRAIN`` under ``"choice"`` sampling,
+    and ``INPUT.MIN_SIZE_TEST`` and ``MAX_SIZE_TEST`` for the train resize
+    as for the test path (so ``INPUT.MAX_SIZE_TRAIN`` is not read, as in
+    the JAX package)."""
     from ttdg_mgm_torch.engine.trainer import BaselineTrainer
 
     dev = resolve_device(device)
@@ -185,5 +201,9 @@ def build_trainer(cfg: CfgNode, *, device=None, seed: int = 0):
     opt = build_optimizer(model, build_schedule(cfg), momentum=cfg.SOLVER.MOMENTUM,
                           weight_decay=cfg.SOLVER.WEIGHT_DECAY,
                           freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT, clip=_clip(cfg))
-    return BaselineTrainer(model, opt, min_size=cfg.INPUT.MIN_SIZE_TEST,
-                           max_size=cfg.INPUT.MAX_SIZE_TEST)
+    train_sizes = list(cfg.INPUT.MIN_SIZE_TRAIN)
+    return BaselineTrainer(
+        model, opt, canvas=_canvas_size(cfg), min_size=cfg.INPUT.MIN_SIZE_TEST,
+        max_size=cfg.INPUT.MAX_SIZE_TEST, gt_cap=cfg.TPU.MAX_GT_PER_IMAGE,
+        train_min_sizes=(tuple(train_sizes) if cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING == "choice"
+                         and train_sizes else None))

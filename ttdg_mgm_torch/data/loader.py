@@ -1,7 +1,8 @@
-"""Static-shape batching of the test path: records -> fixed-size batches.
+"""Static-shape batching: records -> fixed-size batches.
 
 This package's own copy of ``load_image``, ``prepare_sample``,
-``CANVAS_BUCKETS``, ``canvas_bucket``, ``pack_batch`` and
+``CANVAS_BUCKETS``, ``canvas_bucket``, ``pack_batch``,
+``_prepare_with_fallback``, ``build_train_loader`` and
 ``build_test_loader`` of ``ttdg_mgm_tpu/data/loader.py``, giving the same
 arrays and metas:
 
@@ -15,12 +16,22 @@ arrays and metas:
 baseline JPEG (:mod:`ttdg_mgm_torch.data.jpeg`) in NumPy, equal to Pillow's
 ``convert("RGB")``; the resize (:mod:`ttdg_mgm_torch.data.resample`) and the
 polygon fill (``utils/polyfill.py``) equal Pillow's and OpenCV's.  Nothing
-here imports Pillow or OpenCV.  The train and two-crop loaders are not
-ported yet.
+here imports Pillow or OpenCV.  The two-crop loader of the mean-teacher
+trainer is not ported yet.
+
+Two differences from the JAX package, both where it fails:
+
+* RLE ground truth of a flipped sample is mirrored in :func:`pack_batch`,
+  after its resize to the mask grid, within the sample's valid width (the
+  JAX package's ``scale_annotations`` raises on RLE before any flip);
+* :func:`build_train_loader` raises ``ValueError`` when the records are
+  fewer than the batch, where the JAX loader's epoch loop yields nothing
+  and spins forever.
 """
 
 from __future__ import annotations
 
+import logging
 import queue
 import threading
 
@@ -31,6 +42,8 @@ from ttdg_mgm_torch.data import jpeg, png
 from ttdg_mgm_torch.data.resample import resize_bilinear
 from ttdg_mgm_torch.data.transforms import hflip, resize_shortest_edge, scale_annotations
 from ttdg_mgm_torch.utils.rle import polygons_to_mask, segmentation_to_mask
+
+logger = logging.getLogger("ttdg_mgm_torch")
 
 
 #: leading bytes of the image formats other than PNG and JPEG, for the error
@@ -56,21 +69,47 @@ def load_image(path: str) -> np.ndarray:
 class _Prefetcher:
     """Prefetch on a background thread (``depth`` items ahead): image
     decoding and resizing overlap the device step.  An exception in the
-    producer is raised again in the consumer."""
+    producer is raised again in the consumer.  :meth:`close` drops the
+    batches made ahead and lets the thread of an endless generator end
+    after the batch it is making, without waiting for it."""
 
     def __init__(self, gen, depth: int = 2):
         self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, args=(gen,), daemon=True)
         self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self._q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def _drain(self):
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue.Empty:
+            pass
 
     def _run(self, gen):
         try:
             for item in gen:
-                self._q.put(("item", item))
+                if not self._put(("item", item)) or self._stop.is_set():
+                    break
+            else:
+                self._put(("done", None))
         except BaseException as e:  # noqa: BLE001 - raised again in the consumer
-            self._q.put(("err", e))
-        else:
-            self._q.put(("done", None))
+            self._put(("err", e))
+        if self._stop.is_set():
+            self._drain()
+
+    def close(self):
+        self._stop.set()
+        self._drain()
 
     def __iter__(self):
         return self
@@ -182,12 +221,81 @@ def pack_batch(samples: list[dict], *, canvas: int | tuple[int, int] = 800,
                     full = segmentation_to_mask(segs, s["orig_height"], s["orig_width"])
                     m = resize_bilinear(full * 255, (int(round(h * mscale_y)),
                                                      int(round(w * mscale_x)))) > 127
+                    if s.get("flipped"):
+                        m = m[:, ::-1]
                     gt_masks[b, k, :m.shape[0], :m.shape[1]] = m
                 else:
                     scaled = [(np.asarray(p, np.float64).reshape(-1, 2)
                                * (mscale_x, mscale_y)).reshape(-1).tolist() for p in segs]
                     gt_masks[b, k] = polygons_to_mask(scaled, mask_res, mask_res)
     return out
+
+
+def _prepare_with_fallback(records, i, rng, good, **kw):
+    """``prepare_sample`` of record ``i``; a record whose image or
+    annotation fails to load (``OSError``, ``ValueError``: the decoders
+    raise ``ValueError`` on a truncated or corrupt file) is replaced by a
+    random known-good record, up to 4 attempts (reference
+    ``MapDataset.__getitem__``).  Other errors stay fatal."""
+    for attempt in range(4):
+        try:
+            s = prepare_sample(records[i], **kw)
+            good.add(int(i))
+            return s
+        except (OSError, ValueError) as e:
+            logger.warning("failed to load record %s (attempt %d, %s); substituting a fallback "
+                           "sample", records[i].get("file_name", i), attempt + 1, e)
+            good.discard(int(i))
+            pool = list(good) if good else list(range(len(records)))
+            i = pool[rng.randint(len(pool))]
+    raise RuntimeError("no loadable training records (4 substitutions failed)")
+
+
+def build_train_loader(dataset_names, *, batch_size: int = 8, canvas: int | str = 800,
+                       min_size: int = 800, max_size: int = 1333, gt_cap: int = 20,
+                       mask_res: int = 256, seed: int = 0, flip_prob: float = 0.5,
+                       prefetch: int = 2, min_size_choices=None):
+    """Endless shuffled loader of labelled batches: each epoch a permutation
+    of the records of ``dataset_names``, cut into full batches (a partial
+    tail is dropped).  Each sample draws its shortest-edge target from
+    ``min_size_choices`` (d2's "choice" sampling of ``INPUT.MIN_SIZE_TRAIN``;
+    ``min_size`` when None) and is flipped with probability ``flip_prob``.
+    Every draw comes from one ``np.random.RandomState(seed)`` in the JAX
+    package's order, so the batches equal its own.  An integer ``canvas``
+    is the square canvas (an image larger than it is shrunk to fit);
+    ``"auto"`` is d2's geometry, each batch padded onto a ``CANVAS_BUCKETS``
+    pair.  Raises ``ValueError`` when the records are fewer than
+    ``batch_size``."""
+    records = []
+    for name in dataset_names:
+        records.extend(DatasetCatalog.get(name))
+    if len(records) < batch_size:
+        raise ValueError(f"{len(records)} training records in {list(dataset_names)} are fewer "
+                         f"than the batch of {batch_size}: no full batch can be drawn")
+    rng = np.random.RandomState(seed)
+    good: set = set()
+    sizes = [int(s) for s in min_size_choices] if min_size_choices else [int(min_size)]
+    auto = canvas == "auto"
+
+    def gen():
+        while True:
+            idx = rng.permutation(len(records))
+            for start in range(0, len(idx) - batch_size + 1, batch_size):
+                samples = [
+                    _prepare_with_fallback(records, i, rng, good,
+                                           canvas=None if auto else canvas,
+                                           min_size=sizes[rng.randint(len(sizes))],
+                                           max_size=max_size, flip=rng.rand() < flip_prob)
+                    for i in idx[start:start + batch_size]]
+                if auto:
+                    cv: int | tuple[int, int] = (
+                        canvas_bucket(max(s["image"].shape[0] for s in samples)),
+                        canvas_bucket(max(s["image"].shape[1] for s in samples)))
+                else:
+                    cv = canvas
+                yield pack_batch(samples, canvas=cv, gt_cap=gt_cap, mask_res=mask_res)
+
+    return _maybe_prefetch(gen(), prefetch)
 
 
 def build_test_loader(dataset_name: str, *, batch_size: int = 1, canvas: int | str = "auto",

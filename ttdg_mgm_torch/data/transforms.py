@@ -1,4 +1,4 @@
-"""Host-side geometry transforms of the test path: d2 ``ResizeShortestEdge``
+"""Host-side geometry transforms of the loaders: d2 ``ResizeShortestEdge``
 (bilinear) and the horizontal flip, with boxes and polygons following.
 
 This package's own copy of the geometry of ``ttdg_mgm_tpu/data/transforms.py``.
@@ -13,8 +13,10 @@ package raises:
   unchanged, since they stay in the original image's coordinates and are
   decoded there; the JAX package's ``scale_annotations`` iterates the dict's
   keys as polygon rings and raises ``ValueError`` (``ROADMAP.md`` Queue 3).
-  :func:`hflip`, which only the training loaders call, still takes polygons
-  only.
+  :func:`hflip` passes them through unchanged too (the JAX package's takes
+  polygons only); the sample's ``"flipped"`` flag then tells
+  ``data/loader.py:pack_batch`` to mirror the mask it resizes from the RLE
+  within its valid width, as the image was mirrored after its resize.
 
 The strong augmentation of the mean-teacher loader is not ported.
 """
@@ -60,6 +62,9 @@ def hflip(img, boxes, polygons):
         boxes[:, 2] = w - x1
     flipped = []
     for segs in polygons:
+        if isinstance(segs, dict):
+            flipped.append(segs)
+            continue
         out = []
         for p in segs or []:
             p = np.asarray(p, np.float64).copy()

@@ -1,25 +1,32 @@
-"""The eval-only TTA loop: per test dataset, one SGD step on the
-multi-graph-matching loss per batch, then inference, mask paste and Dice.
+"""Trainers: supervised source training and the eval-only TTA loop.
 
-Counterpart of ``ttdg_mgm_tpu/engine/trainer.py`` for the eval-only path:
-``postprocess_detections``, ``evaluate_dataset`` (with its ``Inference done
-... s/iter`` log lines), ``aggregate_family_means`` and
-``BaselineTrainer.test``.  The adaptation persists across datasets within
-one call, as in the JAX package and the reference (which adapts the model in
-place); ``reset_between_datasets`` restores the weights, the momentum
-buffers and the step count before each dataset.
+Counterpart of ``ttdg_mgm_tpu/engine/trainer.py``: ``postprocess_detections``,
+``evaluate_dataset`` (with its ``Inference done ... s/iter`` log lines and
+the Dice, COCO and VOC evaluators), ``aggregate_family_means`` and
+``BaselineTrainer`` with ``train`` (one SGD step on the supervised losses
+per batch, hooks on every iteration), its state and resume, and ``test``
+(per test dataset, one SGD step on the multi-graph-matching loss per batch,
+then inference, mask paste and evaluation).  The adaptation persists across
+datasets within one call, as in the JAX package and the reference (which
+adapts the model in place); ``reset_between_datasets`` restores the
+weights, the momentum buffers and the step count before each dataset.
+
+Resume follows the JAX package: the state is the weights, the SGD momentum
+and the step count (which drives the schedule), and ``train`` runs from
+that count to ``max_iter`` with its loader and its sampling generator
+seeded with ``seed`` again, so a resumed run sees the stream of batches
+from its start, not from where the saved run stopped.
 
 The device work of a batch is the model's (``engine/steps.py``,
 ``MaskRCNN.forward_inference``) and the mask paste (``ops/mask_paste.py``),
-on the model's device; this module is host-side orchestration.  Source
-training (``BaselineTrainer.train``, its loader, hooks and checkpoints) is
-not ported yet.
+on the model's device; this module is host-side orchestration.
 """
 
 from __future__ import annotations
 
 import copy
 import logging
+import os
 import time
 from collections import defaultdict
 
@@ -27,8 +34,8 @@ import numpy as np
 import torch
 
 from ttdg_mgm_torch.data.catalog import DatasetCatalog
-from ttdg_mgm_torch.data.loader import build_test_loader
-from ttdg_mgm_torch.engine.steps import make_tta_step
+from ttdg_mgm_torch.data.loader import build_test_loader, build_train_loader
+from ttdg_mgm_torch.engine.steps import make_source_step, make_tta_step
 from ttdg_mgm_torch.evaluation.build import build_evaluator, flatten_results
 from ttdg_mgm_torch.ops.mask_paste import paste_masks
 from ttdg_mgm_torch.utils.rle import segmentation_to_mask
@@ -75,18 +82,32 @@ def evaluate_dataset(model, dataset_name: str, *, canvas: int | str = "auto",
                      draw_dir: str | None = None, evaluator_type: str | None = None) -> dict:
     """Inference and evaluation over one dataset, on the model's device, with
     the reference's s/iter breakdown in the log.  The evaluator follows the
-    dataset's ``evaluator_type`` (Dice when unset); ``evaluator_type``
-    overrides it.  Returns one flat dict of scalars."""
+    dataset's ``evaluator_type`` (Dice when unset): Dice, E and S; COCO AP
+    (box, and mask with a mask head; crowd GT as ignore regions); or VOC
+    mAP (difficult GT ignored).  ``evaluator_type`` overrides it.  Returns
+    one flat dict of scalars.
+
+    The mask AP needs a mask for every GT: a dataset with an annotation
+    whose ``segmentation`` is None raises ``ValueError`` before inference
+    (the JAX package raises ``TypeError`` in the middle of the loop)."""
     if draw_dir is not None:
         raise NotImplementedError(_NO_DRAW)
     device = next(model.parameters()).device
-    loader = build_test_loader(dataset_name, batch_size=batch_size, canvas=canvas,
-                               min_size=min_size, max_size=max_size)
-    evaluator, _ = build_evaluator(dataset_name, dice_threshold=dice_threshold,
-                                   evaluator_type=evaluator_type,
-                                   mask_on=getattr(model, "mask_on", True))
+    evaluator, etype = build_evaluator(dataset_name, dice_threshold=dice_threshold,
+                                       evaluator_type=evaluator_type,
+                                       mask_on=getattr(model, "mask_on", True))
     # parse the dataset once and index its records by image_id
     records_by_id = {r["image_id"]: r for r in DatasetCatalog.get(dataset_name)}
+    with_segm = etype == "coco" and "segm" in evaluator.iou_types
+    if with_segm:
+        n_none = sum(a.get("segmentation") is None for r in records_by_id.values()
+                     for a in r["annotations"])
+        if n_none:
+            raise ValueError(f"{dataset_name}: {n_none} annotations have no segmentation, so the "
+                             "COCO mask AP cannot be computed; evaluate boxes only with "
+                             "MODEL.MASK_ON False")
+    loader = build_test_loader(dataset_name, batch_size=batch_size, canvas=canvas,
+                               min_size=min_size, max_size=max_size)
 
     n_img = 0
     t_data = t_compute = t_eval = 0.0
@@ -103,10 +124,24 @@ def evaluate_dataset(model, dataset_name: str, *, canvas: int | str = "auto",
             out = postprocess_detections(det, meta, b)
             record = records_by_id[meta["image_id"]]
             anns = record["annotations"]
-            gt_masks = [segmentation_to_mask(a["segmentation"], record["height"],
-                                             record["width"]) for a in anns]
-            evaluator.process(out["masks"], out["classes"], out["scores"], gt_masks,
-                              [a["category_id"] for a in anns])
+            gt_classes = [a["category_id"] for a in anns]
+            gt_masks = ([segmentation_to_mask(a["segmentation"], record["height"],
+                                              record["width"]) for a in anns]
+                        if etype == "dice" or with_segm else None)
+            gt_boxes = np.asarray([a["bbox"] for a in anns], np.float64).reshape(-1, 4)
+            if etype == "dice":
+                evaluator.process(out["masks"], out["classes"], out["scores"], gt_masks,
+                                  gt_classes)
+            elif etype == "coco":
+                evaluator.process(det_boxes=out["boxes"], det_scores=out["scores"],
+                                  det_classes=out["classes"],
+                                  det_masks=list(out["masks"]) if with_segm else None,
+                                  gt_boxes=gt_boxes, gt_classes=gt_classes, gt_masks=gt_masks,
+                                  gt_crowd=[a.get("iscrowd", 0) for a in anns])
+            else:
+                evaluator.process(out["boxes"], out["scores"], out["classes"], gt_boxes,
+                                  gt_classes,
+                                  gt_difficult=[a.get("difficult", 0) for a in anns])
             n_img += 1
         t_eval += time.perf_counter() - t2
         if n_img % log_every < batch_size:
@@ -137,21 +172,108 @@ def aggregate_family_means(results: dict) -> dict:
 
 
 class BaselineTrainer:
-    """Eval-only TTA over test datasets with ``model`` (its weights are the
-    state) and ``optimizer`` (``solver/build.py:Optimizer``, its step count
-    drives the learning-rate schedule)."""
+    """Source training and eval-only TTA with ``model`` (its weights are the
+    state) and ``optimizer`` (``solver/build.py:Optimizer``, whose step
+    count drives the learning-rate schedule).
 
-    def __init__(self, model, optimizer, *, min_size: int = 800, max_size: int = 1333,
-                 test_canvas: int | str = "auto"):
+    Train geometry: an integer ``canvas`` is the square canvas, ``"auto"``
+    d2's per-batch buckets; images are resized to a shortest edge drawn
+    from ``train_min_sizes`` (``min_size`` when None) under ``max_size``;
+    ``gt_cap`` GT slots per image, GT masks on a ``mask_res`` square grid.
+    The test path uses ``test_canvas``, ``min_size`` and ``max_size``."""
+
+    def __init__(self, model, optimizer, *, canvas: int | str = 800, min_size: int = 800,
+                 max_size: int = 1333, gt_cap: int = 20, mask_res: int = 256,
+                 train_min_sizes=None, test_canvas: int | str = "auto"):
         self.model = model
         self.optimizer = optimizer
+        self.canvas = canvas
         # test geometry: "auto" is d2's ResizeShortestEdge(min_size, max_size)
         # on per-batch rectangular buckets; an integer keeps the square fit
         self.test_canvas = test_canvas
         self.min_size = min_size
         self.max_size = max_size
+        self.train_min_sizes = train_min_sizes
+        self.gt_cap = gt_cap
+        self.mask_res = mask_res
+        self._source_step = make_source_step(model, optimizer)
         self._tta_step = make_tta_step(model, optimizer)
         self.last_tta_loss = 0.0
+
+    # ---------------- state and resume ----------------
+    def state_dict(self) -> dict:
+        """What a restart needs, in d2's checkpoint layout: the d2-named
+        weights, the SGD state (momentum buffers) and the step count."""
+        return {"model": self.model.state_dict(), "optimizer": self.optimizer.sgd.state_dict(),
+                "iteration": self.optimizer.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        self.optimizer.sgd.load_state_dict(state["optimizer"])
+        self.optimizer.count = int(state["iteration"])
+
+    def resume_or_load(self, checkpointer) -> bool:
+        """Restore the full state from ``checkpointer``'s latest checkpoint if
+        there is one (the CLI forces resume, as the reference's does).
+        Returns True when it resumed; otherwise the trainer keeps the weights
+        it was built with (``MODEL.WEIGHTS``)."""
+        state, resumed = checkpointer.resume_or_load()
+        if resumed:
+            self.load_state_dict(state)
+            logger.info("resumed from checkpoint at iteration %d", self.optimizer.count)
+        return resumed
+
+    def default_hooks(self, *, checkpointer=None, checkpoint_period: int = 0,
+                      output_dir: str | None = None, log_every: int = 20) -> list:
+        """The reference trainers' hooks: the finite-loss guard, periodic
+        full-state checkpoints (with ``checkpointer`` and a positive
+        ``checkpoint_period``), and the ``metrics.json`` and terminal writers
+        (with ``output_dir``), every ``log_every`` iterations."""
+        from ttdg_mgm_torch.engine.hooks import (AnomalyDetectionHook, PeriodicCheckpointHook,
+                                                 WriterHook)
+        from ttdg_mgm_torch.utils.events import EventStorage, JSONWriter, TerminalWriter
+
+        hooks = [AnomalyDetectionHook(period=log_every)]
+        if checkpointer is not None and checkpoint_period > 0:
+            hooks.append(PeriodicCheckpointHook(checkpointer, self, checkpoint_period))
+        if output_dir is not None:
+            writers = [JSONWriter(os.path.join(output_dir, "metrics.json")), TerminalWriter()]
+            hooks.append(WriterHook(EventStorage(self.optimizer.count), writers,
+                                    period=log_every))
+        return hooks
+
+    def train(self, dataset_names, *, max_iter: int, batch_size: int = 8, seed: int = 0,
+              log_every: int = 20, hooks=()) -> None:
+        """Source training from the optimizer's step count to ``max_iter``:
+        one SGD step on the summed supervised losses per batch of
+        ``batch_size`` labelled images of ``dataset_names``.  The loader
+        and the sampling generator (on the model's device) are seeded with
+        ``seed`` on every call.  Each hook is called on every iteration with
+        the step's losses on the device, and a hook's ``after_train(it,
+        metrics)``, if it has one, after the last; every ``log_every``
+        iterations the losses are logged."""
+        dev = next(self.model.parameters()).device
+        loader = build_train_loader(
+            dataset_names, batch_size=batch_size, canvas=self.canvas, min_size=self.min_size,
+            max_size=self.max_size, gt_cap=self.gt_cap, mask_res=self.mask_res, seed=seed,
+            min_size_choices=self.train_min_sizes)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        it = metrics = None
+        try:
+            for it in range(self.optimizer.count, max_iter):
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in next(loader).items()}
+                metrics = self._source_step(batch, gen)
+                for h in hooks:
+                    h(it, metrics)
+                if it % log_every == 0:
+                    logger.info("iter %d: %s", it,
+                                {k: round(float(v), 4) for k, v in metrics.items()})
+        finally:
+            loader.close()
+        if metrics is not None:
+            for h in hooks:
+                if hasattr(h, "after_train"):
+                    h.after_train(it, metrics)
 
     def _snapshot(self):
         return (copy.deepcopy(self.model.state_dict()),

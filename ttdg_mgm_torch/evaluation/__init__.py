@@ -1,1 +1,2 @@
-"""Evaluation: Dice / E-measure / S-measure and the evaluator dispatch."""
+"""Evaluation: Dice / E-measure / S-measure, COCO AP, VOC mAP and the
+evaluator dispatch."""

@@ -1,19 +1,22 @@
 """Evaluator dispatch by dataset type.
 
-This package's own copy of ``ttdg_mgm_tpu/evaluation/build.py`` for the
-Dice evaluator: a dataset's registered ``evaluator_type`` picks the
-evaluator, and a dataset with none falls back to Dice, as the reference's
-flagship eval path evaluates every test dataset with ``DiceEvaluator``.  The
-COCO and Pascal VOC evaluators are not ported yet (``ROADMAP.md``, Queue 1,
-"COCO and VOC evaluators"); asking for one raises.
+This package's own copy of ``ttdg_mgm_tpu/evaluation/build.py``: a
+dataset's registered ``evaluator_type`` picks the evaluator (reference
+``build_evaluator``) -- Dice, E and S for ``"dice"``, COCO AP for
+``"coco"`` (box, and mask when the model has a mask head), VOC mAP for
+``"pascal_voc"`` (the 2007 metric when the dataset's ``year`` is 2007) and
+over the Watercolor class subset for ``"pascal_voc_water"``.  A dataset
+with none falls back to Dice, as the reference's flagship eval path
+evaluates every test dataset with ``DiceEvaluator``.
 """
 
 from __future__ import annotations
 
 from ttdg_mgm_torch.data.catalog import MetadataCatalog
+from ttdg_mgm_torch.evaluation.coco_eval import COCOEvaluator
 from ttdg_mgm_torch.evaluation.dice import DiceEvaluator
-
-_NOT_PORTED = ("coco", "pascal_voc", "pascal_voc_water")
+from ttdg_mgm_torch.evaluation.pascal_voc import (VOC_CLASS_NAMES, WATERCOLOR_CLASS_NAMES,
+                                                  PascalVOCDetectionEvaluator)
 
 
 def evaluator_type_of(dataset_name: str, override: str | None = None) -> str:
@@ -28,13 +31,19 @@ def build_evaluator(dataset_name: str, *, dice_threshold: float = 0.9,
                     evaluator_type: str | None = None, mask_on: bool = True):
     """Returns ``(evaluator, evaluator_type)``."""
     etype = evaluator_type_of(dataset_name, evaluator_type)
+    meta = MetadataCatalog.get(dataset_name)
     if etype == "dice":
         return DiceEvaluator(dataset_name, dice_threshold), etype
-    if etype in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {etype!r} evaluator of dataset {dataset_name} is not ported to "
-            "ttdg_mgm_torch yet (ROADMAP.md, Queue 1: the COCO and VOC evaluators); "
-            "the port evaluates with Dice only")
+    if etype == "coco":
+        return COCOEvaluator(iou_types=("bbox", "segm") if mask_on else ("bbox",)), etype
+    if etype == "pascal_voc":
+        return PascalVOCDetectionEvaluator(
+            meta.get("thing_classes", list(VOC_CLASS_NAMES)),
+            use_07_metric=bool(meta.get("year", 2012) == 2007)), etype
+    if etype == "pascal_voc_water":
+        return PascalVOCDetectionEvaluator(
+            meta.get("thing_classes", list(VOC_CLASS_NAMES)),
+            eval_class_subset=list(WATERCOLOR_CLASS_NAMES)), "pascal_voc"
     raise NotImplementedError(
         f"no Evaluator for the dataset {dataset_name} with the type {etype}")
 
