@@ -119,7 +119,29 @@ Phases, each of which exits non-zero when it fails:
    loader wait and the synchronized step time, s/iter, the validation
    loss's seconds, the checkpoint's size and its save and load seconds,
    the peak memory and the launches per step, and the train loader's own
-   host time per batch on one thread, against the step time.
+   host time per batch on one thread, against the step time;
+11. the mean-teacher trainer through the command line:
+   ``train_net_torch.main(["--config", "configs/seg_res50fpn_MT.yaml",
+   ...])`` with the shipped config (R50-FPN, batch 4 labelled + 4
+   unlabelled, bf16, ``EMA_KEEP_RATE`` 0.9996, the discriminator on p2) and
+   random weights on synthetic ``RIM_ONE_r3_train`` (labelled) and
+   ``REFUGE_train`` (unlabelled) splits with polygon ground truth, with
+   ``SEMISUPNET.BURN_UP_STEP 2`` and ``SEMISUPNET.BBOX_THRESHOLD 0.3``
+   (each printed with its reason): 4 steps (2 burn-in, the teacher's copy
+   at step 2 equal to the student bit for bit, the moving average at step
+   3 equal to the host's within float32 round-off), resumed to 6 from the
+   ensemble-layout file bit for bit, the same from a copy holding only the
+   step-4 file ending in the same bits, then ``--eval-only --config
+   configs/test_segment_MT.yaml`` on the final file twice: the teacher
+   (``TEST.EVAL_STU False``) and the student (the shipped ``True``), every
+   tensor of the member loaded, kernel B launched, finite Dice, E and S;
+   every MT loss finite, every parameter and gradient float32, on every MT
+   step the teacher's forward-only pool and the training pools called and
+   kernels A, C and D launched; it logs the steps' times, one MT step's
+   split between the teacher's detection and the labelled, pseudo-labelled
+   and domain passes, the pseudo-boxes per image, the launches per step,
+   the peak memory and the two-crop loader's host time per batch (16
+   views and the NumPy strong augmentation) on one thread.
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off), and cuDNN runs its
@@ -129,8 +151,9 @@ SXM's published peaks: 3.35 TB/s of device memory, 67 TFLOP/s float32
 outside the tensor cores, 16 transcendentals per clock per SM (4.18e12/s at
 1.98 GHz).  The last lines are the card's name and power
 limit (nvidia-smi), one JSON object with each kernel's numbers (its
-launches on the TTA, source, eval-only command-line and train command-line
-paths under ``launches_by_path``), and the device line ``{"ok": true, "device":
+launches on the TTA, source, eval-only command-line, train command-line
+and mean-teacher command-line paths under ``launches_by_path``), and the
+device line ``{"ok": true, "device":
 {...}}``.
 
 ``--profile`` adds, after each end-to-end phase, more timed steps and one
@@ -647,10 +670,12 @@ def tile_hits(torch, rois, shapes, P: int, tile: int = 8):
     return np.bincount(lv, minlength=len(shapes)).tolist(), int(max(g.max() for g in grids))
 
 
-def phase_roi_backward_main(torch, dev, record, dump_dir=None):
-    """Kernel C on the inputs the source path gave it (``record``, from
-    :func:`capture_pool_backward`: the box and the mask pools' cotangents and
-    ROIs of one step): against its plain version, two launches bit for bit,
+def phase_roi_backward_main(torch, dev, record, dump_dir=None, names=None):
+    """Kernel C on the inputs a training path gave it (``record``, from
+    :func:`capture_pool_backward`: each training pool's cotangent and ROIs
+    of one step; by default the source step's box and mask pools, else one
+    call per ``(rois, name)`` of ``names``, each named by its ROIs):
+    against its plain version, two launches bit for bit,
     its wrapper's and bare launch's times, and what the data asks of it
     (ROIs per level, ROIs with an all-zero cotangent, the most ROIs on one
     tile).  A bfloat16 path's cotangents are held against the plain bf16
@@ -658,7 +683,8 @@ def phase_roi_backward_main(torch, dev, record, dump_dir=None):
     with the step's small gradients."""
     from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool_backward
 
-    check(len(record) == 2, f"roi_pool_backward main path: {len(record)} calls in one step")
+    check(len(record) == (len(names) if names else 2),
+          f"roi_pool_backward main path: {len(record)} calls in one step")
     if dump_dir:
         os.makedirs(dump_dir, exist_ok=True)
         torch.save([(g.cpu(), sh, r.cpu(), kw) for g, sh, r, kw in record],
@@ -668,7 +694,12 @@ def phase_roi_backward_main(torch, dev, record, dump_dir=None):
         B, K, P = g.shape[0], g.shape[1], g.shape[2]
         C = g.shape[-1]
         _, plain, dt = pool_fns(torch, g.dtype)
-        name = ("box" if P == 7 else "mask") + (" bf16" if dt == "bf16" else "")
+        key = "box" if P == 7 else "mask"
+        if names:
+            found = [n for r, n in names if r.shape == rois.shape and bool(torch.equal(r, rois))]
+            check(len(found) == 1, f"roi_pool_backward main path: ROIs of {found} pools")
+            key = found[0]
+        name = key + (" bf16" if dt == "bf16" else "")
         check(tuple(kw.get("strides", (4, 8, 16, 32))) == (4, 8, 16, 32)
               and kw.get("sampling_ratio", 0) == 0 and kw.get("min_level", 2) == 2,
               f"roi_pool_backward main path: options {kw} are not the flagship's")
@@ -700,7 +731,7 @@ def phase_roi_backward_main(torch, dev, record, dump_dir=None):
             f"launches bit-identical; wrapper {ms:.4f} ms, kernels alone {only_ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}; ROIs per level {per_level}, "
             f"{zero} of {B * K} with an all-zero cotangent, at most {max_hits} on one 8 x 8 tile")
-        res[name.split()[0]] = dict(ms=ms, kernel_only_ms=only_ms, plain_ms=plain_ms,
+        res[key] = dict(ms=ms, kernel_only_ms=only_ms, plain_ms=plain_ms,
                                     bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                                     beyond_ulp=beyond, largest_abs_grad=peak,
                                     deterministic=same, rois_per_level=per_level,
@@ -749,40 +780,33 @@ def sinkhorn_bare_ms(torch, s, nr, nc, tau, max_iter: int, dummy_row: bool = Tru
     return event_ms(torch, lambda: _cuda.check(fn(*args), "sinkhorn"), reps)
 
 
-def phase_sinkhorn(torch, dev, record, iters: int = 20, tau: float = 1 / 200, dump_dir=None):
+def hold_sinkhorn(torch, record, path: str):
     """Kernel D against the plain Sinkhorn on every projection input HiPPI
-    gave it in the source phase (``record``, from :func:`capture_hippi`),
-    timed on the first; the HiPPI call with the most iterations rerun with
-    the plain projection; one synthetic batch with mixed valid counts, on the
-    kernel's register path and on its shared-memory path, and a batch of
-    matrices larger than 64 x 64 (that path's own)."""
+    gave it on ``path`` (``record``, from :func:`capture_hippi`), then the
+    HiPPI call with the most iterations rerun with kernel D and with the
+    plain projection (these launches are not the main path's).  Returns the
+    largest error and the rerun's iterations and difference."""
     import ttdg_mgm_torch.graph.solvers as solvers
     from ttdg_mgm_torch.ops.sinkhorn import sinkhorn, sinkhorn_batched
 
     proj = record["projections"]
-    check(len(proj) > 0, "sinkhorn: HiPPI made no projection in the source phase")
-    if dump_dir:
-        os.makedirs(dump_dir, exist_ok=True)
-        s, nr, nc, kw = proj[0]
-        torch.save((s.cpu(), nr.cpu(), nc.cpu(), {k: (v.cpu() if torch.is_tensor(v) else v)
-                                                  for k, v in kw.items()}),
-                   os.path.join(dump_dir, "sinkhorn_input.pt"))
+    check(len(proj) > 0, f"sinkhorn: HiPPI made no projection in {path}")
     err = 0.0
     for s, nr, nc, kw in proj:
         got = sinkhorn_batched(s, nr, nc, **kw)
         want = sinkhorn(s, nr, nc, **kw)
-        check(bool(torch.isfinite(got).all()), "sinkhorn: non-finite output on HiPPI's input")
+        check(bool(torch.isfinite(got).all()), f"sinkhorn: non-finite output on HiPPI's input in "
+              f"{path}")
         err = max(err, (got - want).abs().max().item())
     s, nr, nc, kw = proj[0]
-    t = float(kw["tau"])
     ok = err <= SINKHORN_ATOL
-    log(f"sinkhorn on HiPPI's {len(proj)} projection inputs {tuple(s.shape)} (first: |s| up to "
-        f"{s.abs().max().item():.3e}, tau {t:g}, nrows {nr.tolist()}, ncols {nc.tolist()}): "
-        f"max_abs_err {err:.3e} (atol {SINKHORN_ATOL}) -> {'ok' if ok else 'FAIL'}")
-    check(ok, f"sinkhorn: kernel disagrees with the plain version on HiPPI's input ({err})")
+    log(f"sinkhorn on HiPPI's {len(proj)} projection inputs {tuple(s.shape)} of {path} (first: "
+        f"|s| up to {s.abs().max().item():.3e}, tau {float(kw['tau']):g}, nrows {nr.tolist()}, "
+        f"ncols {nc.tolist()}): max_abs_err {err:.3e} (atol {SINKHORN_ATOL}) -> "
+        f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"sinkhorn: kernel disagrees with the plain version on HiPPI's input in {path} "
+          f"({err})")
 
-    # the HiPPI call with the most iterations, again with kernel D and with
-    # the plain projection (these launches are not the main path's)
     W, U0, ms, n_univ, hkw = max(record["hippi"], key=lambda h: h[-1]["steps"])
     hkw = {k: v for k, v in hkw.items() if k != "steps"}
     U_k, steps_k = solvers.hippi(W, U0, ms, n_univ, **hkw)
@@ -792,9 +816,29 @@ def phase_sinkhorn(torch, dev, record, iters: int = 20, tau: float = 1 / 200, du
         U_p, steps_p = solvers.hippi(W, U0, ms, n_univ, **hkw)
     finally:
         solvers.sinkhorn_batched = real
-    hippi_diff = (U_k - U_p).abs().max().item()
-    log(f"sinkhorn: the longest HiPPI call of the source phase, rerun: {steps_k} iterations with "
-        f"kernel D, {steps_p} with the plain projection, max |U diff| {hippi_diff:.3e}")
+    diff = (U_k - U_p).abs().max().item()
+    log(f"sinkhorn: the longest HiPPI call of {path}, rerun: {steps_k} iterations with kernel D, "
+        f"{steps_p} with the plain projection, max |U diff| {diff:.3e}")
+    return err, {"iterations_kernel": steps_k, "iterations_plain": steps_p, "max_abs_diff": diff}
+
+
+def phase_sinkhorn(torch, dev, record, iters: int = 20, tau: float = 1 / 200, dump_dir=None):
+    """Kernel D on the source phase's HiPPI inputs (:func:`hold_sinkhorn`),
+    timed on the first projection; one synthetic batch with mixed valid
+    counts, on the kernel's register path and on its shared-memory path,
+    and a batch of matrices larger than 64 x 64 (that path's own)."""
+    from ttdg_mgm_torch.ops.sinkhorn import sinkhorn, sinkhorn_batched
+
+    proj = record["projections"]
+    if dump_dir and proj:
+        os.makedirs(dump_dir, exist_ok=True)
+        s, nr, nc, kw = proj[0]
+        torch.save((s.cpu(), nr.cpu(), nc.cpu(), {k: (v.cpu() if torch.is_tensor(v) else v)
+                                                  for k, v in kw.items()}),
+                   os.path.join(dump_dir, "sinkhorn_input.pt"))
+    err, rerun = hold_sinkhorn(torch, record, "the source phase")
+    s, nr, nc, kw = proj[0]
+    t = float(kw["tau"])
 
     gen = torch.Generator().manual_seed(3)
     N, n = 16, 60
@@ -837,8 +881,7 @@ def phase_sinkhorn(torch, dev, record, iters: int = 20, tau: float = 1 / 200, du
                 generic_path_ms=ms_generic,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, chain_floor_ms=chain_ms,
                 transcendentals=sfu, projections_checked=len(proj),
-                hippi_rerun={"iterations_kernel": steps_k, "iterations_plain": steps_p,
-                             "max_abs_diff": hippi_diff},
+                hippi_rerun=rerun,
                 shape=f"{tuple(s.shape)} f32 from HiPPI's first projection of the source phase, "
                       f"nrows {nr.tolist()}, ncols {nc.tolist()}, tau {t:g}")
 
@@ -1521,21 +1564,25 @@ def write_png(path: str, img) -> None:
                 + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
-def write_fundus_split(root: str, n: int, hw, seed: int = 0, polygons: bool = False) -> None:
+def write_fundus_split(root: str, n: int, hw, seed: int = 0, polygons: bool = False,
+                       split: str = "Drishti_GS_test") -> None:
     """``n`` fundus-like images of ``hw`` in the reference's layout of the
-    Drishti-GS test split (``Fundus/Drishti_GS_test.json``,
-    ``Fundus/Drishti_GS/test/image/``): a dark red field of view with an
-    optic disc and its cup, two ellipses per image; their masks are the
-    ground truth (disc class 1, cup class 2), as RLE, or with ``polygons``
-    as 96-vertex polygon rings around the ellipses (the datasets' own
-    annotation form)."""
+    fundus split ``split`` (its entry of ``ttdg_mgm_torch/data/builtin.py:SPLITS``;
+    the Drishti-GS test split ``Fundus/Drishti_GS_test.json``,
+    ``Fundus/Drishti_GS/test/image/`` by default): a dark red field of view
+    with an optic disc and its cup, two ellipses per image; their masks are
+    the ground truth (disc class 1, cup class 2), as RLE, or with
+    ``polygons`` as 96-vertex polygon rings around the ellipses (the
+    datasets' own annotation form)."""
     import numpy as np
 
+    from ttdg_mgm_torch.data.builtin import SPLITS
     from ttdg_mgm_torch.utils.rle import rle_encode
 
     h, w = hw
     rng = np.random.RandomState(seed)
-    img_dir = os.path.join(root, "Fundus", "Drishti_GS", "test", "image")
+    json_rel, img_rel = SPLITS[split]
+    img_dir = os.path.join(root, img_rel)
     os.makedirs(img_dir, exist_ok=True)
     yy, xx = np.mgrid[:h, :w].astype(np.float32)
     fov = ((yy - h / 2) / (0.49 * h)) ** 2 + ((xx - w / 2) / (0.49 * h)) ** 2 <= 1
@@ -1564,7 +1611,7 @@ def write_fundus_split(root: str, n: int, hw, seed: int = 0, polygons: bool = Fa
                          "bbox": [float(xs.min()), float(ys.min()), float(xs.max() - xs.min() + 1),
                                   float(ys.max() - ys.min() + 1)],
                          "area": float(m.sum()), "segmentation": seg})
-    with open(os.path.join(root, "Fundus", "Drishti_GS_test.json"), "w") as f:
+    with open(os.path.join(root, json_rel), "w") as f:
         json.dump({"images": images, "annotations": anns,
                    "categories": [{"id": 1, "name": "disc"}, {"id": 2, "name": "cup"}]}, f)
 
@@ -2027,27 +2074,49 @@ def _sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def capture_train(torch, dev):
-    """Wraps, in the modules the trainer calls them from: the train loader
-    (the seconds each ``next`` blocks), the source step (its synchronized
-    time, its losses and the kernel launches it adds), the resume (a host
-    copy of the state just restored), the validation loss hook and the
-    checkpointer's saves and loads (their seconds); and listens to the log
-    line of ``init_params``.  Returns the record and the function that undoes
-    it."""
+def _host(state: dict) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in state.items()}
+
+
+def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = False):
+    """Wraps, in the modules the trainers call them from: the train and
+    two-crop loaders (the seconds each ``next`` blocks), the source,
+    burn-in and MT steps (their synchronized times, their losses, the
+    kernel launches each adds, the forward-only and training pool calls of
+    each, float32 parameters and gradients after each), the pseudo-labels
+    (per image), the resume (a host copy of the trainer's state just
+    restored, in its checkpoint layout), the trainers' training calls, the
+    validation loss hook, the checkpointer's saves and loads (their
+    seconds) and ``init_params`` (a host copy of the weights it gives the
+    model); and listens to the log line of ``init_params``.  With
+    ``snapshots``, host copies of the student and the teacher as each of
+    the first two MT steps sees them; with ``kernel_inputs``, copies of what
+    kernels A and C get on the first MT step (each pool call's levels and
+    ROIs, :func:`capture_pool_backward`) and of what HiPPI and kernel D get
+    on every MT step (:func:`capture_hippi`).  Keeps the
+    model, teacher, batch and settings of the last MT step under
+    ``"last"``.  Returns the record and the function that undoes it."""
     import logging
 
+    import ttdg_mgm_torch.build as build
+    import ttdg_mgm_torch.engine.mean_teacher as mt
+    import ttdg_mgm_torch.engine.steps as steps
     import ttdg_mgm_torch.engine.trainer as trainer
+    import ttdg_mgm_torch.models.rcnn as rcnn
     from ttdg_mgm_torch.checkpoint.save import Checkpointer
     from ttdg_mgm_torch.engine.hooks import LossEvalHook
 
-    record = {"wait_s": [], "step_ms": [], "losses": [], "step_launches": [], "resumed": None,
+    record = {"wait_s": [], "steps": [], "pseudo": [], "resumed": None, "train_s": [],
               "val_s": [], "save_s": [], "save_bytes": [], "load_s": [], "weights": None,
-              "train_s": []}
-    real = dict(loader=trainer.build_train_loader, step=trainer.make_source_step,
-                resume=trainer.BaselineTrainer.resume_or_load,
-                train=trainer.BaselineTrainer.train, val=LossEvalHook.__call__,
-                save=Checkpointer.save, restore=Checkpointer.restore)
+              "init": None, "seen": [], "kernel_inputs": None, "split_ms": None}
+    pools = {"forward": 0, "training": 0}
+    taking = {"pools": None}
+    patches = []
+
+    def patch(obj, name, wrap):
+        real = getattr(obj, name)
+        patches.append((obj, name, real))
+        setattr(obj, name, wrap(real))
 
     class TimedLoader:
         def __init__(self, loader):
@@ -2062,64 +2131,135 @@ def capture_train(torch, dev):
         def close(self):
             self.loader.close()
 
-    def make_source_step(model, optimizer):
-        step = real["step"](model, optimizer)
+    def loader(real):
+        def build_loader(*a, **k):
+            record["loader_call"] = (real, a, k)
+            return TimedLoader(real(*a, **k))
+        return build_loader
 
-        def timed(batch, generator=None, **kw):
+    def timed(kind, model, step, kw):
+        def run(*a, **k):
+            take = kind == "mt" and kernel_inputs
+            first = take and record["kernel_inputs"] is None
+            if kind == "mt" and snapshots and len(record["seen"]) < 2:
+                record["seen"].append((_host(model.state_dict()), _host(a[0].state_dict())))
+            if take:
+                hippi, undo_hippi = capture_hippi()
+            if first:
+                bwd, undo_bwd = capture_pool_backward()
+                taking["pools"] = []
             before = read_counters()
+            pools.update(forward=0, training=0)
             _sync(torch, dev)
             t0 = time.perf_counter()
-            metrics = step(batch, generator, **kw)
-            _sync(torch, dev)
-            record["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            try:
+                metrics = step(*a, **k)
+                _sync(torch, dev)
+            finally:
+                if first:
+                    undo_bwd()
+                if take:
+                    undo_hippi()
+            ms = (time.perf_counter() - t0) * 1e3
             after = read_counters()
-            record["step_launches"].append({k: after[k] - before[k] for k in after
-                                            if after[k] > before[k]})
-            record["losses"].append({k: float(v) for k, v in metrics.items()})
+            check_f32_params(torch, model, f"{kind} step")
+            record["steps"].append(dict(
+                kind=kind, ms=ms, losses={n: float(v) for n, v in metrics.items()},
+                launches={n: after[n] - before[n] for n in after if after[n] > before[n]},
+                pools=dict(pools), took_inputs=bool(take)))
+            if first:
+                record["kernel_inputs"] = dict(pools=taking["pools"], backward=bwd, hippi=hippi)
+                taking["pools"] = None
+            elif take:
+                for k, v in hippi.items():
+                    record["kernel_inputs"]["hippi"][k] += v
+            if kind == "mt":
+                record["last"] = (model, a[0], a[1], kw)
             return metrics
+        return run
 
-        return timed
+    def step_factory(kind):
+        def wrap(real):
+            def make(model, optimizer, **kw):
+                return timed(kind, model, real(model, optimizer, **kw), kw)
+            return make
+        return wrap
 
-    def resume_or_load(self, checkpointer):
-        resumed = real["resume"](self, checkpointer)
-        if resumed:
-            sd = self.optimizer.sgd.state_dict()
-            record["resumed"] = dict(
-                model={k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()},
-                momentum={i: s["momentum_buffer"].detach().cpu().clone()
-                          for i, s in sd["state"].items()},
-                iteration=self.optimizer.count)
-        return resumed
+    def pool(kind):
+        def wrap(real):
+            def call(levels, boxes, **k):
+                pools[kind] += 1
+                if taking["pools"] is not None:
+                    taking["pools"].append((kind, [x.detach().clone() for x in levels],
+                                            boxes.detach().clone(), k))
+                return real(levels, boxes, **k)
+            return call
+        return wrap
 
-    def train(self, *a, **k):
-        t0 = time.perf_counter()
-        try:
-            return real["train"](self, *a, **k)
-        finally:
-            _sync(torch, dev)
-            record["train_s"].append(time.perf_counter() - t0)
+    def pseudo(real):
+        def threshold_pseudo_labels(det, **kw):
+            out = real(det, **kw)
+            record["pseudo"].append(out[2].sum(1).tolist())
+            return out
+        return threshold_pseudo_labels
 
-    def val(self, it, metrics):
-        t0 = time.perf_counter()
-        n = len(self.history)
-        out = real["val"](self, it, metrics)
-        if len(self.history) > n:
-            record["val_s"].append(time.perf_counter() - t0)
-        return out
+    def resume(real):
+        def resume_or_load(self, checkpointer):
+            resumed = real(self, checkpointer)
+            if resumed:
+                sd = self.state_dict()
+                record["resumed"] = dict(
+                    model=_host(sd["model"]), iteration=sd["iteration"],
+                    optimizer={"state": {i: {"momentum_buffer": s["momentum_buffer"].detach()
+                                             .cpu().clone()}
+                                         for i, s in sd["optimizer"]["state"].items()}})
+            return resumed
+        return resume_or_load
 
-    def save(self, step, state):
-        t0 = time.perf_counter()
-        path = real["save"](self, step, state)
-        record["save_s"].append(time.perf_counter() - t0)
-        record["save_bytes"].append(os.path.getsize(path))
-        return path
+    def training(real):
+        def train(self, *a, **k):
+            t0 = time.perf_counter()
+            try:
+                return real(self, *a, **k)
+            finally:
+                _sync(torch, dev)
+                record["train_s"].append(time.perf_counter() - t0)
+        return train
 
-    def restore(self, step=None):
-        t0 = time.perf_counter()
-        out = real["restore"](self, step)
-        if out is not None:
-            record["load_s"].append(time.perf_counter() - t0)
-        return out
+    def val(real):
+        def call(self, it, metrics):
+            t0 = time.perf_counter()
+            n = len(self.history)
+            out = real(self, it, metrics)
+            if len(self.history) > n:
+                record["val_s"].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def save(real):
+        def call(self, step, state):
+            t0 = time.perf_counter()
+            path = real(self, step, state)
+            record["save_s"].append(time.perf_counter() - t0)
+            record["save_bytes"].append(os.path.getsize(path))
+            return path
+        return call
+
+    def restore(real):
+        def call(self, step=None):
+            t0 = time.perf_counter()
+            out = real(self, step)
+            if out is not None:
+                record["load_s"].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def init(real):
+        def init_params(cfg, model, seed=0):
+            out = real(cfg, model, seed)
+            record["init"] = _host(out.state_dict())
+            return out
+        return init_params
 
     class Listen(logging.Handler):
         def emit(self, rec):
@@ -2130,23 +2270,25 @@ def capture_train(torch, dev):
     handler, level = Listen(), lg.level
     lg.addHandler(handler)
     lg.setLevel(logging.INFO)
-    def build_train_loader(*a, **k):
-        record["loader_call"] = (a, k)
-        return TimedLoader(real["loader"](*a, **k))
-
-    trainer.build_train_loader = build_train_loader
-    trainer.make_source_step = make_source_step
-    trainer.BaselineTrainer.resume_or_load = resume_or_load
-    trainer.BaselineTrainer.train = train
-    LossEvalHook.__call__ = val
-    Checkpointer.save, Checkpointer.restore = save, restore
+    patch(trainer, "build_train_loader", loader)
+    patch(mt, "build_two_crop_loader", loader)
+    patch(trainer, "make_source_step", step_factory("source"))
+    patch(mt, "make_source_step", step_factory("burn-in"))
+    patch(mt, "make_mt_step", step_factory("mt"))
+    patch(rcnn, "multilevel_roi_pool", pool("forward"))
+    patch(rcnn, "multilevel_roi_pool_train", pool("training"))
+    patch(steps, "threshold_pseudo_labels", pseudo)
+    patch(trainer.BaselineTrainer, "resume_or_load", resume)
+    patch(trainer.BaselineTrainer, "train", training)
+    patch(mt.ATeacherTrainer, "train_semisup", training)
+    patch(LossEvalHook, "__call__", val)
+    patch(Checkpointer, "save", save)
+    patch(Checkpointer, "restore", restore)
+    patch(build, "init_params", init)
 
     def undo():
-        trainer.build_train_loader, trainer.make_source_step = real["loader"], real["step"]
-        trainer.BaselineTrainer.resume_or_load = real["resume"]
-        trainer.BaselineTrainer.train = real["train"]
-        LossEvalHook.__call__ = real["val"]
-        Checkpointer.save, Checkpointer.restore = real["save"], real["restore"]
+        for obj, name, real in reversed(patches):
+            setattr(obj, name, real)
         lg.removeHandler(handler)
         lg.setLevel(level)
 
@@ -2166,68 +2308,115 @@ def _checkpoint_differences(torch, a: dict, b: dict) -> list:
     return out + (["iteration"] if a["iteration"] != b["iteration"] else [])
 
 
-def _log_train_call(record, what: str, card: str, ck_mib: float) -> None:
-    n = len(record["step_ms"])
-    steady = record["step_ms"][1:] or record["step_ms"]
-    log(f"train cli {what} ({card}): loader wait s {[round(x, 4) for x in record['wait_s']]}, "
-        f"step ms {[round(x, 1) for x in record['step_ms']]}; "
-        f"{record['train_s'][0] / n:.3f} s/iter over {n} steps (median step "
-        f"{statistics.median(steady):.1f} ms, median wait {statistics.median(record['wait_s']):.3f}"
-        f" s); validation loss s {[round(x, 3) for x in record['val_s']]}; checkpoint "
-        f"{ck_mib:.1f} MiB, save s {[round(x, 3) for x in record['save_s']]}, load s "
-        f"{[round(x, 3) for x in record['load_s']]}; main() {record['main_s']:.1f} s; peak memory "
-        f"{record['peak_gib']:.2f} GiB; launches per step {record['step_launches']}")
+def _log_train_call(record, what: str, card: str) -> None:
+    ms = [s["ms"] for s in record["steps"]]
+    mt_ms = [s["ms"] for s in record["steps"] if s["kind"] == "mt"]
+    parts = [f"steps {[(s['kind'], round(s['ms'], 1)) for s in record['steps']]} ms",
+             f"loader wait s {[round(x, 4) for x in record['wait_s']]}"]
+    if ms:
+        parts.append(f"{record['train_s'][0] / len(ms):.3f} s/iter over {len(ms)} steps "
+                     f"(median step {statistics.median(ms[1:] or ms):.1f} ms, median wait "
+                     f"{statistics.median(record['wait_s']):.3f} s)")
+    if mt_ms:
+        parts.append(f"median MT step {statistics.median(mt_ms):.1f} ms, pseudo-boxes per "
+                     f"image {record['pseudo']}")
+    if record["save_bytes"]:
+        parts.append(f"checkpoint {record['save_bytes'][0] / 2 ** 20:.1f} MiB")
+    parts += [f"validation loss s {[round(x, 3) for x in record['val_s']]}",
+              f"save s {[round(x, 3) for x in record['save_s']]}, load s "
+              f"{[round(x, 3) for x in record['load_s']]}",
+              f"main() {record['main_s']:.1f} s", f"peak memory {record['peak_gib']:.2f} GiB",
+              f"launches per step {[s['launches'] for s in record['steps']]}",
+              f"pool calls per step {[s['pools'] for s in record['steps']]}"]
+    log(f"{what} ({card}): " + "; ".join(parts))
 
 
-def _train_call(torch, dev, argv, what: str):
-    """``train_net_torch.main(argv)`` under :func:`capture_train`, with the
-    kernel counters set to 0 just before and read just after, and the peak
-    device memory over the call."""
+def _train_call(torch, dev, argv, what: str, split_reps: int = 0, **capture):
+    """``train_net_torch.main(argv)`` under :func:`capture_train` (with
+    ``capture`` its options), with the kernel counters set to 0 just before
+    and read just after, and the peak device memory over the call; with
+    ``split_reps``, then the split of its last MT step between its
+    passes."""
     import train_net_torch
 
-    record, undo = capture_train(torch, dev)
+    record, undo = capture_train(torch, dev, **capture)
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     reset_counters()
     try:
         t0 = time.perf_counter()
-        result = train_net_torch.main(argv)
+        record["result"] = train_net_torch.main(argv)
         record["main_s"] = time.perf_counter() - t0
     finally:
+        record["launches"] = read_counters()
         undo()
-    record["launches"] = read_counters()
     record["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
-    record["result"] = result
+    last = record.pop("last", None)
+    if split_reps and last is not None:
+        record["split_ms"] = mt_pass_split(torch, dev, *last, reps=split_reps)
+    del last
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2", "yaml"))
-    check(not foreign, f"train cli {what}: imported {foreign[:5]}")
+    check(not foreign, f"{what}: imported {foreign[:5]}")
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     return record
 
 
-def _check_train(record, what: str, steps: int, ckdir: str, want_ckpts, val_iters, counters):
-    """The gates every training call passes: finite losses, the checkpoints
-    at the expected steps (at most 5), ``metrics.json`` lines, a finite
-    validation loss at each period, each kernel of the path launched on
-    every step."""
-    check(len(record["losses"]) == steps, f"train cli {what}: {len(record['losses'])} steps, "
-          f"expected {steps}")
-    for i, m in enumerate(record["losses"]):
+def _check_train(record, what: str, kinds, ckdir: str, want_ckpts, counters, val_iters=None):
+    """The gates every training call passes: the source, burn-in and MT
+    steps where they belong; every loss finite (the domain and ``_pseudo``
+    losses included) and ``loss_matching`` positive; on every step each
+    kernel of ``counters`` launched (the bf16 pool once per pool call); on
+    every MT step the teacher's forward-only pool and the student's
+    training pools called, and pseudo-boxes; the checkpoints at the
+    expected steps (at most 5); with ``val_iters``, a finite validation loss
+    at each period."""
+    got = [s["kind"] for s in record["steps"]]
+    check(got == list(kinds), f"{what}: steps {got}, expected {list(kinds)}")
+    need = {"loss_D_img_s", "loss_D_img_t", "loss_cls_pseudo", "loss_rpn_cls_pseudo",
+            "loss_box_reg_pseudo", "loss_rpn_loc_pseudo", "loss_matching", "total_loss"}
+    for i, s in enumerate(record["steps"]):
+        m = s["losses"]
         bad = {k: v for k, v in m.items() if not math.isfinite(v)}
-        check(not bad, f"train cli {what} step {i}: non-finite losses {bad}")
-        check(m["loss_matching"] > 0.0, f"train cli {what} step {i}: loss_matching "
-              f"{m['loss_matching']}")
+        check(not bad, f"{what} step {i}: non-finite losses {bad}")
+        check(m["loss_matching"] > 0.0, f"{what} step {i}: loss_matching {m['loss_matching']}")
+        missing = [k for k in counters if s["launches"].get(k, 0) < 1]
+        check(not missing, f"{what} step {i}: kernels {missing} not launched ({s['launches']})")
+        check("roi_pool_bf16" not in counters
+              or s["launches"].get("roi_pool_bf16", 0) == sum(s["pools"].values()),
+              f"{what} step {i}: {s['launches']} for pool calls {s['pools']}")
+        if s["kind"] == "mt":
+            check(need <= set(m), f"{what} step {i}: losses {sorted(m)}")
+            check(s["pools"]["forward"] >= 1 and s["pools"]["training"] >= 1,
+                  f"{what} step {i}: pool calls {s['pools']}")
+    if "mt" in kinds:
+        check(record["pseudo"] and all(sum(p) > 0 for p in record["pseudo"]),
+              f"{what}: pseudo-boxes per image {record['pseudo']}")
     names = sorted(f for f in os.listdir(ckdir) if f.endswith(".pth"))
     check(names == [f"model_{s:07d}.pth" for s in want_ckpts] and len(names) <= 5,
-          f"train cli {what}: checkpoints {names}, expected steps {list(want_ckpts)}")
-    val = record["result"]["validation_loss"]
-    check([it for it, _ in val] == list(val_iters) and all(math.isfinite(v) for _, v in val),
-          f"train cli {what}: validation loss {val}, expected at {list(val_iters)}")
-    for i, launches in enumerate(record["step_launches"]):
-        missing = [k for k in counters if launches.get(k, 0) < 1]
-        check(not missing, f"train cli {what} step {i}: kernels {missing} not launched "
-              f"({launches})")
+          f"{what}: checkpoints {names}, expected steps {list(want_ckpts)}")
+    if val_iters is not None:
+        val = record["result"]["validation_loss"]
+        check([it for it, _ in val] == list(val_iters) and all(math.isfinite(v) for _, v in val),
+              f"{what}: validation loss {val}, expected at {list(val_iters)}")
+
+
+def loader_host_s(record, batches: int) -> list:
+    """The host seconds per batch of the call's train loader (same records,
+    geometry and seed) on the calling thread, with no step or hook to hide
+    them."""
+    build_loader, a, k = record["loader_call"]
+    loader = build_loader(*a, **{**k, "prefetch": 0})
+    out = []
+    try:
+        for _ in range(batches):
+            t0 = time.perf_counter()
+            next(loader)
+            out.append(time.perf_counter() - t0)
+    finally:
+        loader.close()
+    return out
 
 
 def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
@@ -2278,10 +2467,11 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
             f"train_net_torch.main({' '.join(argv(out, 4)[2:4])} ...)")
         ckdir = os.path.join(out, "checkpoints")
         calls = {}
-        calls[1] = _train_call(torch, dev, argv(out, 4), "call 1")
+        src4 = ("source",) * 4
+        calls[1] = _train_call(torch, dev, argv(out, 4), "train cli call 1")
         ck_mib = calls[1]["save_bytes"][0] / 2 ** 20
-        _log_train_call(calls[1], "call 1", card, ck_mib)
-        _check_train(calls[1], "call 1", 4, ckdir, (2, 4), (2, 4), counters)
+        _log_train_call(calls[1], "train cli call 1", card)
+        _check_train(calls[1], "train cli call 1", src4, ckdir, (2, 4), counters, (2, 4))
         check(calls[1]["resumed"] is None, "train cli call 1 resumed from a checkpoint")
         lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json")).read().splitlines()]
         check([x["iteration"] for x in lines] == [3] and "total_loss" in lines[0],
@@ -2290,26 +2480,23 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
         os.makedirs(os.path.join(out3, "checkpoints"))
         shutil.copy(os.path.join(ckdir, "model_0000004.pth"), os.path.join(out3, "checkpoints"))
 
-        calls[2] = _train_call(torch, dev, argv(out, 8), "call 2")
-        _log_train_call(calls[2], "call 2", card, ck_mib)
-        _check_train(calls[2], "call 2", 4, ckdir, (2, 4, 6, 8), (6, 8), counters)
+        calls[2] = _train_call(torch, dev, argv(out, 8), "train cli call 2")
+        _log_train_call(calls[2], "train cli call 2", card)
+        _check_train(calls[2], "train cli call 2", src4, ckdir, (2, 4, 6, 8), counters, (6, 8))
         step4 = torch.load(os.path.join(ckdir, "model_0000004.pth"), map_location="cpu",
                            weights_only=False)
         res = calls[2]["resumed"]
         check(res is not None, "train cli call 2 did not resume")
-        diff = _checkpoint_differences(torch, {"model": res["model"], "iteration":
-                                               res["iteration"], "optimizer": {"state": {
-                                                   i: {"momentum_buffer": v} for i, v in
-                                                   res["momentum"].items()}}}, step4)
+        diff = _checkpoint_differences(torch, res, step4)
         check(not diff, f"train cli call 2: the resumed state differs from the step-4 file in "
               f"{diff[:6]}")
         lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json")).read().splitlines()]
         check([x["iteration"] for x in lines] == [3, 7], f"train cli call 2: metrics.json {lines}")
 
-        calls[3] = _train_call(torch, dev, argv(out3, 8), "call 3")
-        _log_train_call(calls[3], "call 3", card, ck_mib)
-        _check_train(calls[3], "call 3", 4, os.path.join(out3, "checkpoints"), (4, 6, 8), (6, 8),
-                     counters)
+        calls[3] = _train_call(torch, dev, argv(out3, 8), "train cli call 3")
+        _log_train_call(calls[3], "train cli call 3", card)
+        _check_train(calls[3], "train cli call 3", src4, os.path.join(out3, "checkpoints"),
+                     (4, 6, 8), counters, (6, 8))
         final2 = torch.load(os.path.join(ckdir, "model_0000008.pth"), map_location="cpu",
                             weights_only=False)
         final3 = torch.load(os.path.join(out3, "checkpoints", "model_0000008.pth"),
@@ -2317,22 +2504,10 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
         diff = _checkpoint_differences(torch, final2, final3)
         check(not diff, f"train cli call 3: its final checkpoint differs from call 2's in "
               f"{diff[:6]}")
-        check([m["total_loss"] for m in calls[3]["losses"]]
-              == [m["total_loss"] for m in calls[2]["losses"]],
+        check([s["losses"]["total_loss"] for s in calls[3]["steps"]]
+              == [s["losses"]["total_loss"] for s in calls[2]["steps"]],
               "train cli call 3: losses differ from call 2's")
-
-        # the loader's own host time per batch, with no step or hook to hide
-        # it: the train call's loader (same records, geometry and seed) on
-        # the calling thread
-        from ttdg_mgm_torch.data.loader import build_train_loader
-
-        a, k = calls[1]["loader_call"]
-        loader = build_train_loader(*a, **{**k, "prefetch": 0})
-        host_s = []
-        for _ in range(LOADER_BATCHES):
-            t1 = time.perf_counter()
-            next(loader)
-            host_s.append(time.perf_counter() - t1)
+        host_s = loader_host_s(calls[1], LOADER_BATCHES)
 
         weights = os.path.join(ckdir, "model_0000008.pth")
         # after 8 steps from random weights every polyp score is below the
@@ -2344,7 +2519,7 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
               "DATASETS.TEST", '["BKAI_test"]', "TEST.DICE_THRES", "0.0",
               "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
               "OUTPUT_DIR", os.path.join(tmp, "eval"), *eval_opts]
-        calls[4] = _train_call(torch, dev, ev, "call 4")
+        calls[4] = _train_call(torch, dev, ev, "train cli call 4")
         log(f"train cli call 4 ({card}): eval-only on the trained file {calls[4]['main_s']:.1f} "
             f"s, init_params {calls[4]['weights']}, results "
             f"{json.dumps(calls[4]['result'].get('BKAI_test'))}, launches "
@@ -2361,12 +2536,12 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
     for c in (1, 2, 3):
         r = calls[c]
         summary[f"call{c}"] = dict(
-            wait_s=r["wait_s"], step_ms=r["step_ms"],
-            s_per_iter=r["train_s"][0] / len(r["step_ms"]), train_s=r["train_s"][0], main_s=r["main_s"], val_s=r["val_s"], save_s=r["save_s"],
-            load_s=r["load_s"], peak_gib=r["peak_gib"],
-            total_loss=[m["total_loss"] for m in r["losses"]],
-            launches_per_step=r["step_launches"], launches=r["launches"])
-    steps = [s for c in (1, 2, 3) for s in calls[c]["step_ms"][1:]]
+            wait_s=r["wait_s"], step_ms=[s["ms"] for s in r["steps"]],
+            s_per_iter=r["train_s"][0] / len(r["steps"]), train_s=r["train_s"][0],
+            main_s=r["main_s"], val_s=r["val_s"], save_s=r["save_s"], load_s=r["load_s"],
+            peak_gib=r["peak_gib"], total_loss=[s["losses"]["total_loss"] for s in r["steps"]],
+            launches_per_step=[s["launches"] for s in r["steps"]], launches=r["launches"])
+    steps = [s["ms"] for c in (1, 2, 3) for s in calls[c]["steps"][1:]]
     ratio = statistics.median(host_s) * 1e3 / statistics.median(steps)
     log(f"train cli ({card}): the loader's host time per batch of 8 on one thread "
         f"{[round(x, 3) for x in host_s]} s, median {statistics.median(host_s):.3f} s, against "
@@ -2375,6 +2550,272 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
     return dict(summary=summary, launches=calls[1]["launches"], checkpoint_mib=ck_mib,
                 loader_host_s=host_s, loader_over_step=ratio, eval_metrics=metrics,
                 eval_main_s=calls[4]["main_s"])
+
+
+# -- phase 11: the mean-teacher trainer through the command line ------------------
+
+#: synthetic fundus splits of phase 11, ``(split, records, (h, w))``: the
+#: labelled and unlabelled training splits of ``configs/seg_res50fpn_MT.yaml``
+#: at RIM-ONE r3's and REFUGE's frame sizes, and a REFUGE test split (cut to
+#: 800 x 800, so that scoring every detection stays cheap) for the eval calls
+MT_SPLITS = (("RIM_ONE_r3_train", 5, (1424, 1072)), ("REFUGE_train", 5, (2056, 2124)),
+             ("REFUGE_test", 4, (800, 800)))
+#: overrides of the shipped MT config, each with its reason
+MT_OVERRIDES = (
+    ("SEMISUPNET.BURN_UP_STEP", "2", "the shipped config keeps the default 12000, above its "
+     "MAX_ITER 10000, so it never leaves burn-in: 2 burn-in steps, then the copy and MT steps"),
+    ("SEMISUPNET.BBOX_THRESHOLD", "0.3", "random weights score about 1/3 (2 classes and "
+     "background), under the shipped 0.8: 0.3 gives the unlabelled pass pseudo-boxes"),
+    ("SOLVER.CHECKPOINT_PERIOD", "2", "checkpoints inside a 4-step run, for the resume"),
+)
+MT_SPLIT_REPS = 3
+MT_LOADER_BATCHES = 3
+
+
+def mt_pass_split(torch, dev, model, teacher, batch, kw, reps: int) -> dict:
+    """The MT step's passes apart, each synchronized, median of ``reps``:
+    the teacher's detection on the weak unlabelled views, the labelled pass
+    (forward and backward), the pseudo-labelled pass and the two domain
+    passes.  Gradients are dropped after each; no weight changes."""
+    from ttdg_mgm_torch.engine.steps import threshold_pseudo_labels
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {"teacher": [], "labelled": [], "unlabelled": [], "domain": []}
+
+    def timed(name, fn):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(torch, dev)
+        out[name].append((time.perf_counter() - t0) * 1e3)
+        model.zero_grad(set_to_none=True)
+        return res
+
+    for _ in range(reps):
+        det = timed("teacher", lambda: teacher.proposals_weak(batch["unlabel_weak"],
+                                                              batch["unlabel_sizes"]))
+        pb, pc, pv = threshold_pseudo_labels(det, threshold=kw["pseudo_threshold"],
+                                             max_boxes=kw["gt_cap"])
+        timed("labelled", lambda: sum(model.loss_supervised(
+            batch["label_strong"], batch["label_sizes"], batch["gt_boxes"],
+            batch["gt_classes"], batch["gt_masks"], batch["gt_valid"],
+            generator=gen).values()).backward())
+
+        def unlabelled():
+            u = model.loss_supervised(batch["unlabel_strong"], batch["unlabel_sizes"], pb, pc,
+                                      torch.zeros_like(batch["gt_masks"][:, :pb.shape[1]]), pv,
+                                      generator=gen, source=False, with_mask=False)
+            (u["loss_cls"] + u["loss_rpn_cls"]).backward()
+
+        timed("unlabelled", unlabelled)
+        timed("domain", lambda: sum(model.loss_domain(batch["label_weak"],
+                                                      batch["unlabel_weak"]).values()).backward())
+    return {k: statistics.median(v) for k, v in out.items()}
+
+
+def hold_mt_kernels(torch, dev, rec) -> dict:
+    """Kernels A, C and D on what one MT step gave them (``rec``, from
+    :func:`capture_train` with ``kernel_inputs``), each against its plain
+    version: A on the teacher's forward-only box pool and on the student's
+    training pools (the labelled box and mask pools, the pseudo-labelled
+    box pool) of the first MT step, C on that step's three cotangents
+    (focal-loss and pseudo-label gradients), D on every projection of the
+    labelled pass's HiPPI on every MT step, and the longest of those HiPPI
+    calls rerun with the plain projection.  These launches are not the
+    main path's."""
+    check(rec is not None, "mt cli: no MT step's kernel inputs were taken")
+    pools, names = {}, []
+    for kind, levels, rois, kw in rec["pools"]:
+        P = kw.get("output_size", 7)
+        check(kw.get("sampling_ratio", 0) == 0, f"mt cli: pool options {kw} are not the "
+              "flagship's")
+        if kind == "forward":
+            name = "teacher box"
+        else:
+            name = "labelled " + ("box" if P == 7 else "mask")
+            if name in pools:
+                name = "pseudo-labelled box"
+            names.append((rois, name))
+        B, K = rois.shape[:2]
+        pools[name] = hold_pool(torch, levels, rois, P, f"mt cli roi_pool {name}",
+                                f"levels {tuple(levels[0].shape)}..{tuple(levels[-1].shape)}, "
+                                f"{B} x {K} ROIs of one MT step")
+    check(sorted(pools) == ["labelled box", "labelled mask", "pseudo-labelled box",
+                            "teacher box"], f"mt cli: pool calls of one MT step {sorted(pools)}")
+    bwd = phase_roi_backward_main(torch, dev, rec["backward"], names=names)
+    steps = [h[-1]["steps"] for h in rec["hippi"]["hippi"]]
+    log(f"mt cli: {len(steps)} HiPPI calls on the MT steps, iterations {steps}")
+    err, rerun = hold_sinkhorn(torch, rec["hippi"], "the MT steps")
+    return dict(pools=pools, backward=bwd,
+                sinkhorn=dict(max_abs_err=err, hippi_steps=steps,
+                              projections_checked=len(rec["hippi"]["projections"]),
+                              hippi_rerun=rerun))
+
+
+def phase_mt_cli(torch, dev, card: str = "", opts=(), eval_opts=(), counters=TRAIN_COUNTERS,
+                 eval_counters=("gagm",), splits=MT_SPLITS, split_reps: int = MT_SPLIT_REPS):
+    """The mean-teacher trainer as a user runs it: ``train_net_torch.main([
+    "--config", "configs/seg_res50fpn_MT.yaml", ...])`` at full width with
+    the shipped config (R50-FPN, batch 4 labelled + 4 unlabelled, the bf16
+    policy of ``TPU.PRECISION``, ``EMA_KEEP_RATE`` 0.9996, the discriminator
+    on p2, focal loss, the square 800 canvas), random weights
+    (``MODEL.WEIGHTS ""``), on synthetic ``RIM_ONE_r3_train`` (labelled) and
+    ``REFUGE_train`` (unlabelled) splits in the reference's layout with
+    polygon ground truth, with the overrides of ``MT_OVERRIDES`` (each
+    printed with its reason).  Call 1 trains 4 steps: 2 burn-in steps, the
+    teacher's copy at step 2 (equal to the student bit for bit), MT steps 2
+    and 3 (step 3's teacher the moving average of step 2's teacher and step
+    3's student, recomputed on the host), and kernels A, C and D held
+    against their plain versions on the inputs of its MT steps
+    (:func:`hold_mt_kernels`; the MT step median leaves out the steps that
+    copied them); call 2 the same command to 6
+    steps, resumed at step 4 bit for bit from the ensemble-layout file;
+    call 3 call 2 again from a directory that holds only the step-4
+    checkpoint, its final checkpoint bit for bit call 2's (two MT steps
+    from one state give the same bits); calls 4 and 5 ``--eval-only
+    --config configs/test_segment_MT.yaml`` on call 2's final file, on a
+    REFUGE test split, with ``TEST.EVAL_STU False`` (the teacher; the
+    shipped file sets True) and as shipped (the student): every tensor of
+    the member loaded, kernel B launched, Dice, E and S finite.  Logs the
+    step times, the split of one MT step between its passes, the loader's
+    waits, the pseudo-boxes per image, the launches and pool calls per
+    step, the peak memory, and the two-crop loader's host time per batch
+    on one thread."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = os.path.join(tmp, "data")
+        for i, (split, n, hw) in enumerate(splits):
+            write_fundus_split(data, n, hw, seed=10 + i, polygons=True, split=split)
+        cfg = os.path.join(HERE, "configs", "seg_res50fpn_MT.yaml")
+        out = os.path.join(tmp, "out")
+        over = [x for k, v, _ in MT_OVERRIDES for x in (k, v)]
+        for k, v, why in MT_OVERRIDES:
+            log(f"mt cli: override {k} {v}: {why}")
+        log("mt cli: override SOLVER.MAX_ITER 4, then 6 (resumed at 4): the smoke run's depth, "
+            "cut from the shipped 10000")
+
+        def argv(out_dir, max_iter):
+            return ["--device", str(dev), "--config", cfg, "--datasets-root", data,
+                    "MODEL.WEIGHTS", "", "OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(max_iter),
+                    *over, *opts]
+
+        log(f"mt cli: splits {[(s, n, hw) for s, n, hw in splits]} written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        ckdir = os.path.join(out, "checkpoints")
+        calls = {1: _train_call(torch, dev, argv(out, 4), "mt cli call 1", split_reps=split_reps,
+                                snapshots=True, kernel_inputs=True)}
+        _log_train_call(calls[1], "mt cli call 1", card)
+        _check_train(calls[1], "mt cli call 1", ("burn-in", "burn-in", "mt", "mt"), ckdir, (2, 4),
+                     counters)
+        check(calls[1]["resumed"] is None, "mt cli call 1 resumed from a checkpoint")
+        (s2, t2), (s3, t3) = calls[1]["seen"]
+        diff = [k for k in s2 if not torch.equal(s2[k], t2[k])]
+        check(not diff, f"mt cli call 1: the teacher differs from the student at the copy in "
+              f"{diff[:5]}")
+        from ttdg_mgm_torch.config import setup_cfg
+
+        keep = np.float32(setup_cfg(cfg, []).SEMISUPNET.EMA_KEEP_RATE)
+        worst = 0.0
+        for k in s3:
+            if k.endswith(("running_mean", "running_var")):
+                check(torch.equal(t3[k], t2[k]), f"mt cli call 1: {k} moved")
+                continue
+            want = t2[k].numpy() * keep + s3[k].numpy() * (np.float32(1) - keep)
+            err = np.abs(t3[k].numpy() - want) / np.maximum(np.abs(want), 1e-30)
+            worst = max(worst, float(err.max()) if err.size else 0.0)
+        check(worst <= 2 ** -23, f"mt cli call 1: the step-3 teacher is {worst:.3g} (relative) "
+              "from t * keep + s * (1 - keep)")
+        moved = sum(not torch.equal(s2[k], s3[k]) for k in s2)
+        log(f"mt cli call 1: teacher == student at step 2 ({len(s2)} tensors); step-3 teacher "
+            f"within {worst:.3g} of the host's moving average; {moved} tensors of the student "
+            f"moved at step 2; MT step split {calls[1]['split_ms']} ms")
+        del calls[1]["seen"]
+        held = hold_mt_kernels(torch, dev, calls[1].pop("kernel_inputs"))
+        step4 = torch.load(os.path.join(ckdir, "model_0000004.pth"), map_location="cpu",
+                           weights_only=False)
+        keys = list(step4["model"])
+        n_student = sum(k.startswith("modelStudent.") for k in keys)
+        check(n_student and 2 * n_student == len(keys)
+              and sum(k.startswith("modelTeacher.") for k in keys) == n_student,
+              f"mt cli call 1: checkpoint keys not in the ensemble layout: {keys[:3]}")
+        out3 = os.path.join(tmp, "out3")
+        os.makedirs(os.path.join(out3, "checkpoints"))
+        shutil.copy(os.path.join(ckdir, "model_0000004.pth"), os.path.join(out3, "checkpoints"))
+
+        calls[2] = _train_call(torch, dev, argv(out, 6), "mt cli call 2")
+        _log_train_call(calls[2], "mt cli call 2", card)
+        _check_train(calls[2], "mt cli call 2", ("mt", "mt"), ckdir, (2, 4, 6), counters)
+        res = calls[2]["resumed"]
+        check(res is not None, "mt cli call 2 did not resume")
+        diff = _checkpoint_differences(torch, res, step4)
+        check(not diff, f"mt cli call 2: the resumed state differs from the step-4 file in "
+              f"{diff[:6]}")
+
+        calls[3] = _train_call(torch, dev, argv(out3, 6), "mt cli call 3")
+        _log_train_call(calls[3], "mt cli call 3", card)
+        _check_train(calls[3], "mt cli call 3", ("mt", "mt"), os.path.join(out3, "checkpoints"),
+                     (4, 6), counters)
+        final2 = torch.load(os.path.join(ckdir, "model_0000006.pth"), map_location="cpu",
+                            weights_only=False)
+        final3 = torch.load(os.path.join(out3, "checkpoints", "model_0000006.pth"),
+                            map_location="cpu", weights_only=False)
+        diff = _checkpoint_differences(torch, final2, final3)
+        check(not diff, f"mt cli call 3: its final checkpoint differs from call 2's in {diff[:6]}")
+        host_s = loader_host_s(calls[1], MT_LOADER_BATCHES)
+
+        weights = os.path.join(ckdir, "model_0000006.pth")
+        ev = ["--eval-only", "--device", str(dev), "--config",
+              os.path.join(HERE, "configs", "test_segment_MT.yaml"), "--datasets-root", data,
+              "MODEL.WEIGHTS", weights, "DATASETS.TEST", '["REFUGE_test"]',
+              "TEST.DICE_THRES", "0.0", "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
+              "OUTPUT_DIR", os.path.join(tmp, "eval"), *eval_opts]
+        for c, member, extra in ((4, "modelTeacher", ["TEST.EVAL_STU", "False"]),
+                                 (5, "modelStudent", [])):
+            calls[c] = _train_call(torch, dev, ev + extra, f"mt cli call {c}")
+            want = {k[len(member) + 1:]: v for k, v in final2["model"].items()
+                    if k.startswith(member + ".")}
+            got = calls[c]["init"]
+            diff = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+            check(len(got) == len(want) and not diff,
+                  f"mt cli call {c}: {member} not loaded: {len(got)} tensors, differing "
+                  f"{diff[:5]}")
+            metrics = calls[c]["result"]["REFUGE_test"]
+            log(f"mt cli call {c} ({card}): eval-only {' '.join(extra) or 'as shipped'}: "
+                f"{member} loaded ({len(want)} tensors), {calls[c]['main_s']:.1f} s, results "
+                f"{json.dumps(metrics)}, launches "
+                f"{ {k: v for k, v in calls[c]['launches'].items() if v} }")
+            check(all(calls[c]["launches"][k] >= 1 for k in eval_counters),
+                  f"mt cli call {c}: kernels {list(eval_counters)} not all launched")
+            check(len(metrics) == 3 and all(math.isfinite(v) for v in metrics.values()),
+                  f"mt cli call {c}: Dice, E and S not all finite: {metrics}")
+
+    # the MT steps that also copied their kernels' inputs are left out
+    mt_steps = [s["ms"] for c in (1, 2, 3) for s in calls[c]["steps"]
+                if s["kind"] == "mt" and not s["took_inputs"]]
+    med = statistics.median(mt_steps)
+    ratio = statistics.median(host_s) * 1e3 / med
+    log(f"mt cli ({card}): the two-crop loader's host time per batch (4 + 4 records, 16 views, "
+        f"one thread) {[round(x, 3) for x in host_s]} s, median {statistics.median(host_s):.3f} "
+        f"s, against the median MT step {med:.1f} ms: loader / step {ratio:.1f}")
+    summary = {f"call{c}": dict(
+        steps=[(s["kind"], s["ms"]) for s in calls[c]["steps"]], wait_s=calls[c]["wait_s"],
+        main_s=calls[c]["main_s"], peak_gib=calls[c]["peak_gib"], save_s=calls[c]["save_s"],
+        total_loss=[s["losses"]["total_loss"] for s in calls[c]["steps"]],
+        launches_per_step=[s["launches"] for s in calls[c]["steps"]],
+        pools_per_step=[s["pools"] for s in calls[c]["steps"]],
+        pseudo_per_image=calls[c]["pseudo"]) for c in (1, 2, 3)}
+    launches = {k: calls[1]["launches"][k] + calls[4]["launches"][k] for k in calls[1]["launches"]}
+    return dict(summary=summary, launches=launches, mt_step_median_ms=med, held=held,
+                split_ms=calls[1]["split_ms"], loader_host_s=host_s, loader_over_step=ratio,
+                checkpoint_mib=calls[1]["save_bytes"][0] / 2 ** 20,
+                eval={c: dict(main_s=calls[c]["main_s"],
+                              metrics=calls[c]["result"]["REFUGE_test"],
+                              launches=calls[c]["launches"]) for c in (4, 5)})
 
 
 # -- main ---------------------------------------------------------------------------
@@ -2431,32 +2872,37 @@ def main() -> int:
     cli = phase_cli(torch, dev, card)
     cli16 = phase_cli_bf16(torch, dev, card)
     train = phase_train_cli(torch, dev, card)
+    mtc = phase_mt_cli(torch, dev, card)
     if "--warm" in argv:
         phase_warm(torch, dev)
 
     g4 = gagm["G4_M60"]
     paths = {"tta": e2e, "source": src, "cli": cli, "tta_bf16": e2e16, "source_bf16": src16,
-             "cli_bf16": cli16, "train_cli": train}
+             "cli_bf16": cli16, "train_cli": train, "mt_cli": mtc}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items()} for k in e2e["launches"]}
     pick = ("ms", "kernel_only_ms", "args_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "shape")
 
-    def pool_kernel(name, pools, train, tta):
+    held = mtc.pop("held")
+
+    def pool_kernel(name, pools, train, tta, mt=None):
         box, mask = pools["box"], pools["mask"]
+        mt = mt or {}
         return dict(name=name, route="cuda", source="ttdg_mgm_torch/csrc/roi_pool.cu",
                     replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:113",
                     launches=tta["launches"][name], launches_by_path=by_path[name],
-                    max_abs_err=max(r["max_abs_err"] for r in (*pools.values(), *train.values())),
+                    max_abs_err=max(r["max_abs_err"] for r in (*pools.values(), *train.values(),
+                                                               *mt.values())),
                     tolerance=pool_tolerance(name.endswith("bf16")),
                     ms=box["ms"], plain_ms=box["plain_ms"], bound_ms=box["bound_ms"],
                     bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
                     kernel_only_ms=box["kernel_only_ms"], args_ms=box["args_ms"],
                     geometry_ulps=max(r["geometry_ulps"] for r in (*pools.values(),
                                                                   *train.values())),
-                    mask_pool={k: mask[k] for k in pick}, train_pools=train,
+                    mask_pool={k: mask[k] for k in pick}, train_pools=train, mt_step_pools=mt,
                     rect_canvas={k: v for k, v in pools.items() if k not in ("box", "mask")})
 
-    def backward_kernel(name, bwd, main_path, source):
+    def backward_kernel(name, bwd, main_path, source, mt=None):
         box, mask = bwd["box"], bwd["mask"]
         return dict(name=name, route="cuda", source="ttdg_mgm_torch/csrc/roi_pool_backward.cu",
                     replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:350",
@@ -2467,11 +2913,11 @@ def main() -> int:
                     bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
                     kernel_only_ms=box["kernel_only_ms"], args_ms=box["args_ms"],
                     deterministic=box["deterministic"] and mask["deterministic"],
-                    main_path=main_path, mask_pool={k: mask[k] for k in pick})
+                    main_path=main_path, mt_step=mt, mask_pool={k: mask[k] for k in pick})
 
     kernels = [
         pool_kernel("roi_pool", roi, roi_train, e2e),
-        pool_kernel("roi_pool_bf16", roi16, roi_train16, e2e16),
+        pool_kernel("roi_pool_bf16", roi16, roi_train16, e2e16, held["pools"]),
         dict(name="gagm", route="cuda", source="ttdg_mgm_torch/csrc/gagm.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/gagm_pallas.py:53",
              launches=e2e["launches"]["gagm"], launches_by_path=by_path["gagm"],
@@ -2482,17 +2928,19 @@ def main() -> int:
              other_cases={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "steps")}
                           for k, v in gagm.items() if k != "G4_M60"}),
         backward_kernel("roi_pool_backward", roi_bwd, bwd_main, src),
-        backward_kernel("roi_pool_backward_bf16", roi_bwd16, bwd_main16, src16),
+        backward_kernel("roi_pool_backward_bf16", roi_bwd16, bwd_main16, src16, held["backward"]),
         dict(name="sinkhorn", route="cuda", source="ttdg_mgm_torch/csrc/sinkhorn.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/sinkhorn_pallas.py:31",
              launches=src["launches"]["sinkhorn"], launches_by_path=by_path["sinkhorn"],
-             max_abs_err=sk["max_abs_err"], ms=sk["ms"], plain_ms=sk["plain_ms"],
+             max_abs_err=max(sk["max_abs_err"], held["sinkhorn"]["max_abs_err"]), ms=sk["ms"],
+             plain_ms=sk["plain_ms"],
              bound_ms=sk["bound_ms"], bound_by=sk["bound_by"], library_ms=None,
              shape=sk["shape"], chain_floor_ms=sk["chain_floor_ms"],
              transcendentals=sk["transcendentals"], kernel_only_ms=sk["kernel_only_ms"],
              generic_path_ms=sk["generic_path_ms"],
              input_dtypes_bf16_path=src16["kernel_d_dtypes"],
-             projections_checked=sk["projections_checked"], hippi_rerun=sk["hippi_rerun"]),
+             projections_checked=sk["projections_checked"], hippi_rerun=sk["hippi_rerun"],
+             mt_step=held["sinkhorn"]),
     ]
     e2e_keys = ("step_ms", "steady_ms", "images_per_s", "losses", "infer_ms", "peak_gib")
     src_keys = ("batch", "step_ms", "steady_ms", "images_per_s", "total_loss", "peak_gib")
@@ -2507,6 +2955,7 @@ def main() -> int:
     log(f"cli summary ({card}): {json.dumps(cli_line)}")
     log(f"cli bf16 summary ({card}): {json.dumps(cli16)}")
     log(f"train cli summary ({card}): {json.dumps(train)}")
+    log(f"mt cli summary ({card}): {json.dumps(mtc)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -128,17 +128,20 @@ def test_model_fields_match_jax_build_model(path):
 
 
 def test_unported_options_are_refused():
-    """The VGG backbone and the mean-teacher trainer raise, naming the way
-    out; bf16 compute is ported and no longer refused (its mapping is held
-    in tests/test_torch_bf16.py)."""
+    """The VGG backbone and the mean-teacher trainer's cross-domain head
+    raise, naming the way out; bf16 compute and the mean-teacher trainer
+    without that head are ported and no longer refused (their mapping and
+    dispatch are held in tests/test_torch_bf16.py and
+    tests/test_torch_ateacher.py)."""
     seg = os.path.join(REPO, "configs", "test_segment.yaml")
     assert tbuild.model_kwargs(tconfig.setup_cfg(seg))["compute_dtype"] == "bfloat16"
     with pytest.raises(NotImplementedError, match="VGG backbone"):
         tbuild.model_kwargs(tconfig.setup_cfg(seg, FLOAT32 + ["MODEL.BACKBONE.NAME",
                                                               "build_vgg_backbone"]))
     mt = os.path.join(REPO, "configs", "test_segment_MT.yaml")
-    with pytest.raises(NotImplementedError, match="mean-teacher trainer"):
-        tbuild.build_trainer(tconfig.setup_cfg(mt, FLOAT32), device="cpu")
+    with pytest.raises(NotImplementedError, match="mean-teacher trainer's cross-domain head"):
+        tbuild.build_trainer(tconfig.setup_cfg(mt, FLOAT32 + ["SEMISUPNET.CROSS_DOMAIN_MATCHING",
+                                                              "True"]), device="cpu")
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)

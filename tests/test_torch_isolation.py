@@ -1,7 +1,8 @@
 """The port stands alone: ``ttdg_mgm_torch``, ``train_net_torch.py`` and
 ``chip_smoke.py`` import neither JAX nor the JAX package, nor Pillow,
 OpenCV or PyYAML (the chip machine has none of the three; the eval-only CLI
-on PNG images with RLE ground truth loads none of them either), and the
+on PNG images with RLE ground truth and the mean-teacher training CLI with
+its strong augmentation load none of them either), and the
 port's entry points run on CUDA unless the caller asks for the CPU."""
 
 import ast
@@ -27,7 +28,7 @@ def _port_sources():
     return sorted(out)
 
 
-def test_fresh_import_loads_no_jax():
+def test_fresh_import_loads_no_jax(tmp_path):
     """Every module of the package and chip_smoke, imported in a fresh
     interpreter, leave no JAX and no JAX-package module in sys.modules."""
     mods = []
@@ -42,12 +43,14 @@ def test_fresh_import_loads_no_jax():
             "print(len(bad), bad[:5])\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=os.path.dirname(REPO), env=env, timeout=300)
+                         cwd=tmp_path, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "0 []", res.stdout
     assert len(mods) > 25
     assert "ttdg_mgm_torch.graph.universe" in mods
     assert "train_net_torch" in mods and "ttdg_mgm_torch.engine.trainer" in mods
+    assert {"ttdg_mgm_torch.engine.mean_teacher", "ttdg_mgm_torch.models.discriminator",
+            "ttdg_mgm_torch.data.enhance"} <= set(mods)
 
 
 def test_cli_imports_no_pillow_opencv_or_yaml(tmp_path):
@@ -67,7 +70,36 @@ def test_cli_imports_no_pillow_opencv_or_yaml(tmp_path):
             "print('FOREIGN', len(bad), bad[:5])\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=os.path.dirname(REPO), env=env, timeout=600)
+                         cwd=tmp_path, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "FOREIGN 0 []" in res.stdout, res.stdout[-2000:]
+
+
+def test_mt_train_cli_imports_no_pillow_opencv_or_yaml(tmp_path):
+    """``train_net_torch.main`` training with ``configs/seg_res50fpn_MT.yaml``
+    on the CPU at a tiny size (a burn-in step, then MT steps: the two-crop
+    loader and its strong augmentation) leaves no PIL, cv2 or yaml module
+    in sys.modules."""
+    from torch_port_fixture import cli_args, write_mini_split
+
+    write_mini_split(tmp_path)
+    args = cli_args(str(tmp_path), tmp_path / "out")
+    args = args[args.index("--device"):]
+    args[args.index("--config") + 1] = os.path.join(REPO, "configs", "seg_res50fpn_MT.yaml")
+    args += ["DATASETS.TRAIN_LABEL", '["Drishti_GS_test"]', "DATASETS.TRAIN_UNLABEL",
+             '["Drishti_GS_test"]', "SOLVER.IMG_PER_BATCH_LABEL", "2", "SOLVER.MAX_ITER", "2",
+             "SEMISUPNET.BURN_UP_STEP", "1", "MODEL.FPN.OUT_CHANNELS", "32",
+             "MODEL.ROI_BOX_HEAD.FC_DIM", "64", "MODEL.ROI_MASK_HEAD.CONV_DIM", "32"]
+    code = ("import sys\n"
+            f"sys.path.insert(0, {REPO!r})\n"
+            "import train_net_torch\n"
+            f"res = train_net_torch.main({args!r})\n"
+            "assert res['iteration'] == 2, res\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', 'yaml'))\n"
+            "print('FOREIGN', len(bad), bad[:5])\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=tmp_path, env=env, timeout=600)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "FOREIGN 0 []" in res.stdout, res.stdout[-2000:]
 

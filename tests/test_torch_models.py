@@ -126,11 +126,15 @@ def test_flagship_param_tree_loads_through_the_bridge():
 
 def test_bridge_loader_is_strict(fixture_models):
     """A name the port's modules own that is missing, or an unknown name
-    under them, raises; names outside them are skipped and returned."""
+    under them, raises; names outside them (the unported cross-domain head)
+    are skipped and returned.  The discriminator is owned: a tensor of
+    another shape under ``D_img`` raises."""
     _, jp, pm, _, _ = fixture_models
     sd = flax_params_to_d2(to_numpy_tree(jp), box_head_channels=128)
-    extra = dict(sd, **{"D_img.conv1.weight": np.zeros(1, np.float32)})
-    assert load_d2_state_dict(pm, extra) == ["D_img.conv1.weight"]
+    extra = dict(sd, **{"cross_domain.node_cls.weight": np.zeros(1, np.float32)})
+    assert load_d2_state_dict(pm, extra) == ["cross_domain.node_cls.weight"]
+    with pytest.raises(ValueError, match="D_img.conv1.weight"):
+        load_d2_state_dict(pm, dict(sd, **{"D_img.conv1.weight": np.zeros(1, np.float32)}))
     missing = dict(sd)
     missing.pop("roi_heads.box_head.fc1.weight")
     with pytest.raises(KeyError, match="fc1"):

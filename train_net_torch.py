@@ -3,6 +3,7 @@
 arguments of ``train_net.py``:
 
     python3 train_net_torch.py --config configs/seg_res50fpn_source.yaml [opts ...]
+    python3 train_net_torch.py --config configs/seg_res50fpn_MT.yaml [opts ...]
     python3 train_net_torch.py --eval-only --config configs/test_segment.yaml \
         MODEL.WEIGHTS <ckpt> [opts ...]
 
@@ -10,7 +11,15 @@ Both read the config (defaults, YAML with ``_BASE_``, overrides), register
 the medical datasets under ``--datasets-root`` and build the trainer of
 ``ttdg_mgm_torch/build.py``.
 
-Source training (without ``--eval-only``): checkpoints go to
+Training (without ``--eval-only``) follows ``SEMISUPNET.Trainer``.  The
+baseline trainer trains on ``DATASETS.TRAIN`` in batches of
+``SOLVER.IMS_PER_BATCH``; the mean-teacher trainer (``"ateacher"``) runs
+``ATeacherTrainer.train_semisup`` on ``DATASETS.TRAIN_LABEL`` and
+``DATASETS.TRAIN_UNLABEL`` in batches of ``SOLVER.IMG_PER_BATCH_LABEL``
+of each (the JAX package's ``train_net.py`` calls ``train`` on
+``DATASETS.TRAIN`` for both, which the MT configs leave empty), and its
+checkpoints hold the student and the teacher in d2's ``EnsembleTSModel``
+layout.  Checkpoints go to
 ``OUTPUT_DIR/checkpoints`` (``model_{step:07d}.pth`` in d2's layout, the 5
 newest kept, ``last_checkpoint`` naming the newest) every
 ``SOLVER.CHECKPOINT_PERIOD`` steps and once at the end.  Resume is forced,
@@ -26,7 +35,10 @@ Eval-only test-time adaptation: per test dataset, one TTA step per batch of
 ``TEST.BATCH`` images followed by evaluation (Dice, or COCO or VOC AP by the
 dataset's type or ``TEST.EVALUATOR``).  The results are printed and
 appended, with the weights' path, as one JSON line to
-``OUTPUT_DIR/result_ap.txt``.
+``OUTPUT_DIR/result_ap.txt``.  The mean-teacher trainer adapts and scores
+its teacher, which starts from the member of a teacher-student
+``MODEL.WEIGHTS`` that ``TEST.EVAL_STU`` picks (the teacher, or the
+student), as in the JAX package.
 
 It runs on CUDA unless ``--device cpu`` is given, with TF32 off for
 convolutions and matrix products and cuDNN restricted to deterministic
@@ -106,11 +118,13 @@ def main(argv=None) -> dict:
 
 
 def train(cfg, trainer) -> dict:
-    """Source training as ``train_net.py`` runs it: forced resume, the
-    default hooks, the validation loss when ``TEST.EVAL_PERIOD > 0``, and a
-    final checkpoint."""
+    """Training as ``train_net.py`` runs it: forced resume, the default
+    hooks, the validation loss when ``TEST.EVAL_PERIOD > 0``, and a final
+    checkpoint; the mean-teacher trainer trains on the labelled and
+    unlabelled datasets."""
     from ttdg_mgm_torch.checkpoint.save import Checkpointer
     from ttdg_mgm_torch.engine.hooks import LossEvalHook
+    from ttdg_mgm_torch.engine.mean_teacher import ATeacherTrainer
 
     ckpt = Checkpointer(os.path.join(cfg.OUTPUT_DIR, "checkpoints"))
     trainer.resume_or_load(ckpt)
@@ -121,8 +135,14 @@ def train(cfg, trainer) -> dict:
     if cfg.TEST.EVAL_PERIOD > 0 and cfg.DATASETS.TEST:
         val = LossEvalHook(trainer, cfg.DATASETS.TEST[0], cfg.TEST.EVAL_PERIOD)
         hooks.append(val)
-    trainer.train(cfg.DATASETS.TRAIN, max_iter=cfg.SOLVER.MAX_ITER,
-                  batch_size=cfg.SOLVER.IMS_PER_BATCH, seed=cfg.SEED, hooks=hooks)
+    if isinstance(trainer, ATeacherTrainer):
+        trainer.train_semisup(cfg.DATASETS.TRAIN_LABEL, cfg.DATASETS.TRAIN_UNLABEL,
+                              max_iter=cfg.SOLVER.MAX_ITER,
+                              batch_size=cfg.SOLVER.IMG_PER_BATCH_LABEL, seed=cfg.SEED,
+                              hooks=hooks)
+    else:
+        trainer.train(cfg.DATASETS.TRAIN, max_iter=cfg.SOLVER.MAX_ITER,
+                      batch_size=cfg.SOLVER.IMS_PER_BATCH, seed=cfg.SEED, hooks=hooks)
     path = ckpt.save(trainer.optimizer.count, trainer.state_dict())
     return {"iteration": trainer.optimizer.count, "checkpoint": path,
             "validation_loss": val.history if val is not None else []}

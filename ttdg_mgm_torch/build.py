@@ -6,17 +6,21 @@ does, :func:`build_schedule` picks the learning-rate schedule,
 :func:`init_params` draws the seeded initial weights and merges
 ``MODEL.WEIGHTS`` (a d2 ``.pth`` or ``.pkl``, or a checkpoint this package
 wrote) by name, and :func:`build_trainer` puts them together with the train
-and test geometry.  The
-port refuses, with a message naming the way out, what it has not ported:
-the VGG backbone and the mean-teacher trainer.  ``SOLVER.AMP.ENABLED`` or
+and test geometry: ``SEMISUPNET.Trainer`` ``"baseline"`` builds
+``engine/trainer.py:BaselineTrainer``, ``"ateacher"`` (the default)
+``engine/mean_teacher.py:ATeacherTrainer``.  The port refuses, with a
+message naming the way out, what it has not ported: the VGG backbone and
+the mean-teacher trainer's cross-domain head
+(``SEMISUPNET.CROSS_DOMAIN_MATCHING``).  ``SOLVER.AMP.ENABLED`` or
 ``TPU.PRECISION bfloat16`` (the default) selects the bf16 compute policy,
 ``compute_dtype="bfloat16"``, as ``ttdg_mgm_tpu/build.py`` does.
 
 ``FLAGSHIP_KWARGS`` is the R50-FPN Mask R-CNN that the JAX package builds
 for ``configs/test_segment.yaml``: full widths, 1000 proposals, 100
 detections, a 32-slot universe and 12 nodes per FPN level
-(``MODEL.GRAPH.MAX_NODES`` 64 // 5), so 60 nodes per graph, bf16 compute
-(the config's default ``TPU.PRECISION``), and the
+(``MODEL.GRAPH.MAX_NODES`` 64 // 5), so 60 nodes per graph, the
+discriminator on ``p2`` (``SEMISUPNET.DIS_TYPE``), bf16 compute (the
+config's default ``TPU.PRECISION``), and the
 source-training fields at their ``ttdg_mgm_tpu/config.py`` defaults (2000
 pre-NMS proposals, 512 sampled ROIs per image at 25 % foreground, 128 mask
 ROIs, cross-entropy, 50 HiPPI iterations).  Source training
@@ -24,8 +28,8 @@ ROIs, cross-entropy, 50 HiPPI iterations).  Source training
 ``SOURCE_SOLVER`` holds that file's solver settings (``IMS_PER_BATCH`` 8,
 ``BASE_LR`` 0.0025, over ``config.py``'s defaults, which
 ``solver/build.py`` keeps as its own: momentum 0.9, weight decay 1e-4).
-Fields of the JAX model which only the discriminator or the VGG backbone
-read are not ported yet; ``OUT_OF_SLICE`` names them.
+The VGG backbone switch of the JAX model is not ported yet;
+``OUT_OF_SLICE`` names it.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ from ttdg_mgm_torch.solver.build import (build_optimizer, warmup_cosine_schedule
 logger = logging.getLogger("ttdg_mgm_torch")
 
 FLAGSHIP_KWARGS = dict(
-    num_classes=2, univ_size=32, sample_dist=10, node_cap_per_level=12,
+    num_classes=2, univ_size=32, sample_dist=10, node_cap_per_level=12, dis_type="p2",
     pixel_mean=(103.53, 116.28, 123.675), pixel_std=(1.0, 1.0, 1.0),
     pre_nms_topk_test=1000, post_nms_topk=1000, detections_per_image=100,
     sk_iters=20, sk_tau=0.05, gagm_iters=200, lap_polish_iters=200,
@@ -61,9 +65,9 @@ FLAGSHIP_KWARGS = dict(
 #: the JAX trainer (``engine/trainer.py:196``)
 SOURCE_SOLVER = dict(ims_per_batch=8, base_lr=0.0025, mask_res=256)
 
-#: JAX ``MaskRCNN`` fields outside this package's slice: the discriminator's
-#: feature level and the VGG backbone switch
-OUT_OF_SLICE = ("dis_type", "backbone_name")
+#: JAX ``MaskRCNN`` fields outside this package's slice: the VGG backbone
+#: switch
+OUT_OF_SLICE = ("backbone_name",)
 
 
 def model_kwargs(cfg: CfgNode) -> dict:
@@ -81,6 +85,7 @@ def model_kwargs(cfg: CfgNode) -> dict:
         univ_size=g.UNIV_SIZE,
         sample_dist=g.SAMPLE_DIST,
         node_cap_per_level=max(g.MAX_NODES // 5, 4),
+        dis_type=cfg.SEMISUPNET.DIS_TYPE,
         cls_loss_type=cfg.MODEL.ROI_HEADS.LOSS,
         pixel_mean=tuple(cfg.MODEL.PIXEL_MEAN),
         pixel_std=tuple(cfg.MODEL.PIXEL_STD),
@@ -181,29 +186,44 @@ def _canvas_size(cfg: CfgNode) -> int | str:
 
 
 def build_trainer(cfg: CfgNode, *, device=None, seed: int = 0):
-    """The trainer of ``cfg`` on ``device`` (CUDA unless the caller names
-    another): the model with its weights, SGD under :func:`build_schedule`,
-    and the geometry of ``ttdg_mgm_tpu/build.py:build_trainer``: the train
-    canvas of :func:`_canvas_size`, ``TPU.MAX_GT_PER_IMAGE`` GT slots, the
-    shortest edges of ``INPUT.MIN_SIZE_TRAIN`` under ``"choice"`` sampling,
-    and ``INPUT.MIN_SIZE_TEST`` and ``MAX_SIZE_TEST`` for the train resize
-    as for the test path (so ``INPUT.MAX_SIZE_TRAIN`` is not read, as in
-    the JAX package)."""
+    """The trainer of ``cfg`` (``SEMISUPNET.Trainer``) on ``device`` (CUDA
+    unless the caller names another): the model with its weights, SGD under
+    :func:`build_schedule`, and the geometry of
+    ``ttdg_mgm_tpu/build.py:build_trainer``: the train canvas of
+    :func:`_canvas_size`, ``TPU.MAX_GT_PER_IMAGE`` GT slots, the shortest
+    edges of ``INPUT.MIN_SIZE_TRAIN`` under ``"choice"`` sampling, and
+    ``INPUT.MIN_SIZE_TEST`` and ``MAX_SIZE_TEST`` for the train resize as
+    for the test path (so ``INPUT.MAX_SIZE_TRAIN`` is not read, as in the
+    JAX package).  The mean-teacher trainer takes the ``SEMISUPNET``
+    settings as the JAX package does (``EMA_KEEP_RATE`` 0 reads as 0.9996)
+    and, with ``DATALOADER.SUP_PERCENT`` below 100, splits its labelled
+    records with ``DATALOADER.RANDOM_DATA_SEED``."""
+    from ttdg_mgm_torch.engine.mean_teacher import ATeacherTrainer
     from ttdg_mgm_torch.engine.trainer import BaselineTrainer
 
     dev = resolve_device(device)
-    if cfg.SEMISUPNET.Trainer == "ateacher":
+    ss = cfg.SEMISUPNET
+    if ss.Trainer == "ateacher" and ss.CROSS_DOMAIN_MATCHING:
         raise NotImplementedError(
-            f"SEMISUPNET.Trainer {cfg.SEMISUPNET.Trainer!r}: the mean-teacher trainer is not "
-            "ported to ttdg_mgm_torch yet (ROADMAP.md, Queue 1); pass SEMISUPNET.Trainer "
-            "baseline")
+            "SEMISUPNET.CROSS_DOMAIN_MATCHING True: the mean-teacher trainer's cross-domain "
+            "head is not ported to ttdg_mgm_torch yet (ROADMAP.md, Queue 1: the cross-domain "
+            "head); pass SEMISUPNET.CROSS_DOMAIN_MATCHING False")
     model = init_params(cfg, MaskRCNN(**model_kwargs(cfg)), seed).to(dev)
     opt = build_optimizer(model, build_schedule(cfg), momentum=cfg.SOLVER.MOMENTUM,
                           weight_decay=cfg.SOLVER.WEIGHT_DECAY,
                           freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT, clip=_clip(cfg))
     train_sizes = list(cfg.INPUT.MIN_SIZE_TRAIN)
-    return BaselineTrainer(
-        model, opt, canvas=_canvas_size(cfg), min_size=cfg.INPUT.MIN_SIZE_TEST,
+    common = dict(
+        canvas=_canvas_size(cfg), min_size=cfg.INPUT.MIN_SIZE_TEST,
         max_size=cfg.INPUT.MAX_SIZE_TEST, gt_cap=cfg.TPU.MAX_GT_PER_IMAGE,
         train_min_sizes=(tuple(train_sizes) if cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING == "choice"
                          and train_sizes else None))
+    if ss.Trainer == "ateacher":
+        sup = cfg.DATALOADER.SUP_PERCENT
+        return ATeacherTrainer(
+            model, opt, ema_keep_rate=ss.EMA_KEEP_RATE or 0.9996,
+            teacher_update_iter=ss.TEACHER_UPDATE_ITER, burn_up_step=ss.BURN_UP_STEP,
+            unsup_weight=ss.UNSUP_LOSS_WEIGHT, dis_weight=ss.DIS_LOSS_WEIGHT,
+            pseudo_threshold=ss.BBOX_THRESHOLD, sup_percent=sup if sup < 100.0 else None,
+            split_seed=cfg.DATALOADER.RANDOM_DATA_SEED, **common)
+    return BaselineTrainer(model, opt, **common)

@@ -15,7 +15,8 @@ dicts of NumPy arrays:
 * the affinity's split first layer is re-joined into ``fc_M.0``;
 * the universe learner's attention ``multi_matching_sup/Net_U/g_gene`` goes
   to ``multi_matching_sup.Net_U.g_gene.*`` and the hoisted universe ``U`` to
-  ``multi_matching_sup.U``.
+  ``multi_matching_sup.U``;
+* the discriminator's convolutions go to ``D_img.{conv1,conv2,classifier}``.
 
 :func:`load_reference_checkpoint` and :func:`merge_state_dict` read a d2
 checkpoint (``MODEL.WEIGHTS``) into the port's modules by name, with d2's
@@ -30,8 +31,8 @@ import torch
 BN_EPS = 1e-5
 
 #: state-dict prefixes of the modules this package owns; names outside them
-#: (the discriminator) are skipped by :func:`load_d2_state_dict`
-OWNED_PREFIXES = ("backbone.", "proposal_generator.", "roi_heads.",
+#: (the cross-domain head) are skipped by :func:`load_d2_state_dict`
+OWNED_PREFIXES = ("backbone.", "proposal_generator.", "roi_heads.", "D_img.",
                   "multi_matching_unsup.", "multi_matching_sup.")
 
 
@@ -120,6 +121,9 @@ def flax_params_to_d2(params: dict, *, box_head_channels: int = 256) -> dict:
                 sd[mh + "deconv.bias"] = np.asarray(blk["bias"])
             else:
                 _conv_block(blk, mh + name, sd)
+    if "D_img" in p:
+        for n in ("conv1", "conv2", "classifier"):
+            _conv_block(p["D_img"][n], "D_img." + n, sd)
     if "U" in p:
         sd["multi_matching_sup.U"] = np.asarray(p["U"])
     if "multi_matching_sup" in p:

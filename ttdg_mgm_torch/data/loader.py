@@ -2,9 +2,9 @@
 
 This package's own copy of ``load_image``, ``prepare_sample``,
 ``CANVAS_BUCKETS``, ``canvas_bucket``, ``pack_batch``,
-``_prepare_with_fallback``, ``build_train_loader`` and
-``build_test_loader`` of ``ttdg_mgm_tpu/data/loader.py``, giving the same
-arrays and metas:
+``_prepare_with_fallback``, ``build_train_loader``, ``build_test_loader``,
+``divide_label_unlabel`` and ``build_two_crop_loader`` of
+``ttdg_mgm_tpu/data/loader.py``, giving the same arrays and metas:
 
 * ``image (B, H, W, 3)`` float32 RGB 0-255 on a canvas (a square side, or a
   ``CANVAS_BUCKETS`` pair per batch under ``canvas="auto"``);
@@ -15,18 +15,19 @@ arrays and metas:
 :func:`load_image` decodes PNG (:mod:`ttdg_mgm_torch.data.png`) and
 baseline JPEG (:mod:`ttdg_mgm_torch.data.jpeg`) in NumPy, equal to Pillow's
 ``convert("RGB")``; the resize (:mod:`ttdg_mgm_torch.data.resample`) and the
-polygon fill (``utils/polyfill.py``) equal Pillow's and OpenCV's.  Nothing
-here imports Pillow or OpenCV.  The two-crop loader of the mean-teacher
-trainer is not ported yet.
+polygon fill (``utils/polyfill.py``) equal Pillow's and OpenCV's, and so
+does the strong augmentation (``data/enhance.py``).  Nothing here imports
+Pillow or OpenCV.
 
 Two differences from the JAX package, both where it fails:
 
 * RLE ground truth of a flipped sample is mirrored in :func:`pack_batch`,
   after its resize to the mask grid, within the sample's valid width (the
   JAX package's ``scale_annotations`` raises on RLE before any flip);
-* :func:`build_train_loader` raises ``ValueError`` when the records are
-  fewer than the batch, where the JAX loader's epoch loop yields nothing
-  and spins forever.
+* :func:`build_train_loader` and :func:`build_two_crop_loader` raise
+  ``ValueError`` when the records are fewer than the batch, where the JAX
+  train loader's epoch loop yields nothing and spins forever and its
+  two-crop loader yields short batches.
 """
 
 from __future__ import annotations
@@ -40,7 +41,8 @@ import numpy as np
 from ttdg_mgm_torch.data.catalog import DatasetCatalog
 from ttdg_mgm_torch.data import jpeg, png
 from ttdg_mgm_torch.data.resample import resize_bilinear
-from ttdg_mgm_torch.data.transforms import hflip, resize_shortest_edge, scale_annotations
+from ttdg_mgm_torch.data.transforms import (build_strong_augmentation, hflip,
+                                            resize_shortest_edge, scale_annotations)
 from ttdg_mgm_torch.utils.rle import polygons_to_mask, segmentation_to_mask
 
 logger = logging.getLogger("ttdg_mgm_torch")
@@ -326,5 +328,93 @@ def build_test_loader(dataset_name: str, *, batch_size: int = 1, canvas: int | s
             batch = pack_batch(samples, canvas=cv, with_gt=False)
             metas = [dict(s, n_real=n_real) for s in samples]
             yield batch, metas
+
+    return _maybe_prefetch(gen(), prefetch)
+
+
+def divide_label_unlabel(records, sup_percent: float, seed: int = 0,
+                         seed_indices: dict | None = None):
+    """Split one record list into labelled and unlabelled records
+    (reference ``divide_label_unlabel``; ``DATALOADER.SUP_PERCENT`` and
+    ``RANDOM_DATA_SEED``): ``int(sup_percent / 100 * n)`` labelled, picked
+    by ``seed_indices[str(sup_percent)][str(seed)]`` when given, else by a
+    permutation of ``np.random.RandomState(seed)``.  Both lists keep the
+    records' order."""
+    n = len(records)
+    num_label = int(sup_percent / 100.0 * n)
+    if seed_indices is not None:
+        labeled_idx = set(seed_indices[str(sup_percent)][str(seed)])
+        if len(labeled_idx) != num_label:
+            raise ValueError(f"{len(labeled_idx)} labelled indices for {sup_percent} % of "
+                             f"{n} records, expected {num_label}")
+    else:
+        labeled_idx = set(np.random.RandomState(seed).permutation(n)[:num_label].tolist())
+    label = [r for i, r in enumerate(records) if i in labeled_idx]
+    unlabel = [r for i, r in enumerate(records) if i not in labeled_idx]
+    return label, unlabel
+
+
+def build_two_crop_loader(label_names, unlabel_names, *, batch_size: int = 4,
+                          canvas: int | str = 800, min_size: int = 800, max_size: int = 1333,
+                          gt_cap: int = 20, mask_res: int = 256, seed: int = 0,
+                          prefetch: int = 2, sup_percent: float | None = None,
+                          split_seed: int = 0):
+    """Endless loader of the mean-teacher step's batches (reference
+    ``DatasetMapperTwoCropSeparate``): each batch draws ``batch_size``
+    labelled and ``batch_size`` unlabelled records (a permutation's head of
+    each, from ``np.random.RandomState(seed)``), flips each with probability
+    0.5 and makes its weak view (resize and flip) and its strong view (the
+    weak view through ``build_strong_augmentation(seed)``), so the two views
+    share their geometry.  Yields ``{"label_strong", "label_weak",
+    "label_sizes", "gt_boxes", "gt_classes", "gt_masks", "gt_valid",
+    "unlabel_strong", "unlabel_weak", "unlabel_sizes"}``, the ground truth
+    that of the labelled views.  Under ``canvas="auto"`` the four views of
+    a batch share one ``CANVAS_BUCKETS`` pair.
+
+    With ``sup_percent`` and no unlabelled records, the labelled records
+    are split by :func:`divide_label_unlabel` with ``split_seed``.  Raises
+    ``ValueError`` when either record list is shorter than
+    ``batch_size``."""
+    label_records = [r for n in label_names for r in DatasetCatalog.get(n)]
+    unlabel_records = [r for n in unlabel_names for r in DatasetCatalog.get(n)]
+    if sup_percent is not None and not unlabel_records:
+        label_records, unlabel_records = divide_label_unlabel(label_records, sup_percent,
+                                                              split_seed)
+    for what, recs, names in (("labelled", label_records, label_names),
+                              ("unlabelled", unlabel_records, unlabel_names)):
+        if len(recs) < batch_size:
+            raise ValueError(f"{len(recs)} {what} records in {list(names)} are fewer than the "
+                             f"batch of {batch_size}: no full batch can be drawn")
+    rng = np.random.RandomState(seed)
+    strong_aug = build_strong_augmentation(seed)
+    auto = canvas == "auto"
+
+    def two_views(record):
+        weak = prepare_sample(record, canvas=None if auto else canvas, min_size=min_size,
+                              max_size=max_size, flip=rng.rand() < 0.5)
+        return weak, dict(weak, image=strong_aug(weak["image"]))
+
+    def gen():
+        while True:
+            li = rng.permutation(len(label_records))[:batch_size]
+            ui = rng.permutation(len(unlabel_records))[:batch_size]
+            lw, ls = zip(*(two_views(label_records[i]) for i in li))
+            uw, us = zip(*(two_views(unlabel_records[i]) for i in ui))
+            if auto:
+                views = lw + uw
+                cv: int | tuple[int, int] = (
+                    canvas_bucket(max(s["image"].shape[0] for s in views)),
+                    canvas_bucket(max(s["image"].shape[1] for s in views)))
+            else:
+                cv = canvas
+            lw_b = pack_batch(list(lw), canvas=cv, with_gt=False)
+            ls_b = pack_batch(list(ls), canvas=cv, gt_cap=gt_cap, mask_res=mask_res)
+            uw_b = pack_batch(list(uw), canvas=cv, with_gt=False)
+            us_b = pack_batch(list(us), canvas=cv, with_gt=False)
+            yield {"label_strong": ls_b["image"], "label_weak": lw_b["image"],
+                   "label_sizes": ls_b["image_sizes"], "gt_boxes": ls_b["gt_boxes"],
+                   "gt_classes": ls_b["gt_classes"], "gt_masks": ls_b["gt_masks"],
+                   "gt_valid": ls_b["gt_valid"], "unlabel_strong": us_b["image"],
+                   "unlabel_weak": uw_b["image"], "unlabel_sizes": us_b["image_sizes"]}
 
     return _maybe_prefetch(gen(), prefetch)

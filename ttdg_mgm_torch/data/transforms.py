@@ -1,7 +1,8 @@
-"""Host-side geometry transforms of the loaders: d2 ``ResizeShortestEdge``
-(bilinear) and the horizontal flip, with boxes and polygons following.
+"""Host-side transforms of the loaders: d2 ``ResizeShortestEdge``
+(bilinear) and the horizontal flip, with boxes and polygons following, and
+the mean-teacher loader's strong augmentation.
 
-This package's own copy of the geometry of ``ttdg_mgm_tpu/data/transforms.py``.
+This package's own copy of ``ttdg_mgm_tpu/data/transforms.py``.
 Two differences, both on inputs where the result stays the same or the JAX
 package raises:
 
@@ -18,13 +19,17 @@ package raises:
   ``data/loader.py:pack_batch`` to mirror the mask it resizes from the RLE
   within its valid width, as the image was mirrored after its resize.
 
-The strong augmentation of the mean-teacher loader is not ported.
+The strong augmentation (:func:`build_strong_augmentation`) runs the
+Pillow operations of the JAX package's through ``data/enhance.py``, bit for
+bit, and draws from its ``RandomState`` in the JAX package's order, so the
+same seed gives the same images.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ttdg_mgm_torch.data import enhance
 from ttdg_mgm_torch.data.resample import resize_bilinear
 
 
@@ -90,3 +95,73 @@ def scale_annotations(boxes, polygons, sy: float, sx: float):
             out.append(p.tolist())
         scaled.append(out)
     return boxes, scaled
+
+
+# -- strong augmentation (photometric only, geometry preserved) -------------
+
+def _hue(img: np.ndarray, shift: float) -> np.ndarray:
+    hsv = enhance.rgb_to_hsv(img).astype(np.int16)
+    hsv[..., 0] = (hsv[..., 0] + int(shift * 255)) % 256
+    return enhance.hsv_to_rgb(hsv.astype(np.uint8))
+
+
+def _color_jitter(img: np.ndarray, rng) -> np.ndarray:
+    """torchvision ``ColorJitter(0.4, 0.4, 0.4, 0.1)``: brightness, contrast,
+    saturation and hue, in an order drawn from ``rng``."""
+    b, c, s = (rng.uniform(0.6, 1.4) for _ in range(3))
+    hshift = rng.uniform(-0.1, 0.1)
+    ops = [lambda im: enhance.brightness(im, b), lambda im: enhance.contrast(im, c),
+           lambda im: enhance.color(im, s), lambda im: _hue(im, hshift)]
+    rng.shuffle(ops)
+    for op in ops:
+        img = op(img)
+    return img
+
+
+def _random_erase(arr: np.ndarray, rng, scale, ratio, value=None) -> np.ndarray:
+    """torchvision ``RandomErasing`` in place: up to 10 draws of a rectangle
+    of ``scale`` of the area and aspect ``ratio``; the first that fits is
+    filled with ``value`` or random bytes."""
+    h, w = arr.shape[:2]
+    for _ in range(10):
+        area = rng.uniform(*scale) * h * w
+        r = np.exp(rng.uniform(np.log(ratio[0]), np.log(ratio[1])))
+        eh = int(round(np.sqrt(area * r)))
+        ew = int(round(np.sqrt(area / r)))
+        if eh < h and ew < w and eh > 0 and ew > 0:
+            y = rng.randint(0, h - eh)
+            x = rng.randint(0, w - ew)
+            if value is None:
+                arr[y:y + eh, x:x + ew] = rng.randint(0, 256, (eh, ew, arr.shape[2]))
+            else:
+                arr[y:y + eh, x:x + ew] = value
+            return arr
+    return arr
+
+
+def build_strong_augmentation(seed: int | None = None):
+    """The reference's ``build_strong_augmentation``: ColorJitter with
+    probability 0.8, grayscale 0.2, Gaussian blur (sigma from U[0.1, 2])
+    0.5, then three random erasings (0.7, 0.5, 0.3, each with its scales
+    and ratios).  Returns ``strong(img) -> img`` on ``(H, W, 3)`` uint8
+    images, drawing from one ``np.random.RandomState(seed)``; the input is
+    not modified."""
+    rng = np.random.RandomState(seed)
+
+    def strong(img: np.ndarray) -> np.ndarray:
+        if rng.rand() < 0.8:
+            img = _color_jitter(img, rng)
+        if rng.rand() < 0.2:
+            img = enhance.gray_to_rgb(enhance.to_gray(img))
+        if rng.rand() < 0.5:
+            img = enhance.gaussian_blur(img, rng.uniform(0.1, 2.0))
+        arr = np.array(img)
+        if rng.rand() < 0.7:
+            arr = _random_erase(arr, rng, (0.05, 0.2), (0.3, 3.3))
+        if rng.rand() < 0.5:
+            arr = _random_erase(arr, rng, (0.02, 0.2), (0.1, 6.0))
+        if rng.rand() < 0.3:
+            arr = _random_erase(arr, rng, (0.02, 0.2), (0.05, 8.0))
+        return arr
+
+    return strong

@@ -1,11 +1,13 @@
 """Mask R-CNN R50-FPN with the multi-graph-matching losses.
 
 Counterpart of ``ttdg_mgm_tpu/models/rcnn.py:MaskRCNN`` for the eval-only
-TTA path and source training: ``extract_features``, ``_proposals``,
-``_pool``, ``_box_inference``, ``forward_inference``, ``loss_ttt`` and
-``loss_supervised``.  Modules carry detectron2 / reference names
-(``backbone.bottom_up``, ``backbone.fpn_*``, ``proposal_generator.rpn_head``,
-``roi_heads.*``, ``multi_matching_unsup``, ``multi_matching_sup.U``,
+TTA path, source training and the mean-teacher step without the
+cross-domain head: ``extract_features``, ``_proposals``, ``_pool``,
+``_box_inference``, ``forward_inference``, ``proposals_weak``,
+``loss_ttt``, ``loss_supervised``, ``_dis_feature`` and ``loss_domain``.
+Modules carry detectron2 / reference names (``backbone.bottom_up``,
+``backbone.fpn_*``, ``proposal_generator.rpn_head``, ``roi_heads.*``,
+``D_img``, ``multi_matching_unsup``, ``multi_matching_sup.U``,
 ``multi_matching_sup.Net_U``), so the state dict exported from the JAX
 package (``checkpoint/bridge.py``) loads by name.
 
@@ -19,9 +21,9 @@ float32; the backbone, FPN, RPN head, box head, box predictor and mask head
 compute in bfloat16 (``models/layers.py``), so the features, the pools
 (kernels A and C on bfloat16 levels) and the heads' activations are
 bfloat16; the consumers that need precision upcast their own small outputs
-(RPN logits and deltas, box scores and deltas, mask logits) and the graph
-nodes enter the matching modules as float32; the GT-mask crop stays
-float32.
+(RPN logits and deltas, box scores and deltas, mask logits, the
+discriminator's logits) and the graph nodes enter the matching modules as
+float32; the GT-mask crop stays float32.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from torch import nn
 from ttdg_mgm_torch.graph.mgm import MGM3Unsup
 from ttdg_mgm_torch.graph.node_sampler import PrototypeComputation
 from ttdg_mgm_torch.graph.universe import USup
+from ttdg_mgm_torch.models.discriminator import FCDiscriminatorImg, grad_reverse
 from ttdg_mgm_torch.models.fpn import FPN
 from ttdg_mgm_torch.models.layers import set_compute_dtype
 from ttdg_mgm_torch.models.resnet import STAGE_BLOCKS, ResNet
@@ -52,6 +55,17 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 # d2 defaults (Base-RCNN-FPN): caffe-era pixel statistics
 PIXEL_MEAN = (103.530, 116.280, 123.675)
 PIXEL_STD = (1.0, 1.0, 1.0)
+
+#: the discriminator's width by ``dis_type`` (JAX ``rcnn.py:163-166``): the
+#: raw backbone stages' R50 widths; an FPN level takes ``fpn_channels``
+DIS_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
+
+
+def _bce_with_logits_mean(logits, target_value: float):
+    """JAX ``_bce_with_logits_mean``: the mean BCE of logits clipped to
+    [-30, 30] against a constant target."""
+    x = logits.clamp(-30, 30)
+    return (x.clamp(min=0) - x * target_value + torch.log1p(torch.exp(-x.abs()))).mean()
 
 
 class ProposalGenerator(nn.Module):
@@ -71,7 +85,8 @@ class ROIHeads(nn.Module):
 
 class MaskRCNN(nn.Module):
     def __init__(self, *, num_classes: int = 2, univ_size: int = 32, sample_dist: int = 10,
-                 node_cap_per_level: int = 20, cls_loss_type: str = "CrossEntropy",
+                 node_cap_per_level: int = 20, dis_type: str = "p2",
+                 cls_loss_type: str = "CrossEntropy",
                  pixel_mean: Sequence[float] = PIXEL_MEAN,
                  pixel_std: Sequence[float] = PIXEL_STD, pre_nms_topk_train: int = 2000,
                  pre_nms_topk_test: int = 1000, post_nms_topk: int = 1000,
@@ -93,6 +108,7 @@ class MaskRCNN(nn.Module):
         self.compute_dtype = compute_dtype
         self.num_classes = num_classes
         self.univ_size = univ_size
+        self.dis_type = dis_type
         self.cls_loss_type = cls_loss_type
         self.pre_nms_topk_train = pre_nms_topk_train
         self.pre_nms_topk_test = pre_nms_topk_test
@@ -123,21 +139,32 @@ class MaskRCNN(nn.Module):
             mgm_iter=gagm_iters, lap_polish_iters=lap_polish_iters)
         self.graph_generator = PrototypeComputation(num_classes, sample_dist,
                                                     node_cap_per_level)
+        if dis_type.startswith("res"):
+            dis_in = resnet_width * 2 ** (int(dis_type[3:]) - 2)
+        elif dis_type in ("p2", "p3", "p4", "p5", "p6"):
+            dis_in = fpn_channels
+        else:
+            raise ValueError(f"dis_type must be res2..res5 or p2..p6, got {dis_type!r}")
+        self.D_img = FCDiscriminatorImg(dis_in, DIS_CHANNELS.get(dis_type, fpn_channels))
         # flax dtype= on exactly these modules (JAX rcnn.py setup); the graph
         # modules stay float32
-        for mod in (self.backbone, self.proposal_generator, self.roi_heads):
+        for mod in (self.backbone, self.proposal_generator, self.roi_heads, self.D_img):
             set_compute_dtype(mod, COMPUTE_DTYPES[compute_dtype])
 
     # -- shared feature path -------------------------------------------------
 
-    def _features_nchw(self, images):
-        """The FPN levels, NCHW, in the compute dtype (JAX ``_normalize``:
+    def _normalize(self, images):
+        """NHWC images -> NCHW input in the compute dtype (JAX ``_normalize``:
         normalised in float32, then cast)."""
         x = (images - self.pixel_mean) / self.pixel_std
         dt = COMPUTE_DTYPES[self.compute_dtype]
         if dt is not None:
             x = x.to(dt)
-        return self.backbone(x.permute(0, 3, 1, 2))
+        return x.permute(0, 3, 1, 2)
+
+    def _features_nchw(self, images):
+        """The FPN levels, NCHW, in the compute dtype."""
+        return self.backbone(self._normalize(images))
 
     def extract_features(self, images):
         """images ``(B, H, W, 3)`` -> ``{"p2": (B, H/4, W/4, C), ..., "p6"}``."""
@@ -181,14 +208,18 @@ class MaskRCNN(nn.Module):
 
     # -- branches ------------------------------------------------------------
 
+    def _detect(self, images, image_sizes):
+        """Features and box detections ``(boxes, scores, classes, valid)``."""
+        nchw = self._features_nchw(images)
+        feats = _to_nhwc(nchw)
+        _, (pboxes, _, pvalid) = self._proposals(nchw, image_sizes)
+        return feats, self._box_inference(feats, pboxes, pvalid, image_sizes)
+
     @torch.no_grad()
     def forward_inference(self, images, image_sizes):
         """Detections and per-detection mask probabilities: dict of boxes
         ``(B, D, 4)``, scores, classes, valid and mask_probs ``(B, D, 28, 28)``."""
-        nchw = self._features_nchw(images)
-        feats = _to_nhwc(nchw)
-        _, (pboxes, _, pvalid) = self._proposals(nchw, image_sizes)
-        boxes, scores, classes, valid = self._box_inference(feats, pboxes, pvalid, image_sizes)
+        feats, (boxes, scores, classes, valid) = self._detect(images, image_sizes)
         B, D = scores.shape
         if not self.mask_on:
             mask_probs = torch.zeros((B, D, 28, 28), device=boxes.device)
@@ -200,6 +231,14 @@ class MaskRCNN(nn.Module):
             mask_probs = torch.sigmoid(sel).reshape(B, D, *sel.shape[1:])
         return {"boxes": boxes, "scores": scores, "classes": classes, "valid": valid,
                 "mask_probs": mask_probs}
+
+    @torch.no_grad()
+    def proposals_weak(self, images, image_sizes):
+        """Box detections without masks (the teacher's pseudo-labels, JAX
+        ``proposals_weak``): dict of boxes ``(B, D, 4)``, scores, classes
+        and valid."""
+        _, (boxes, scores, classes, valid) = self._detect(images, image_sizes)
+        return {"boxes": boxes, "scores": scores, "classes": classes, "valid": valid}
 
     def loss_ttt(self, images, image_sizes):
         """TTA loss: box inference (no gradient) -> graph nodes from the
@@ -215,10 +254,13 @@ class MaskRCNN(nn.Module):
                                          self.multi_matching_sup.U.detach())
 
     def loss_supervised(self, images, image_sizes, gt_boxes, gt_classes, gt_masks, gt_valid, *,
-                        generator: torch.Generator | None = None, uniforms: dict | None = None):
-        """Supervised source losses (reference ``supervised_source`` branch):
-        RPN, box and mask losses, and the universe-matching loss on nodes
-        from the GT boxes.  Returns a dict of scalar losses.
+                        generator: torch.Generator | None = None, uniforms: dict | None = None,
+                        source: bool = True, with_mask: bool = True):
+        """Supervised losses (reference ``supervised_source`` and
+        ``supervised_target`` branches): RPN, box and mask losses, and with
+        ``source`` the universe-matching loss on nodes from the GT boxes.
+        ``with_mask=False`` skips the mask head and its pool.  Returns a dict
+        of scalar losses.
 
         GT is padded: boxes ``(B, G, 4)``, classes ``(B, G)`` 0-based, masks
         ``(B, G, R, R)`` on an ``R x R`` canvas over the padded image, valid
@@ -253,7 +295,7 @@ class MaskRCNN(nn.Module):
         losses["loss_cls"] = det["loss_cls"].mean()
         losses["loss_box_reg"] = det["loss_box_reg"].mean()
 
-        if self.mask_on:
+        if with_mask and self.mask_on:
             cap = self.mask_fg_cap
             (fg_boxes, fg_cls, fg_matched), n_fg = compact_rows(
                 sfg, cap, (sb, 0.0), (sc, 0), (sm, 0))
@@ -273,10 +315,28 @@ class MaskRCNN(nn.Module):
             w = n_fg.to(torch.float32).clamp(min=1.0)
             losses["loss_mask"] = (per_img * w).sum() / w.sum()
 
-        nodes, labels, node_mask = self.graph_generator(
-            [feats[f"p{i}"] for i in range(2, 7)], gt_boxes, gt_classes.to(torch.int32), gt_valid)
-        losses["loss_matching"] = self.multi_matching_sup(nodes.float(), labels, node_mask)
+        if source:
+            nodes, labels, node_mask = self.graph_generator(
+                [feats[f"p{i}"] for i in range(2, 7)], gt_boxes, gt_classes.to(torch.int32),
+                gt_valid)
+            losses["loss_matching"] = self.multi_matching_sup(nodes.float(), labels, node_mask)
         return losses
+
+    def _dis_feature(self, images):
+        """The ``dis_type`` feature map, NCHW in the compute dtype: an FPN
+        level (``p2`` .. ``p6``) or a backbone stage (``res2`` .. ``res5``)."""
+        if self.dis_type.startswith("res"):
+            return self.backbone.bottom_up(self._normalize(images))[self.dis_type]
+        return self._features_nchw(images)[self.dis_type]
+
+    def loss_domain(self, images_source, images_target):
+        """The domain losses (reference ``domain`` branch): the patch
+        discriminator on the gradient-reversed ``dis_type`` feature of each
+        domain, BCE against 0 (source) and 1 (target) on float32 logits."""
+        out_s = self.D_img(grad_reverse(self._dis_feature(images_source)))
+        out_t = self.D_img(grad_reverse(self._dis_feature(images_target)))
+        return {"loss_D_img_s": _bce_with_logits_mean(out_s.float(), 0.0),
+                "loss_D_img_t": _bce_with_logits_mean(out_t.float(), 1.0)}
 
 
 def _to_nhwc(feats):
@@ -289,7 +349,9 @@ def init_weights(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
     ``generator``: lecun-normal kernels (truncated at 2 std) and zero biases
     (flax defaults), FrozenBN identity with the residual branch's last norm
     at 0.1, RPN convs normal(0.01) with deltas normal(0.001), box predictor
-    normal(0.01)/normal(0.001), affinity normal(0.01), ``U`` normal + 1/univ."""
+    normal(0.01)/normal(0.001), affinity normal(0.01), ``U`` normal + 1/univ,
+    and last the discriminator (lecun-normal), so the draws before it are
+    those of a model without one."""
 
     def lecun(w, fan_in):
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -310,7 +372,10 @@ def init_weights(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
     aff = model.multi_matching_unsup.node_affinity
     for m in (aff.project_sr, aff.project_tg, aff.fc_M[0], aff.fc_M[2]):
         special[id(m.weight)] = 0.01
+    disc = set(map(id, model.D_img.modules()))
     for mod in model.modules():
+        if id(mod) in disc:
+            continue
         if isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             w = mod.weight
             if id(w) in special:
@@ -331,4 +396,7 @@ def init_weights(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
             mod.weight.fill_(0.1)
     U = model.multi_matching_sup.U
     U.copy_(torch.randn(U.shape, generator=generator) + 1.0 / U.shape[0])
+    for conv in (model.D_img.conv1, model.D_img.conv2, model.D_img.classifier):
+        lecun(conv.weight, conv.weight.shape[1] * conv.weight.shape[2] * conv.weight.shape[3])
+        conv.bias.zero_()
     return model
