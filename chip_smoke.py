@@ -130,8 +130,8 @@ Phases, each of which exits non-zero when it fails:
    (each printed with its reason): 4 steps (2 burn-in, the teacher's copy
    at step 2 equal to the student bit for bit, the moving average at step
    3 equal to the host's within float32 round-off), resumed to 6 from the
-   ensemble-layout file bit for bit, the same from a copy holding only the
-   step-4 file ending in the same bits, then ``--eval-only --config
+   ensemble-layout file bit for bit (the restart from a copy of the step-4
+   file is phase 12's), then ``--eval-only --config
    configs/test_segment_MT.yaml`` on the final file twice: the teacher
    (``TEST.EVAL_STU False``) and the student (the shipped ``True``), every
    tensor of the member loaded, kernel B launched, finite Dice, E and S;
@@ -141,7 +141,22 @@ Phases, each of which exits non-zero when it fails:
    split between the teacher's detection and the labelled, pseudo-labelled
    and domain passes, the pseudo-boxes per image, the launches per step,
    the peak memory and the two-crop loader's host time per batch (16
-   views and the NumPy strong augmentation) on one thread.
+   views and the NumPy strong augmentation) on one thread;
+12. the mean-teacher trainer with its cross-domain graph-matching head:
+   phase 11's command and splits with ``SEMISUPNET.CROSS_DOMAIN_MATCHING
+   True`` (printed with its reason): 4 steps (2 burn-in, 2 MT steps with
+   the head's three losses, finite and printed; the class centers zero at
+   step 2, threaded to step 3, step 3's equal to the moving average
+   recomputed on the host; kernels A, C and D held against their plain
+   versions on its MT steps' inputs), resumed to 6 bit for bit with the
+   centers restarting at zero (not checkpointed, as in the JAX package),
+   the same from a copy holding only the step-4 file ending in the same
+   bits, then ``--eval-only --config configs/test_segment_MT.yaml`` on the
+   final file (the student with its head loaded, kernel B launched, finite
+   Dice, E and S); it logs the MT step's times and its split with the
+   cross-domain pass as a fifth, the peak memory, the checkpoint's size and
+   the final teacher's pseudo-labels against the unlabelled split's ground
+   truth (``engine/probe.py``).
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off), and cuDNN runs its
@@ -151,8 +166,9 @@ SXM's published peaks: 3.35 TB/s of device memory, 67 TFLOP/s float32
 outside the tensor cores, 16 transcendentals per clock per SM (4.18e12/s at
 1.98 GHz).  The last lines are the card's name and power
 limit (nvidia-smi), one JSON object with each kernel's numbers (its
-launches on the TTA, source, eval-only command-line, train command-line
-and mean-teacher command-line paths under ``launches_by_path``), and the
+launches on the TTA, source, eval-only command-line, train command-line,
+mean-teacher and cross-domain mean-teacher command-line paths under
+``launches_by_path``), and the
 device line ``{"ok": true, "device":
 {...}}``.
 
@@ -2093,8 +2109,11 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
     the first two MT steps sees them; with ``kernel_inputs``, copies of what
     kernels A and C get on the first MT step (each pool call's levels and
     ROIs, :func:`capture_pool_backward`) and of what HiPPI and kernel D get
-    on every MT step (:func:`capture_hippi`).  Keeps the
-    model, teacher, batch and settings of the last MT step under
+    on every MT step (:func:`capture_hippi`).  On a cross-domain MT step
+    (``make_mt_step(..., with_cross_domain=True)``) it keeps host copies of
+    the centers the step gets and returns (``"centers"``), and of the inputs
+    and output of each center update (``"center_updates"``).  Keeps the
+    model, teacher, batch, settings and centers of the last MT step under
     ``"last"``.  Returns the record and the function that undoes it."""
     import logging
 
@@ -2102,13 +2121,15 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
     import ttdg_mgm_torch.engine.mean_teacher as mt
     import ttdg_mgm_torch.engine.steps as steps
     import ttdg_mgm_torch.engine.trainer as trainer
+    import ttdg_mgm_torch.graph.cross_domain as cross_domain
     import ttdg_mgm_torch.models.rcnn as rcnn
     from ttdg_mgm_torch.checkpoint.save import Checkpointer
     from ttdg_mgm_torch.engine.hooks import LossEvalHook
 
     record = {"wait_s": [], "steps": [], "pseudo": [], "resumed": None, "train_s": [],
               "val_s": [], "save_s": [], "save_bytes": [], "load_s": [], "weights": None,
-              "init": None, "seen": [], "kernel_inputs": None, "split_ms": None}
+              "init": None, "seen": [], "kernel_inputs": None, "split_ms": None,
+              "centers": [], "center_updates": []}
     pools = {"forward": 0, "training": 0}
     taking = {"pools": None}
     patches = []
@@ -2138,6 +2159,8 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
         return build_loader
 
     def timed(kind, model, step, kw):
+        cd = kw.get("with_cross_domain", False)
+
         def run(*a, **k):
             take = kind == "mt" and kernel_inputs
             first = take and record["kernel_inputs"] is None
@@ -2153,7 +2176,7 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
             _sync(torch, dev)
             t0 = time.perf_counter()
             try:
-                metrics = step(*a, **k)
+                out = step(*a, **k)
                 _sync(torch, dev)
             finally:
                 if first:
@@ -2161,6 +2184,7 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
                 if take:
                     undo_hippi()
             ms = (time.perf_counter() - t0) * 1e3
+            metrics = out[0] if cd else out
             after = read_counters()
             check_f32_params(torch, model, f"{kind} step")
             record["steps"].append(dict(
@@ -2173,9 +2197,12 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
             elif take:
                 for k, v in hippi.items():
                     record["kernel_inputs"]["hippi"][k] += v
+            if cd:
+                record["centers"].append((a[1].detach().cpu().clone(),
+                                          out[1].detach().cpu().clone()))
             if kind == "mt":
-                record["last"] = (model, a[0], a[1], kw)
-            return metrics
+                record["last"] = (model, a[0], a[2] if cd else a[1], kw, out[1] if cd else None)
+            return out
         return run
 
     def step_factory(kind):
@@ -2254,6 +2281,16 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
             return out
         return call
 
+    def centers(real):
+        def update_centers(c, nodes, labels, mask, momentum):
+            new = real(c, nodes, labels, mask, momentum)
+            record["center_updates"].append(dict(
+                centers=c.detach().cpu().clone(), nodes=nodes.detach().cpu().clone(),
+                labels=labels.cpu().clone(), mask=mask.cpu().clone(), momentum=momentum,
+                out=new.cpu().clone()))
+            return new
+        return update_centers
+
     def init(real):
         def init_params(cfg, model, seed=0):
             out = real(cfg, model, seed)
@@ -2285,6 +2322,7 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
     patch(Checkpointer, "save", save)
     patch(Checkpointer, "restore", restore)
     patch(build, "init_params", init)
+    patch(cross_domain, "update_centers", centers)
 
     def undo():
         for obj, name, real in reversed(patches):
@@ -2331,12 +2369,14 @@ def _log_train_call(record, what: str, card: str) -> None:
     log(f"{what} ({card}): " + "; ".join(parts))
 
 
-def _train_call(torch, dev, argv, what: str, split_reps: int = 0, **capture):
+def _train_call(torch, dev, argv, what: str, split_reps: int = 0, probe: bool = False,
+                **capture):
     """``train_net_torch.main(argv)`` under :func:`capture_train` (with
     ``capture`` its options), with the kernel counters set to 0 just before
     and read just after, and the peak device memory over the call; with
-    ``split_reps``, then the split of its last MT step between its
-    passes."""
+    ``split_reps``, then the split of its last MT step between its passes;
+    with ``probe``, the quality of the final teacher's pseudo-labels
+    (:func:`probe_teacher`)."""
     import train_net_torch
 
     record, undo = capture_train(torch, dev, **capture)
@@ -2355,6 +2395,8 @@ def _train_call(torch, dev, argv, what: str, split_reps: int = 0, **capture):
     last = record.pop("last", None)
     if split_reps and last is not None:
         record["split_ms"] = mt_pass_split(torch, dev, *last, reps=split_reps)
+    if probe and last is not None:
+        record["probe"] = probe_teacher(torch, dev, record, *last[1:4])
     del last
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2", "yaml"))
     check(not foreign, f"{what}: imported {foreign[:5]}")
@@ -2363,7 +2405,8 @@ def _train_call(torch, dev, argv, what: str, split_reps: int = 0, **capture):
     return record
 
 
-def _check_train(record, what: str, kinds, ckdir: str, want_ckpts, counters, val_iters=None):
+def _check_train(record, what: str, kinds, ckdir: str, want_ckpts, counters, val_iters=None,
+                 extra_losses=()):
     """The gates every training call passes: the source, burn-in and MT
     steps where they belong; every loss finite (the domain and ``_pseudo``
     losses included) and ``loss_matching`` positive; on every step each
@@ -2371,11 +2414,12 @@ def _check_train(record, what: str, kinds, ckdir: str, want_ckpts, counters, val
     every MT step the teacher's forward-only pool and the student's
     training pools called, and pseudo-boxes; the checkpoints at the
     expected steps (at most 5); with ``val_iters``, a finite validation loss
-    at each period."""
+    at each period; on every MT step the losses of ``extra_losses`` too."""
     got = [s["kind"] for s in record["steps"]]
     check(got == list(kinds), f"{what}: steps {got}, expected {list(kinds)}")
     need = {"loss_D_img_s", "loss_D_img_t", "loss_cls_pseudo", "loss_rpn_cls_pseudo",
-            "loss_box_reg_pseudo", "loss_rpn_loc_pseudo", "loss_matching", "total_loss"}
+            "loss_box_reg_pseudo", "loss_rpn_loc_pseudo", "loss_matching", "total_loss",
+            *extra_losses}
     for i, s in enumerate(record["steps"]):
         m = s["losses"]
         bad = {k: v for k, v in m.items() if not math.isfinite(v)}
@@ -2572,15 +2616,20 @@ MT_SPLIT_REPS = 3
 MT_LOADER_BATCHES = 3
 
 
-def mt_pass_split(torch, dev, model, teacher, batch, kw, reps: int) -> dict:
+def mt_pass_split(torch, dev, model, teacher, batch, kw, centers, reps: int) -> dict:
     """The MT step's passes apart, each synchronized, median of ``reps``:
     the teacher's detection on the weak unlabelled views, the labelled pass
     (forward and backward), the pseudo-labelled pass and the two domain
-    passes.  Gradients are dropped after each; no weight changes."""
+    passes; on a cross-domain step (``centers`` given) a fifth, the
+    cross-domain head's (``loss_cross_domain``: the backbone on both strong
+    views, the nodes, the head, and their backward).  Gradients are dropped
+    after each; no weight changes."""
     from ttdg_mgm_torch.engine.steps import threshold_pseudo_labels
 
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {"teacher": [], "labelled": [], "unlabelled": [], "domain": []}
+    if centers is not None:
+        out["cross_domain"] = []
 
     def timed(name, fn):
         _sync(torch, dev)
@@ -2610,10 +2659,51 @@ def mt_pass_split(torch, dev, model, teacher, batch, kw, reps: int) -> dict:
         timed("unlabelled", unlabelled)
         timed("domain", lambda: sum(model.loss_domain(batch["label_weak"],
                                                       batch["unlabel_weak"]).values()).backward())
+        if centers is not None:
+            timed("cross_domain", lambda: sum(model.loss_cross_domain(
+                batch["label_strong"], batch["label_sizes"], batch["gt_boxes"],
+                batch["gt_classes"], batch["gt_valid"], batch["unlabel_strong"],
+                batch["unlabel_sizes"], pb, pc, pv, centers,
+                noise=model.cross_domain.draw_noise(gen, dev))[0].values()).backward())
     return {k: statistics.median(v) for k, v in out.items()}
 
 
-def hold_mt_kernels(torch, dev, rec) -> dict:
+def probe_teacher(torch, dev, record, teacher, batch, kw) -> dict:
+    """The quality of ``teacher``'s pseudo-labels (``engine/probe.py``) on
+    one batch of the call's unlabelled split with its synthetic ground
+    truth: the train loader over that split at the call's geometry and
+    seed (weak views: resize and flip), the teacher's detections above the
+    step's threshold, cut to its GT slots."""
+    from ttdg_mgm_torch.data.loader import build_train_loader
+    from ttdg_mgm_torch.engine.probe import (probe_ood_accuracy, probe_pseudo_labels,
+                                             probe_size_distribution)
+    from ttdg_mgm_torch.engine.steps import threshold_pseudo_labels
+
+    _, a, k = record["loader_call"]
+    B = batch["unlabel_weak"].shape[0]
+    loader = build_train_loader(a[1], batch_size=B, prefetch=0, **{
+        n: k[n] for n in ("canvas", "min_size", "max_size", "gt_cap", "mask_res", "seed")})
+    try:
+        b = {n: torch.from_numpy(v).to(dev) for n, v in next(loader).items()}
+    finally:
+        loader.close()
+    det = teacher.proposals_weak(b["image"], b["image_sizes"])
+    pb, pc, pv = threshold_pseudo_labels(det, threshold=kw["pseudo_threshold"],
+                                         max_boxes=kw["gt_cap"])
+    ps = torch.where(det["valid"] & (det["scores"] > kw["pseudo_threshold"]), det["scores"],
+                     0.0)[:, :kw["gt_cap"]]
+    host = {n: v.cpu().numpy() for n, v in dict(pb=pb, pc=pc, pv=pv, ps=ps,
+                                                 gb=b["gt_boxes"], gc=b["gt_classes"],
+                                                 gv=b["gt_valid"]).items()}
+    return dict(split=list(a[1]), images=B, threshold=kw["pseudo_threshold"],
+                labels=probe_pseudo_labels(host["pb"], host["pc"], host["pv"], host["gb"],
+                                           host["gc"], host["gv"]),
+                sizes=probe_size_distribution(host["pb"], host["pv"]),
+                ood=probe_ood_accuracy(host["ps"], host["pv"], host["pb"], host["gb"],
+                                       host["gv"]))
+
+
+def hold_mt_kernels(torch, dev, rec, what: str = "mt cli") -> dict:
     """Kernels A, C and D on what one MT step gave them (``rec``, from
     :func:`capture_train` with ``kernel_inputs``), each against its plain
     version: A on the teacher's forward-only box pool and on the student's
@@ -2621,13 +2711,13 @@ def hold_mt_kernels(torch, dev, rec) -> dict:
     box pool) of the first MT step, C on that step's three cotangents
     (focal-loss and pseudo-label gradients), D on every projection of the
     labelled pass's HiPPI on every MT step, and the longest of those HiPPI
-    calls rerun with the plain projection.  These launches are not the
-    main path's."""
-    check(rec is not None, "mt cli: no MT step's kernel inputs were taken")
+    calls rerun with the plain projection; ``what`` names the phase in the
+    log.  These launches are not the main path's."""
+    check(rec is not None, f"{what}: no MT step's kernel inputs were taken")
     pools, names = {}, []
     for kind, levels, rois, kw in rec["pools"]:
         P = kw.get("output_size", 7)
-        check(kw.get("sampling_ratio", 0) == 0, f"mt cli: pool options {kw} are not the "
+        check(kw.get("sampling_ratio", 0) == 0, f"{what}: pool options {kw} are not the "
               "flagship's")
         if kind == "forward":
             name = "teacher box"
@@ -2637,14 +2727,14 @@ def hold_mt_kernels(torch, dev, rec) -> dict:
                 name = "pseudo-labelled box"
             names.append((rois, name))
         B, K = rois.shape[:2]
-        pools[name] = hold_pool(torch, levels, rois, P, f"mt cli roi_pool {name}",
+        pools[name] = hold_pool(torch, levels, rois, P, f"{what} roi_pool {name}",
                                 f"levels {tuple(levels[0].shape)}..{tuple(levels[-1].shape)}, "
                                 f"{B} x {K} ROIs of one MT step")
     check(sorted(pools) == ["labelled box", "labelled mask", "pseudo-labelled box",
-                            "teacher box"], f"mt cli: pool calls of one MT step {sorted(pools)}")
+                            "teacher box"], f"{what}: pool calls of one MT step {sorted(pools)}")
     bwd = phase_roi_backward_main(torch, dev, rec["backward"], names=names)
     steps = [h[-1]["steps"] for h in rec["hippi"]["hippi"]]
-    log(f"mt cli: {len(steps)} HiPPI calls on the MT steps, iterations {steps}")
+    log(f"{what}: {len(steps)} HiPPI calls on the MT steps, iterations {steps}")
     err, rerun = hold_sinkhorn(torch, rec["hippi"], "the MT steps")
     return dict(pools=pools, backward=bwd,
                 sinkhorn=dict(max_abs_err=err, hippi_steps=steps,
@@ -2652,8 +2742,148 @@ def hold_mt_kernels(torch, dev, rec) -> dict:
                               hippi_rerun=rerun))
 
 
+def write_mt_splits(data: str, splits=MT_SPLITS) -> None:
+    """Phase 11's synthetic fundus splits under ``data`` (phase 12 reads
+    them too)."""
+    t0 = time.perf_counter()
+    for i, (split, n, hw) in enumerate(splits):
+        write_fundus_split(data, n, hw, seed=10 + i, polygons=True, split=split)
+    log(f"mt cli: splits {[(s, n, hw) for s, n, hw in splits]} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _mt_cli_calls(torch, dev, card: str, what: str, tmp: str, data: str, overrides, opts,
+                  eval_opts, counters, eval_counters, split_reps: int, members, *,
+                  extra_losses=(), restart: bool = False, on_call1=None, on_call2=None,
+                  **capture):
+    """The calls phases 11 and 12 share: ``train_net_torch.main`` on
+    ``configs/seg_res50fpn_MT.yaml`` with ``overrides`` (``(key, value,
+    reason)``, then ``opts``) on the splits under ``data``, writing under
+    ``tmp``; ``what`` names the phase in the log.  Call 1 trains 4 steps (2
+    burn-in, 2 MT) under ``capture`` (with the pass split over
+    ``split_reps`` and the kernels' inputs): :func:`_check_train`'s gates
+    (``extra_losses`` on its MT steps too), no resume, the step-4 file in
+    the ensemble layout; then ``on_call1(record, step4)`` and kernels A, C
+    and D held on its MT steps' inputs (:func:`hold_mt_kernels`).  Call 2
+    runs the same command to 6 steps, resumed at step 4 bit for bit; then
+    ``on_call2(record)``.  With ``restart``, call 3 runs call 2 again from a
+    directory that holds only the step-4 checkpoint, and its final
+    checkpoint equals call 2's bit for bit.  Then one ``--eval-only
+    --config configs/test_segment_MT.yaml`` call on call 2's final file, on
+    a REFUGE test split, for each ``(member, extra overrides)`` of
+    ``members``, numbered from 4: every tensor of the member loaded, the
+    kernels of ``eval_counters`` launched, Dice, E and S finite.  The hooks
+    return dicts that join the result.  Returns ``(result, calls)``."""
+    import shutil
+
+    cfg = os.path.join(HERE, "configs", "seg_res50fpn_MT.yaml")
+    out = os.path.join(tmp, "out")
+    over = [x for k, v, _ in overrides for x in (k, v)]
+
+    def argv(out_dir, max_iter):
+        return ["--device", str(dev), "--config", cfg, "--datasets-root", data,
+                "MODEL.WEIGHTS", "", "OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(max_iter),
+                *over, *opts]
+
+    ckdir = os.path.join(out, "checkpoints")
+    res = {}
+    calls = {1: _train_call(torch, dev, argv(out, 4), f"{what} call 1", split_reps=split_reps,
+                            kernel_inputs=True, **capture)}
+    _log_train_call(calls[1], f"{what} call 1", card)
+    _check_train(calls[1], f"{what} call 1", ("burn-in", "burn-in", "mt", "mt"), ckdir, (2, 4),
+                 counters, extra_losses=extra_losses)
+    check(calls[1]["resumed"] is None, f"{what} call 1 resumed from a checkpoint")
+    log(f"{what} call 1: MT step split {calls[1]['split_ms']} ms")
+    step4 = torch.load(os.path.join(ckdir, "model_0000004.pth"), map_location="cpu",
+                       weights_only=False)
+    keys = list(step4["model"])
+    n_student = sum(k.startswith("modelStudent.") for k in keys)
+    check(n_student and 2 * n_student == len(keys)
+          and sum(k.startswith("modelTeacher.") for k in keys) == n_student,
+          f"{what} call 1: checkpoint keys not in the ensemble layout: {keys[:3]}")
+    if on_call1 is not None:
+        res.update(on_call1(calls[1], step4) or {})
+    held = hold_mt_kernels(torch, dev, calls[1].pop("kernel_inputs"), what)
+
+    calls[2] = _train_call(torch, dev, argv(out, 6), f"{what} call 2")
+    _log_train_call(calls[2], f"{what} call 2", card)
+    _check_train(calls[2], f"{what} call 2", ("mt", "mt"), ckdir, (2, 4, 6), counters,
+                 extra_losses=extra_losses)
+    resumed = calls[2]["resumed"]
+    check(resumed is not None, f"{what} call 2 did not resume")
+    diff = _checkpoint_differences(torch, resumed, step4)
+    check(not diff, f"{what} call 2: the resumed state differs from the step-4 file in "
+          f"{diff[:6]}")
+    if on_call2 is not None:
+        res.update(on_call2(calls[2]) or {})
+    final = os.path.join(ckdir, "model_0000006.pth")
+    final2 = torch.load(final, map_location="cpu", weights_only=False)
+    trained = (1, 2)
+    if restart:
+        out3 = os.path.join(tmp, "out3")
+        os.makedirs(os.path.join(out3, "checkpoints"))
+        shutil.copy(os.path.join(ckdir, "model_0000004.pth"), os.path.join(out3, "checkpoints"))
+        calls[3] = _train_call(torch, dev, argv(out3, 6), f"{what} call 3")
+        _log_train_call(calls[3], f"{what} call 3", card)
+        _check_train(calls[3], f"{what} call 3", ("mt", "mt"), os.path.join(out3, "checkpoints"),
+                     (4, 6), counters, extra_losses=extra_losses)
+        final3 = torch.load(os.path.join(out3, "checkpoints", "model_0000006.pth"),
+                            map_location="cpu", weights_only=False)
+        diff = _checkpoint_differences(torch, final2, final3)
+        check(not diff, f"{what} call 3: its final checkpoint differs from call 2's in "
+              f"{diff[:6]}")
+        log(f"{what} call 3: the final checkpoint equals call 2's bit for bit")
+        trained = (1, 2, 3)
+
+    ev = ["--eval-only", "--device", str(dev), "--config",
+          os.path.join(HERE, "configs", "test_segment_MT.yaml"), "--datasets-root", data,
+          "MODEL.WEIGHTS", final, "DATASETS.TEST", '["REFUGE_test"]',
+          "TEST.DICE_THRES", "0.0", "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
+          "OUTPUT_DIR", os.path.join(tmp, "eval"), *eval_opts]
+    evals = {}
+    for c, (member, extra) in enumerate(members, start=4):
+        calls[c] = _train_call(torch, dev, ev + extra, f"{what} call {c}")
+        want = {k[len(member) + 1:]: v for k, v in final2["model"].items()
+                if k.startswith(member + ".")}
+        got = calls[c]["init"]
+        diff = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+        check(len(got) == len(want) and not diff,
+              f"{what} call {c}: {member} not loaded: {len(got)} tensors, differing {diff[:5]}")
+        metrics = calls[c]["result"]["REFUGE_test"]
+        log(f"{what} call {c} ({card}): eval-only {' '.join(extra) or 'as shipped'}: "
+            f"{member} loaded ({len(want)} tensors), {calls[c]['main_s']:.1f} s, results "
+            f"{json.dumps(metrics)}, launches "
+            f"{ {k: v for k, v in calls[c]['launches'].items() if v} }")
+        check(all(calls[c]["launches"][k] >= 1 for k in eval_counters),
+              f"{what} call {c}: kernels {list(eval_counters)} not all launched")
+        check(len(metrics) == 3 and all(math.isfinite(v) for v in metrics.values()),
+              f"{what} call {c}: Dice, E and S not all finite: {metrics}")
+        evals[c] = dict(main_s=calls[c]["main_s"], metrics=metrics,
+                        launches=calls[c]["launches"])
+
+    # the MT steps that also copied their kernels' inputs are left out
+    mt_steps = [s["ms"] for c in trained for s in calls[c]["steps"]
+                if s["kind"] == "mt" and not s["took_inputs"]]
+    summary = {f"call{c}": dict(
+        steps=[(s["kind"], s["ms"]) for s in calls[c]["steps"]], wait_s=calls[c]["wait_s"],
+        main_s=calls[c]["main_s"], peak_gib=calls[c]["peak_gib"], save_s=calls[c]["save_s"],
+        total_loss=[s["losses"]["total_loss"] for s in calls[c]["steps"]],
+        extra_losses=[{k: s["losses"][k] for k in extra_losses} for s in calls[c]["steps"]
+                      if s["kind"] == "mt"],
+        launches_per_step=[s["launches"] for s in calls[c]["steps"]],
+        pools_per_step=[s["pools"] for s in calls[c]["steps"]],
+        pseudo_per_image=calls[c]["pseudo"]) for c in trained}
+    res.update(summary=summary, held=held, mt_step_median_ms=statistics.median(mt_steps),
+               launches={k: calls[1]["launches"][k] + calls[4]["launches"][k]
+                         for k in calls[1]["launches"]},
+               split_ms=calls[1]["split_ms"], peak_gib=calls[1]["peak_gib"],
+               checkpoint_mib=calls[1]["save_bytes"][0] / 2 ** 20, eval=evals)
+    return res, calls
+
+
 def phase_mt_cli(torch, dev, card: str = "", opts=(), eval_opts=(), counters=TRAIN_COUNTERS,
-                 eval_counters=("gagm",), splits=MT_SPLITS, split_reps: int = MT_SPLIT_REPS):
+                 eval_counters=("gagm",), splits=MT_SPLITS, split_reps: int = MT_SPLIT_REPS,
+                 data: str | None = None):
     """The mean-teacher trainer as a user runs it: ``train_net_torch.main([
     "--config", "configs/seg_res50fpn_MT.yaml", ...])`` at full width with
     the shipped config (R50-FPN, batch 4 labelled + 4 unlabelled, the bf16
@@ -2662,64 +2892,37 @@ def phase_mt_cli(torch, dev, card: str = "", opts=(), eval_opts=(), counters=TRA
     (``MODEL.WEIGHTS ""``), on synthetic ``RIM_ONE_r3_train`` (labelled) and
     ``REFUGE_train`` (unlabelled) splits in the reference's layout with
     polygon ground truth, with the overrides of ``MT_OVERRIDES`` (each
-    printed with its reason).  Call 1 trains 4 steps: 2 burn-in steps, the
-    teacher's copy at step 2 (equal to the student bit for bit), MT steps 2
-    and 3 (step 3's teacher the moving average of step 2's teacher and step
-    3's student, recomputed on the host), and kernels A, C and D held
-    against their plain versions on the inputs of its MT steps
-    (:func:`hold_mt_kernels`; the MT step median leaves out the steps that
-    copied them); call 2 the same command to 6
-    steps, resumed at step 4 bit for bit from the ensemble-layout file;
-    call 3 call 2 again from a directory that holds only the step-4
-    checkpoint, its final checkpoint bit for bit call 2's (two MT steps
-    from one state give the same bits); calls 4 and 5 ``--eval-only
-    --config configs/test_segment_MT.yaml`` on call 2's final file, on a
-    REFUGE test split, with ``TEST.EVAL_STU False`` (the teacher; the
-    shipped file sets True) and as shipped (the student): every tensor of
-    the member loaded, kernel B launched, Dice, E and S finite.  Logs the
+    printed with its reason), through :func:`_mt_cli_calls`.  Call 1 trains
+    4 steps: 2 burn-in steps, the teacher's copy at step 2 (equal to the
+    student bit for bit), MT steps 2 and 3 (step 3's teacher the moving
+    average of step 2's teacher and step 3's student, recomputed on the
+    host), and kernels A, C and D held against their plain versions on the
+    inputs of its MT steps (the MT step median leaves out the steps that
+    copied them); call 2 the same command to 6 steps, resumed at step 4 bit
+    for bit from the ensemble-layout file (the restart from a copy of the
+    step-4 file is phase 12's, on the same MT path with the head); calls 4
+    and 5 ``--eval-only --config configs/test_segment_MT.yaml`` on call 2's
+    final file with ``TEST.EVAL_STU False`` (the teacher; the shipped file
+    sets True) and as shipped (the student), kernel B launched.  Logs the
     step times, the split of one MT step between its passes, the loader's
     waits, the pseudo-boxes per image, the launches and pool calls per
     step, the peak memory, and the two-crop loader's host time per batch
-    on one thread."""
-    import shutil
+    on one thread.  The splits are written under ``data``, or read from
+    there when given (:func:`write_mt_splits`)."""
     import tempfile
 
     import numpy as np
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        data = os.path.join(tmp, "data")
-        for i, (split, n, hw) in enumerate(splits):
-            write_fundus_split(data, n, hw, seed=10 + i, polygons=True, split=split)
-        cfg = os.path.join(HERE, "configs", "seg_res50fpn_MT.yaml")
-        out = os.path.join(tmp, "out")
-        over = [x for k, v, _ in MT_OVERRIDES for x in (k, v)]
-        for k, v, why in MT_OVERRIDES:
-            log(f"mt cli: override {k} {v}: {why}")
-        log("mt cli: override SOLVER.MAX_ITER 4, then 6 (resumed at 4): the smoke run's depth, "
-            "cut from the shipped 10000")
+    from ttdg_mgm_torch.config import setup_cfg
 
-        def argv(out_dir, max_iter):
-            return ["--device", str(dev), "--config", cfg, "--datasets-root", data,
-                    "MODEL.WEIGHTS", "", "OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(max_iter),
-                    *over, *opts]
+    keep = np.float32(setup_cfg(os.path.join(HERE, "configs", "seg_res50fpn_MT.yaml"),
+                                []).SEMISUPNET.EMA_KEEP_RATE)
 
-        log(f"mt cli: splits {[(s, n, hw) for s, n, hw in splits]} written in "
-            f"{time.perf_counter() - t0:.1f} s")
-        ckdir = os.path.join(out, "checkpoints")
-        calls = {1: _train_call(torch, dev, argv(out, 4), "mt cli call 1", split_reps=split_reps,
-                                snapshots=True, kernel_inputs=True)}
-        _log_train_call(calls[1], "mt cli call 1", card)
-        _check_train(calls[1], "mt cli call 1", ("burn-in", "burn-in", "mt", "mt"), ckdir, (2, 4),
-                     counters)
-        check(calls[1]["resumed"] is None, "mt cli call 1 resumed from a checkpoint")
-        (s2, t2), (s3, t3) = calls[1]["seen"]
+    def copy_and_ema(record, step4):
+        (s2, t2), (s3, t3) = record.pop("seen")
         diff = [k for k in s2 if not torch.equal(s2[k], t2[k])]
         check(not diff, f"mt cli call 1: the teacher differs from the student at the copy in "
               f"{diff[:5]}")
-        from ttdg_mgm_torch.config import setup_cfg
-
-        keep = np.float32(setup_cfg(cfg, []).SEMISUPNET.EMA_KEEP_RATE)
         worst = 0.0
         for k in s3:
             if k.endswith(("running_mean", "running_var")):
@@ -2733,89 +2936,137 @@ def phase_mt_cli(torch, dev, card: str = "", opts=(), eval_opts=(), counters=TRA
         moved = sum(not torch.equal(s2[k], s3[k]) for k in s2)
         log(f"mt cli call 1: teacher == student at step 2 ({len(s2)} tensors); step-3 teacher "
             f"within {worst:.3g} of the host's moving average; {moved} tensors of the student "
-            f"moved at step 2; MT step split {calls[1]['split_ms']} ms")
-        del calls[1]["seen"]
-        held = hold_mt_kernels(torch, dev, calls[1].pop("kernel_inputs"))
-        step4 = torch.load(os.path.join(ckdir, "model_0000004.pth"), map_location="cpu",
-                           weights_only=False)
-        keys = list(step4["model"])
-        n_student = sum(k.startswith("modelStudent.") for k in keys)
-        check(n_student and 2 * n_student == len(keys)
-              and sum(k.startswith("modelTeacher.") for k in keys) == n_student,
-              f"mt cli call 1: checkpoint keys not in the ensemble layout: {keys[:3]}")
-        out3 = os.path.join(tmp, "out3")
-        os.makedirs(os.path.join(out3, "checkpoints"))
-        shutil.copy(os.path.join(ckdir, "model_0000004.pth"), os.path.join(out3, "checkpoints"))
+            "moved at step 2")
 
-        calls[2] = _train_call(torch, dev, argv(out, 6), "mt cli call 2")
-        _log_train_call(calls[2], "mt cli call 2", card)
-        _check_train(calls[2], "mt cli call 2", ("mt", "mt"), ckdir, (2, 4, 6), counters)
-        res = calls[2]["resumed"]
-        check(res is not None, "mt cli call 2 did not resume")
-        diff = _checkpoint_differences(torch, res, step4)
-        check(not diff, f"mt cli call 2: the resumed state differs from the step-4 file in "
-              f"{diff[:6]}")
-
-        calls[3] = _train_call(torch, dev, argv(out3, 6), "mt cli call 3")
-        _log_train_call(calls[3], "mt cli call 3", card)
-        _check_train(calls[3], "mt cli call 3", ("mt", "mt"), os.path.join(out3, "checkpoints"),
-                     (4, 6), counters)
-        final2 = torch.load(os.path.join(ckdir, "model_0000006.pth"), map_location="cpu",
-                            weights_only=False)
-        final3 = torch.load(os.path.join(out3, "checkpoints", "model_0000006.pth"),
-                            map_location="cpu", weights_only=False)
-        diff = _checkpoint_differences(torch, final2, final3)
-        check(not diff, f"mt cli call 3: its final checkpoint differs from call 2's in {diff[:6]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        if data is None:
+            data = os.path.join(tmp, "data")
+            write_mt_splits(data, splits)
+        for k, v, why in MT_OVERRIDES:
+            log(f"mt cli: override {k} {v}: {why}")
+        log("mt cli: override SOLVER.MAX_ITER 4, then 6 (resumed at 4): the smoke run's depth, "
+            "cut from the shipped 10000")
+        res, calls = _mt_cli_calls(
+            torch, dev, card, "mt cli", tmp, data, MT_OVERRIDES, opts, eval_opts, counters,
+            eval_counters, split_reps, (("modelTeacher", ["TEST.EVAL_STU", "False"]),
+                                        ("modelStudent", [])),
+            on_call1=copy_and_ema, snapshots=True)
         host_s = loader_host_s(calls[1], MT_LOADER_BATCHES)
 
-        weights = os.path.join(ckdir, "model_0000006.pth")
-        ev = ["--eval-only", "--device", str(dev), "--config",
-              os.path.join(HERE, "configs", "test_segment_MT.yaml"), "--datasets-root", data,
-              "MODEL.WEIGHTS", weights, "DATASETS.TEST", '["REFUGE_test"]',
-              "TEST.DICE_THRES", "0.0", "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
-              "OUTPUT_DIR", os.path.join(tmp, "eval"), *eval_opts]
-        for c, member, extra in ((4, "modelTeacher", ["TEST.EVAL_STU", "False"]),
-                                 (5, "modelStudent", [])):
-            calls[c] = _train_call(torch, dev, ev + extra, f"mt cli call {c}")
-            want = {k[len(member) + 1:]: v for k, v in final2["model"].items()
-                    if k.startswith(member + ".")}
-            got = calls[c]["init"]
-            diff = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
-            check(len(got) == len(want) and not diff,
-                  f"mt cli call {c}: {member} not loaded: {len(got)} tensors, differing "
-                  f"{diff[:5]}")
-            metrics = calls[c]["result"]["REFUGE_test"]
-            log(f"mt cli call {c} ({card}): eval-only {' '.join(extra) or 'as shipped'}: "
-                f"{member} loaded ({len(want)} tensors), {calls[c]['main_s']:.1f} s, results "
-                f"{json.dumps(metrics)}, launches "
-                f"{ {k: v for k, v in calls[c]['launches'].items() if v} }")
-            check(all(calls[c]["launches"][k] >= 1 for k in eval_counters),
-                  f"mt cli call {c}: kernels {list(eval_counters)} not all launched")
-            check(len(metrics) == 3 and all(math.isfinite(v) for v in metrics.values()),
-                  f"mt cli call {c}: Dice, E and S not all finite: {metrics}")
-
-    # the MT steps that also copied their kernels' inputs are left out
-    mt_steps = [s["ms"] for c in (1, 2, 3) for s in calls[c]["steps"]
-                if s["kind"] == "mt" and not s["took_inputs"]]
-    med = statistics.median(mt_steps)
+    med = res["mt_step_median_ms"]
     ratio = statistics.median(host_s) * 1e3 / med
     log(f"mt cli ({card}): the two-crop loader's host time per batch (4 + 4 records, 16 views, "
         f"one thread) {[round(x, 3) for x in host_s]} s, median {statistics.median(host_s):.3f} "
         f"s, against the median MT step {med:.1f} ms: loader / step {ratio:.1f}")
-    summary = {f"call{c}": dict(
-        steps=[(s["kind"], s["ms"]) for s in calls[c]["steps"]], wait_s=calls[c]["wait_s"],
-        main_s=calls[c]["main_s"], peak_gib=calls[c]["peak_gib"], save_s=calls[c]["save_s"],
-        total_loss=[s["losses"]["total_loss"] for s in calls[c]["steps"]],
-        launches_per_step=[s["launches"] for s in calls[c]["steps"]],
-        pools_per_step=[s["pools"] for s in calls[c]["steps"]],
-        pseudo_per_image=calls[c]["pseudo"]) for c in (1, 2, 3)}
-    launches = {k: calls[1]["launches"][k] + calls[4]["launches"][k] for k in calls[1]["launches"]}
-    return dict(summary=summary, launches=launches, mt_step_median_ms=med, held=held,
-                split_ms=calls[1]["split_ms"], loader_host_s=host_s, loader_over_step=ratio,
-                checkpoint_mib=calls[1]["save_bytes"][0] / 2 ** 20,
-                eval={c: dict(main_s=calls[c]["main_s"],
-                              metrics=calls[c]["result"]["REFUGE_test"],
-                              launches=calls[c]["launches"]) for c in (4, 5)})
+    return dict(res, loader_host_s=host_s, loader_over_step=ratio)
+
+
+# -- phase 12: the mean-teacher trainer with its cross-domain head ------------------------
+
+#: phase 12's override beyond phase 11's ``MT_OVERRIDES``, with its reason
+MT_CD_OVERRIDES = (
+    ("SEMISUPNET.CROSS_DOMAIN_MATCHING", "True", "the option under test: the cross-domain "
+     "graph-matching head (False in every shipped config)"),
+)
+HEAD_LOSSES = ("loss_node_cls", "loss_cross_matching", "loss_topology")
+#: the step's class centers against the host's moving average (float64 on the
+#: host; the card's per-class sums are a float32 matrix product)
+CENTER_RTOL = 1e-5
+
+
+def host_center_ema(update) -> "object":
+    """The class centers' moving average recomputed on the host in float64
+    from one update's inputs (:func:`capture_train`'s ``center_updates``):
+    each class's mean node (invalid nodes as class 0) moves its center by
+    ``1 - momentum``; a class with no node keeps it."""
+    import numpy as np
+
+    c = update["centers"].double().numpy()
+    nodes = update["nodes"].double().numpy()
+    onehot = np.eye(c.shape[0])[np.where(update["mask"].numpy(), update["labels"].numpy(), 0)]
+    n = onehot.sum(0)
+    batch = onehot.T @ nodes / np.maximum(n, 1.0)[:, None]
+    m = update["momentum"]
+    return np.where((n > 0)[:, None], m * c + (1 - m) * batch, c)
+
+
+def phase_mt_cd_cli(torch, dev, card: str = "", data: str | None = None, opts=(), eval_opts=(),
+                    counters=TRAIN_COUNTERS, eval_counters=("gagm",),
+                    split_reps: int = MT_SPLIT_REPS):
+    """The mean-teacher trainer with its cross-domain graph-matching head,
+    as a user runs it: phase 11's command (``configs/seg_res50fpn_MT.yaml``
+    at full width, bf16, 4 + 4 images on the square 800 canvas, random
+    weights, ``MT_OVERRIDES``) with ``SEMISUPNET.CROSS_DOMAIN_MATCHING
+    True`` (``MT_CD_OVERRIDES``, printed with its reason), on phase 11's
+    splits (``data``, written here when None), through phase 11's calls
+    (:func:`_mt_cli_calls`) with the head's three losses gated finite on
+    every MT step.  Call 1 (4 steps: 2 burn-in, 2 MT with the head): the
+    class centers start at zero, step 3 gets step 2's, and step 3's equal
+    the moving average recomputed on the host from the update's own inputs
+    (:func:`host_center_ema`, ``CENTER_RTOL``); both members carry the
+    head's 40 tensors; the pass split with the cross-domain pass as a
+    fifth; the final teacher's pseudo-labels probed against the unlabelled
+    split's ground truth (:func:`probe_teacher`).  Call 2 resumes at step 4
+    and runs to 6; its centers restart at zero (not checkpointed, as in the
+    JAX package).  Call 3 runs call 2 again from a copy of the step-4 file,
+    bit for bit.  Call 4: ``--eval-only`` on the final file as shipped (the
+    student, head included), kernel B launched.  Logs the head's losses,
+    the MT step median, the split, peak memory, the checkpoint's size and
+    the probe."""
+    import tempfile
+
+    def centers(record, step4):
+        head = [{k: s["losses"][k] for k in HEAD_LOSSES} for s in record["steps"]
+                if s["kind"] == "mt"]
+        log(f"mt cd cli call 1: the head's losses on MT steps 2 and 3: {head}")
+        cs, ups = record["centers"], record["center_updates"]
+        check(len(cs) == 2 and len(ups) == 2,
+              f"mt cd cli call 1: {len(cs)} MT steps with centers, {len(ups)} center updates")
+        check(not cs[0][0].any(), "mt cd cli call 1: step 2's centers did not start at zero")
+        check(torch.equal(cs[1][0], cs[0][1]), "mt cd cli call 1: step 3 did not get step 2's "
+              "centers")
+        for i, (u, (_, c_out)) in enumerate(zip(ups, cs)):
+            check(torch.equal(u["out"], c_out), f"mt cd cli call 1: MT step {i + 2} returned "
+                  "other centers than its update gave")
+        want = host_center_ema(ups[1])
+        err = float(abs(cs[1][1].double().numpy() - want).max() / max(abs(want).max(), 1e-30))
+        check(err <= CENTER_RTOL, f"mt cd cli call 1: step 3's centers are {err:.3g} (relative "
+              f"to their largest) from the host's moving average, over {CENTER_RTOL}")
+        moved = [int(i) for i in range(len(want)) if not torch.equal(cs[1][1][i], cs[1][0][i])]
+        n_head = sum(k.startswith("modelStudent.cross_domain.") for k in step4["model"])
+        check(n_head == 40 and sum(k.startswith("modelTeacher.cross_domain.")
+                                   for k in step4["model"]) == 40,
+              f"mt cd cli call 1: {n_head} cross-domain tensors per member in the checkpoint")
+        log(f"mt cd cli call 1: centers {tuple(cs[1][1].shape)} zero at step 2, threaded to step "
+            f"3, step 3's within {err:.3g} of the host's moving average (momentum "
+            f"{ups[1]['momentum']}, classes moved {moved}, node rows {len(ups[1]['nodes'])}); "
+            f"probe {json.dumps(record['probe'])}")
+        return dict(center_err=err, probe=record["probe"])
+
+    def restart_at_zero(record):
+        check(not record["centers"][0][0].any(), "mt cd cli call 2: the centers did not "
+              "restart at zero")
+        log("mt cd cli call 2: resumed at step 4 bit for bit; the centers restart at zero (not "
+            "checkpointed, as in the JAX package)")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if data is None:
+            data = os.path.join(tmp, "data")
+            write_mt_splits(data)
+        for k, v, why in MT_CD_OVERRIDES:
+            log(f"mt cd cli: override {k} {v}: {why}")
+        log("mt cd cli: phase 11's overrides " + ", ".join(f"{k} {v}" for k, v, _ in MT_OVERRIDES)
+            + " (their reasons above), SOLVER.MAX_ITER 4, then 6 (resumed at 4), on phase "
+            "11's splits")
+        res, _ = _mt_cli_calls(
+            torch, dev, card, "mt cd cli", tmp, data, (*MT_OVERRIDES, *MT_CD_OVERRIDES), opts,
+            eval_opts, counters, eval_counters, split_reps, (("modelStudent", []),),
+            extra_losses=HEAD_LOSSES, restart=True, on_call1=centers, on_call2=restart_at_zero,
+            probe=True)
+    log(f"mt cd cli ({card}): median MT step with the head {res['mt_step_median_ms']:.1f} ms; "
+        f"split {res['split_ms']} ms; peak {res['peak_gib']:.2f} GiB; checkpoint "
+        f"{res['checkpoint_mib']:.1f} MiB")
+    return res
 
 
 # -- main ---------------------------------------------------------------------------
@@ -2872,27 +3123,32 @@ def main() -> int:
     cli = phase_cli(torch, dev, card)
     cli16 = phase_cli_bf16(torch, dev, card)
     train = phase_train_cli(torch, dev, card)
-    mtc = phase_mt_cli(torch, dev, card)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as mt_data:
+        write_mt_splits(mt_data)
+        mtc = phase_mt_cli(torch, dev, card, data=mt_data)
+        mtcd = phase_mt_cd_cli(torch, dev, card, data=mt_data)
     if "--warm" in argv:
         phase_warm(torch, dev)
 
     g4 = gagm["G4_M60"]
     paths = {"tta": e2e, "source": src, "cli": cli, "tta_bf16": e2e16, "source_bf16": src16,
-             "cli_bf16": cli16, "train_cli": train, "mt_cli": mtc}
+             "cli_bf16": cli16, "train_cli": train, "mt_cli": mtc, "mt_cd_cli": mtcd}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items()} for k in e2e["launches"]}
     pick = ("ms", "kernel_only_ms", "args_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "shape")
 
-    held = mtc.pop("held")
+    held, held_cd = mtc.pop("held"), mtcd.pop("held")
 
-    def pool_kernel(name, pools, train, tta, mt=None):
+    def pool_kernel(name, pools, train, tta, mt=None, mt_cd=None):
         box, mask = pools["box"], pools["mask"]
-        mt = mt or {}
+        mt, mt_cd = mt or {}, mt_cd or {}
         return dict(name=name, route="cuda", source="ttdg_mgm_torch/csrc/roi_pool.cu",
                     replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:113",
                     launches=tta["launches"][name], launches_by_path=by_path[name],
                     max_abs_err=max(r["max_abs_err"] for r in (*pools.values(), *train.values(),
-                                                               *mt.values())),
+                                                               *mt.values(), *mt_cd.values())),
                     tolerance=pool_tolerance(name.endswith("bf16")),
                     ms=box["ms"], plain_ms=box["plain_ms"], bound_ms=box["bound_ms"],
                     bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
@@ -2900,9 +3156,10 @@ def main() -> int:
                     geometry_ulps=max(r["geometry_ulps"] for r in (*pools.values(),
                                                                   *train.values())),
                     mask_pool={k: mask[k] for k in pick}, train_pools=train, mt_step_pools=mt,
+                    mt_cd_step_pools=mt_cd,
                     rect_canvas={k: v for k, v in pools.items() if k not in ("box", "mask")})
 
-    def backward_kernel(name, bwd, main_path, source, mt=None):
+    def backward_kernel(name, bwd, main_path, source, mt=None, mt_cd=None):
         box, mask = bwd["box"], bwd["mask"]
         return dict(name=name, route="cuda", source="ttdg_mgm_torch/csrc/roi_pool_backward.cu",
                     replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:350",
@@ -2913,11 +3170,12 @@ def main() -> int:
                     bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
                     kernel_only_ms=box["kernel_only_ms"], args_ms=box["args_ms"],
                     deterministic=box["deterministic"] and mask["deterministic"],
-                    main_path=main_path, mt_step=mt, mask_pool={k: mask[k] for k in pick})
+                    main_path=main_path, mt_step=mt, mt_cd_step=mt_cd,
+                    mask_pool={k: mask[k] for k in pick})
 
     kernels = [
         pool_kernel("roi_pool", roi, roi_train, e2e),
-        pool_kernel("roi_pool_bf16", roi16, roi_train16, e2e16, held["pools"]),
+        pool_kernel("roi_pool_bf16", roi16, roi_train16, e2e16, held["pools"], held_cd["pools"]),
         dict(name="gagm", route="cuda", source="ttdg_mgm_torch/csrc/gagm.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/gagm_pallas.py:53",
              launches=e2e["launches"]["gagm"], launches_by_path=by_path["gagm"],
@@ -2928,11 +3186,13 @@ def main() -> int:
              other_cases={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "steps")}
                           for k, v in gagm.items() if k != "G4_M60"}),
         backward_kernel("roi_pool_backward", roi_bwd, bwd_main, src),
-        backward_kernel("roi_pool_backward_bf16", roi_bwd16, bwd_main16, src16, held["backward"]),
+        backward_kernel("roi_pool_backward_bf16", roi_bwd16, bwd_main16, src16, held["backward"],
+                        held_cd["backward"]),
         dict(name="sinkhorn", route="cuda", source="ttdg_mgm_torch/csrc/sinkhorn.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/sinkhorn_pallas.py:31",
              launches=src["launches"]["sinkhorn"], launches_by_path=by_path["sinkhorn"],
-             max_abs_err=max(sk["max_abs_err"], held["sinkhorn"]["max_abs_err"]), ms=sk["ms"],
+             max_abs_err=max(sk["max_abs_err"], held["sinkhorn"]["max_abs_err"],
+                             held_cd["sinkhorn"]["max_abs_err"]), ms=sk["ms"],
              plain_ms=sk["plain_ms"],
              bound_ms=sk["bound_ms"], bound_by=sk["bound_by"], library_ms=None,
              shape=sk["shape"], chain_floor_ms=sk["chain_floor_ms"],
@@ -2940,7 +3200,7 @@ def main() -> int:
              generic_path_ms=sk["generic_path_ms"],
              input_dtypes_bf16_path=src16["kernel_d_dtypes"],
              projections_checked=sk["projections_checked"], hippi_rerun=sk["hippi_rerun"],
-             mt_step=held["sinkhorn"]),
+             mt_step=held["sinkhorn"], mt_cd_step=held_cd["sinkhorn"]),
     ]
     e2e_keys = ("step_ms", "steady_ms", "images_per_s", "losses", "infer_ms", "peak_gib")
     src_keys = ("batch", "step_ms", "steady_ms", "images_per_s", "total_loss", "peak_gib")
@@ -2956,6 +3216,7 @@ def main() -> int:
     log(f"cli bf16 summary ({card}): {json.dumps(cli16)}")
     log(f"train cli summary ({card}): {json.dumps(train)}")
     log(f"mt cli summary ({card}): {json.dumps(mtc)}")
+    log(f"mt cd cli summary ({card}): {json.dumps(mtcd)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

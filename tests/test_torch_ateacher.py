@@ -27,6 +27,8 @@ The dispatch, the teacher and student evaluation and the command line are
 in tests/test_torch_ateacher_cli.py.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import json
 import os
 

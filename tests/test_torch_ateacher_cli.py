@@ -16,6 +16,8 @@ The loop's parity with the JAX package and its resume are in
 tests/test_torch_ateacher.py.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import json
 import logging
 import os
@@ -60,7 +62,8 @@ def _tiny_cfg(trainer):
 
 def test_build_trainer_dispatch():
     """``SEMISUPNET.Trainer`` selects the class, and the JAX package's
-    settings reach it."""
+    settings reach it, ``CROSS_DOMAIN_MATCHING`` among them (the head and
+    its zero class centers)."""
     cfg = _tiny_cfg("ateacher")
     cfg.DATALOADER.SUP_PERCENT = 40.0
     cfg.DATALOADER.RANDOM_DATA_SEED = 3
@@ -74,10 +77,12 @@ def test_build_trainer_dispatch():
     cfg.SEMISUPNET.Trainer = "baseline"
     t2 = build_trainer(cfg, device="cpu")
     assert isinstance(t2, BaselineTrainer) and not isinstance(t2, ATeacherTrainer)
+    assert not t.cross_domain and t.centers is None
     cfg.SEMISUPNET.Trainer = "ateacher"
     cfg.SEMISUPNET.CROSS_DOMAIN_MATCHING = True
-    with pytest.raises(NotImplementedError, match="cross-domain head"):
-        build_trainer(cfg, device="cpu")
+    t3 = build_trainer(cfg, device="cpu")
+    assert isinstance(t3, ATeacherTrainer) and t3.cross_domain
+    assert t3.centers.shape == (3, 256) and not t3.centers.any()
 
 
 def test_eval_teacher_vs_student(tmp_path):

@@ -4,6 +4,8 @@ pools in interpret mode, the bf16 model against the JAX bf16 model on the
 same weights with the bounds of ``tests/test_bf16.py``, float32 parameters
 and gradients after bf16 steps, and the configs' mapping onto the policy."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import os
 
 import jax

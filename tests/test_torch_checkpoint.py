@@ -7,6 +7,8 @@ each hook's period against the JAX hook's on the same iterations, the
 anomaly hook's ``FloatingPointError``, and ``metrics.json`` lines equal to
 the JAX ``WriterHook``'s."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import json
 import logging
 import os

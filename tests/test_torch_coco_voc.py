@@ -4,6 +4,8 @@ crowd regions, difficult boxes, masks, the 2007 and 2012 VOC metrics and a
 class subset; and through ``evaluate_dataset`` on image files with a fixed
 detector, with each evaluator forced as ``TEST.EVALUATOR`` forces it."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import json
 import math
 

@@ -3,6 +3,8 @@ against ``yaml.safe_load``, ``setup_cfg`` on every file in ``configs/``
 with the overrides of ``tests/test_cli.py``, the config -> model fields of
 ``build.py`` and the learning-rate schedules."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import glob
 import math
 import os
@@ -128,20 +130,20 @@ def test_model_fields_match_jax_build_model(path):
 
 
 def test_unported_options_are_refused():
-    """The VGG backbone and the mean-teacher trainer's cross-domain head
-    raise, naming the way out; bf16 compute and the mean-teacher trainer
-    without that head are ported and no longer refused (their mapping and
-    dispatch are held in tests/test_torch_bf16.py and
-    tests/test_torch_ateacher.py)."""
+    """The VGG backbone raises, naming the way out; bf16 compute, the
+    mean-teacher trainer and its cross-domain head are ported and no longer
+    refused (their mapping and dispatch are held in
+    tests/test_torch_bf16.py, tests/test_torch_ateacher.py and
+    tests/test_torch_mt_cross_domain.py)."""
     seg = os.path.join(REPO, "configs", "test_segment.yaml")
     assert tbuild.model_kwargs(tconfig.setup_cfg(seg))["compute_dtype"] == "bfloat16"
     with pytest.raises(NotImplementedError, match="VGG backbone"):
         tbuild.model_kwargs(tconfig.setup_cfg(seg, FLOAT32 + ["MODEL.BACKBONE.NAME",
                                                               "build_vgg_backbone"]))
     mt = os.path.join(REPO, "configs", "test_segment_MT.yaml")
-    with pytest.raises(NotImplementedError, match="mean-teacher trainer's cross-domain head"):
-        tbuild.build_trainer(tconfig.setup_cfg(mt, FLOAT32 + ["SEMISUPNET.CROSS_DOMAIN_MATCHING",
-                                                              "True"]), device="cpu")
+    cfg = tconfig.setup_cfg(mt, FLOAT32 + ["SEMISUPNET.CROSS_DOMAIN_MATCHING", "True"])
+    assert cfg.SEMISUPNET.CROSS_DOMAIN_MATCHING is True
+    assert tbuild.model_kwargs(cfg)["fpn_channels"] == 256
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)

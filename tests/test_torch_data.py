@@ -4,6 +4,8 @@ and ``prepare_sample`` / ``pack_batch`` / ``build_test_loader`` on the
 shifted-target images of ``scripts/demo_tta_gain.py`` and on a rectangular
 dataset under ``canvas="auto"``."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import io
 import json
 import os

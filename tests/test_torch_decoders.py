@@ -6,6 +6,8 @@ restart markers and progressive files) writes here, and on the committed
 JPEG fixtures.  Only the tests import Pillow and OpenCV; the port imports
 neither."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import io
 import os
 import struct

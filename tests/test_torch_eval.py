@@ -3,6 +3,8 @@ mask paste, the Dice / E / S evaluator, the evaluator dispatch, result
 flattening and family means, ``postprocess_detections``, and
 ``build.py:init_params`` on d2 checkpoints."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import os
 
 import jax
@@ -25,7 +27,7 @@ from ttdg_mgm_torch.data.catalog import MetadataCatalog
 from ttdg_mgm_torch.engine import trainer as ttrainer
 from ttdg_mgm_torch.evaluation import build as teval_build
 from ttdg_mgm_torch.evaluation import dice as tdice
-from ttdg_mgm_torch.models.rcnn import MaskRCNN
+from ttdg_mgm_torch.models.rcnn import MaskRCNN, init_weights
 from ttdg_mgm_torch.ops.mask_paste import paste_masks
 
 from torch_port_fixture import (jax_model_and_params, port_kwargs, shifted_images,  # noqa: E402
@@ -198,8 +200,12 @@ def test_init_params_loads_fixture_checkpoint(fixture_export, which):
     _, params, sd, plain, ens = fixture_export
     model = tbuild.init_params(_cfg(plain if which == "plain" else ens, which == "student"),
                                _port_model(), seed=0)
-    ref = _port_model()
-    load_d2_state_dict(ref, sd)
+    # the JAX exporter writes no cross-domain head (the reference has none):
+    # those tensors keep the seeded initial values
+    ref = init_weights(_port_model(), torch.Generator().manual_seed(0))
+    head = {k: v.numpy() for k, v in ref.state_dict().items() if k.startswith("cross_domain.")}
+    assert len(head) == 40 and not any(k.startswith("cross_domain.") for k in sd)
+    load_d2_state_dict(ref, {**sd, **head})
     got, want = model.state_dict(), ref.state_dict()
     for k in want:
         if which == "student" and k.endswith("cls_score.bias"):

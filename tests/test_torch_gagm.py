@@ -7,6 +7,8 @@ the discrete rounding may legitimately break ties differently.  Tolerance
 atol 1e-5 with identical 0/1 assignments (tests/test_pallas.py:21-156).
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

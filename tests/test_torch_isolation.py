@@ -5,6 +5,8 @@ on PNG images with RLE ground truth and the mean-teacher training CLI with
 its strong augmentation load none of them either), and the
 port's entry points run on CUDA unless the caller asks for the CPU."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import ast
 import os
 import subprocess
@@ -51,6 +53,9 @@ def test_fresh_import_loads_no_jax(tmp_path):
     assert "train_net_torch" in mods and "ttdg_mgm_torch.engine.trainer" in mods
     assert {"ttdg_mgm_torch.engine.mean_teacher", "ttdg_mgm_torch.models.discriminator",
             "ttdg_mgm_torch.data.enhance"} <= set(mods)
+    assert {"ttdg_mgm_torch.graph.gcn", "ttdg_mgm_torch.graph.ot",
+            "ttdg_mgm_torch.graph.contrastive", "ttdg_mgm_torch.graph.cross_domain",
+            "ttdg_mgm_torch.engine.probe"} <= set(mods)
 
 
 def test_cli_imports_no_pillow_opencv_or_yaml(tmp_path):

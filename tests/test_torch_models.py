@@ -10,6 +10,8 @@ sides here run the same float32 arithmetic from the same weights, so only
 the convolution algorithms' summation order differs.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import os
 
 import jax
@@ -126,15 +128,17 @@ def test_flagship_param_tree_loads_through_the_bridge():
 
 def test_bridge_loader_is_strict(fixture_models):
     """A name the port's modules own that is missing, or an unknown name
-    under them, raises; names outside them (the unported cross-domain head)
-    are skipped and returned.  The discriminator is owned: a tensor of
-    another shape under ``D_img`` raises."""
+    under them, raises; names outside them (d2's ``pixel_mean``, which the
+    port keeps out of its state dict) are skipped and returned.  The
+    discriminator and the cross-domain head are owned: a tensor of another
+    shape under ``D_img`` or ``cross_domain`` raises."""
     _, jp, pm, _, _ = fixture_models
     sd = flax_params_to_d2(to_numpy_tree(jp), box_head_channels=128)
-    extra = dict(sd, **{"cross_domain.node_cls.weight": np.zeros(1, np.float32)})
-    assert load_d2_state_dict(pm, extra) == ["cross_domain.node_cls.weight"]
-    with pytest.raises(ValueError, match="D_img.conv1.weight"):
-        load_d2_state_dict(pm, dict(sd, **{"D_img.conv1.weight": np.zeros(1, np.float32)}))
+    extra = dict(sd, **{"pixel_mean": np.zeros(3, np.float32)})
+    assert load_d2_state_dict(pm, extra) == ["pixel_mean"]
+    for name in ("D_img.conv1.weight", "cross_domain.node_cls.weight"):
+        with pytest.raises(ValueError, match=name):
+            load_d2_state_dict(pm, dict(sd, **{name: np.zeros(1, np.float32)}))
     missing = dict(sd)
     missing.pop("roi_heads.box_head.fc1.weight")
     with pytest.raises(KeyError, match="fc1"):

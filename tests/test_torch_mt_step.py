@@ -34,6 +34,8 @@ step key 7 the two packages reach the same one (``loss_matching`` equal to
 every digit printed).
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -4,6 +4,8 @@ Sinkhorn (forward and gradient) and the JV LAP.
 Inputs come from NumPy seeds and go through both frameworks as float32.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

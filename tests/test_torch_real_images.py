@@ -6,6 +6,8 @@ truth.  ``build_test_loader`` gives the same batches and metas, and
 ``build_test_loader`` and ``evaluate_dataset`` fed the same detections (a
 fixed detector, the same arithmetic in both packages)."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import json
 import os
 

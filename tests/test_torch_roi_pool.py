@@ -5,6 +5,8 @@ Tolerance atol 2e-5, rtol 1e-4 (tests/test_pallas.py:TestWindowedRoiPool):
 the same bilinear arithmetic in float32, summed in another order.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import jax
 import numpy as np
 import pytest

@@ -40,6 +40,8 @@ JAX crop):
   package's ``einsum`` at 0.4999990 on seeds 3 and 10.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -309,6 +311,51 @@ def test_parameters_after_one_source_step(source_run):
         tol = r["lr"] * 1e-3 * np.abs(r["jg"][name]).max() + 1e-6
         np.testing.assert_allclose(params[name].detach().numpy(), want, rtol=0, atol=tol,
                                    err_msg=name)
+
+
+def test_cross_domain_head_after_one_source_step(source_run):
+    """The source step never runs the cross-domain head: its 36 trainable
+    tensors (of 40: the two attentions' LayerNorms are frozen as every
+    ``*_norm`` is, in both packages) get zero gradients in both packages,
+    and come out of the step equal to JAX's (at this step's learning rate,
+    1.25e-4, weight decay moves them by less than float32 resolves)."""
+    r = source_run
+    params = dict(r["pm"].named_parameters())
+    head = [n for n in r["grads"] if n.startswith("cross_domain.")]
+    assert len(head) == 36
+    for name in head:
+        assert not r["grads"][name].any() and not np.abs(r["jg"][name]).any(), name
+        np.testing.assert_allclose(params[name].detach().numpy(), r["jp_new"][name], rtol=1e-6,
+                                   atol=1e-9, err_msg=name)
+
+
+def test_weight_decay_moves_the_unused_head_as_optax():
+    """Three steps with zero gradients at learning rate 0.5: the port's
+    optimizer (its zero fill gives every parameter without a gradient a
+    zero one) moves the head as the JAX package's optax chain does, by
+    weight decay and momentum alone, rtol 1e-6; frozen LayerNorms stay."""
+    jp = jax_model_and_params()[1]
+    tree = {"cross_domain": jp["cross_domain"]}
+    tx = j_solver.build_optimizer(tree, lambda _: 0.5)
+    state, cur = tx.init(tree), tree
+    for _ in range(3):
+        updates, state = tx.update(jax.tree.map(jnp.zeros_like, cur), state, cur)
+        cur = optax.apply_updates(cur, updates)
+    want = flax_params_to_d2(to_numpy_tree(cur))
+    start = flax_params_to_d2(to_numpy_tree(tree))
+    pm = port_model(jp)
+    opt = t_solver.build_optimizer(pm, lambda _: 0.5)
+    for _ in range(3):
+        opt.zero_grad()
+        opt.step()
+    sd = pm.state_dict()
+    assert len(want) == 40
+    moved = 0
+    for name, w in want.items():
+        np.testing.assert_allclose(sd[name].numpy(), w, rtol=1e-6, atol=1e-12, err_msg=name)
+        moved += not np.array_equal(w, start[name])
+    # every tensor but the 17 zero biases and the 4 frozen LayerNorm tensors
+    assert moved == 19
 
 
 @pytest.mark.parametrize("name,args", [

@@ -12,6 +12,8 @@ augmentation's range) and a few values beyond.  Every RGB triple is
 covered by the HSV round trip and the luma in ``test_every_colour``.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import numpy as np
 import pytest
 from PIL import Image, ImageEnhance, ImageFilter

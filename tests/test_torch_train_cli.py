@@ -8,6 +8,8 @@ and trains on; an ``--eval-only`` call with ``configs/test_segment.yaml``
 reads the final file as ``MODEL.WEIGHTS`` (every tensor loaded) and
 evaluates it with the COCO evaluator (``TEST.EVALUATOR coco``)."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import json
 import logging
 import os

@@ -8,6 +8,8 @@ truncated PNG and a truncated JPEG are substituted, fewer records than the
 batch raise, and an RLE mask of a flipped sample is the unflipped sample's
 mask mirrored within its valid width."""
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import json
 import logging
 import os

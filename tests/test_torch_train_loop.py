@@ -27,6 +27,8 @@
   weights, and ``FloatingPointError`` on a non-finite loss.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import json
 
 import jax

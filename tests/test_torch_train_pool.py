@@ -18,6 +18,8 @@ Tolerances:
   [0, 1] (two float32 products summed in another order).
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

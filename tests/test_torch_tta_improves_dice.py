@@ -17,6 +17,8 @@ miniature dataset and overrides of ``tests/test_cli.py``, and in process
 with the default bf16 precision.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import json
 import os
 import subprocess

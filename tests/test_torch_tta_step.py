@@ -25,6 +25,8 @@ held against the JAX package on its own, on structured problems
 give an active, finite loss.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

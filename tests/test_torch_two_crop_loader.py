@@ -18,6 +18,8 @@ port alone: fewer labelled or unlabelled records than the batch raise
 ``ValueError``.
 """
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import json
 import os
 

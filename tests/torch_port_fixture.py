@@ -10,6 +10,8 @@ images from scripts/demo_tta_gain.py:make_shifted_target at DEMO settings.
 
 from __future__ import annotations
 
+import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
+
 import functools
 import os
 import sys

@@ -19,7 +19,10 @@ baseline trainer trains on ``DATASETS.TRAIN`` in batches of
 of each (the JAX package's ``train_net.py`` calls ``train`` on
 ``DATASETS.TRAIN`` for both, which the MT configs leave empty), and its
 checkpoints hold the student and the teacher in d2's ``EnsembleTSModel``
-layout.  Checkpoints go to
+layout; ``SEMISUPNET.CROSS_DOMAIN_MATCHING True`` adds the cross-domain
+graph-matching head's losses to its MT steps (its class centers are not
+checkpointed and restart at zero on resume, as in the JAX package).
+Checkpoints go to
 ``OUTPUT_DIR/checkpoints`` (``model_{step:07d}.pth`` in d2's layout, the 5
 newest kept, ``last_checkpoint`` naming the newest) every
 ``SOLVER.CHECKPOINT_PERIOD`` steps and once at the end.  Resume is forced,

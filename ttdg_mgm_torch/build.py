@@ -8,10 +8,10 @@ does, :func:`build_schedule` picks the learning-rate schedule,
 wrote) by name, and :func:`build_trainer` puts them together with the train
 and test geometry: ``SEMISUPNET.Trainer`` ``"baseline"`` builds
 ``engine/trainer.py:BaselineTrainer``, ``"ateacher"`` (the default)
-``engine/mean_teacher.py:ATeacherTrainer``.  The port refuses, with a
-message naming the way out, what it has not ported: the VGG backbone and
-the mean-teacher trainer's cross-domain head
-(``SEMISUPNET.CROSS_DOMAIN_MATCHING``).  ``SOLVER.AMP.ENABLED`` or
+``engine/mean_teacher.py:ATeacherTrainer`` (with its cross-domain head
+under ``SEMISUPNET.CROSS_DOMAIN_MATCHING``).  The port refuses, with a
+message naming the way out, what it has not ported: the VGG backbone.
+``SOLVER.AMP.ENABLED`` or
 ``TPU.PRECISION bfloat16`` (the default) selects the bf16 compute policy,
 ``compute_dtype="bfloat16"``, as ``ttdg_mgm_tpu/build.py`` does.
 
@@ -195,19 +195,15 @@ def build_trainer(cfg: CfgNode, *, device=None, seed: int = 0):
     ``INPUT.MIN_SIZE_TEST`` and ``MAX_SIZE_TEST`` for the train resize as
     for the test path (so ``INPUT.MAX_SIZE_TRAIN`` is not read, as in the
     JAX package).  The mean-teacher trainer takes the ``SEMISUPNET``
-    settings as the JAX package does (``EMA_KEEP_RATE`` 0 reads as 0.9996)
-    and, with ``DATALOADER.SUP_PERCENT`` below 100, splits its labelled
-    records with ``DATALOADER.RANDOM_DATA_SEED``."""
+    settings as the JAX package does (``EMA_KEEP_RATE`` 0 reads as 0.9996,
+    ``CROSS_DOMAIN_MATCHING`` adds the cross-domain head) and, with
+    ``DATALOADER.SUP_PERCENT`` below 100, splits its labelled records with
+    ``DATALOADER.RANDOM_DATA_SEED``."""
     from ttdg_mgm_torch.engine.mean_teacher import ATeacherTrainer
     from ttdg_mgm_torch.engine.trainer import BaselineTrainer
 
     dev = resolve_device(device)
     ss = cfg.SEMISUPNET
-    if ss.Trainer == "ateacher" and ss.CROSS_DOMAIN_MATCHING:
-        raise NotImplementedError(
-            "SEMISUPNET.CROSS_DOMAIN_MATCHING True: the mean-teacher trainer's cross-domain "
-            "head is not ported to ttdg_mgm_torch yet (ROADMAP.md, Queue 1: the cross-domain "
-            "head); pass SEMISUPNET.CROSS_DOMAIN_MATCHING False")
     model = init_params(cfg, MaskRCNN(**model_kwargs(cfg)), seed).to(dev)
     opt = build_optimizer(model, build_schedule(cfg), momentum=cfg.SOLVER.MOMENTUM,
                           weight_decay=cfg.SOLVER.WEIGHT_DECAY,
@@ -224,6 +220,7 @@ def build_trainer(cfg: CfgNode, *, device=None, seed: int = 0):
             model, opt, ema_keep_rate=ss.EMA_KEEP_RATE or 0.9996,
             teacher_update_iter=ss.TEACHER_UPDATE_ITER, burn_up_step=ss.BURN_UP_STEP,
             unsup_weight=ss.UNSUP_LOSS_WEIGHT, dis_weight=ss.DIS_LOSS_WEIGHT,
-            pseudo_threshold=ss.BBOX_THRESHOLD, sup_percent=sup if sup < 100.0 else None,
+            pseudo_threshold=ss.BBOX_THRESHOLD, cross_domain=ss.CROSS_DOMAIN_MATCHING,
+            sup_percent=sup if sup < 100.0 else None,
             split_seed=cfg.DATALOADER.RANDOM_DATA_SEED, **common)
     return BaselineTrainer(model, opt, **common)

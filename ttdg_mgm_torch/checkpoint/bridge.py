@@ -16,11 +16,18 @@ dicts of NumPy arrays:
 * the universe learner's attention ``multi_matching_sup/Net_U/g_gene`` goes
   to ``multi_matching_sup.Net_U.g_gene.*`` and the hoisted universe ``U`` to
   ``multi_matching_sup.U``;
-* the discriminator's convolutions go to ``D_img.{conv1,conv2,classifier}``.
+* the discriminator's convolutions go to ``D_img.{conv1,conv2,classifier}``;
+* the cross-domain head ``cross_domain`` keeps its JAX module names
+  (``seed_project``, ``intra_gcn.graph.{wq,wk}``, ``intra_gcn.gc1`` .. ``gc3``
+  with Kipf's ``weight (in, out)`` and ``bias``, ``intra_attention``,
+  ``cross_attention``, ``node_cls``) and its ``matching_affinity`` takes the
+  affinity layout above: 41 JAX leaves, 40 tensors.
 
 :func:`load_reference_checkpoint` and :func:`merge_state_dict` read a d2
 checkpoint (``MODEL.WEIGHTS``) into the port's modules by name, with d2's
-leniency (``build.py:init_params``).
+leniency (``build.py:init_params``).  A reference checkpoint has no
+``cross_domain.*`` names (the reference never wired its ``GModule``): the
+merge reports them missing and they keep their initial values.
 """
 
 from __future__ import annotations
@@ -31,9 +38,9 @@ import torch
 BN_EPS = 1e-5
 
 #: state-dict prefixes of the modules this package owns; names outside them
-#: (the cross-domain head) are skipped by :func:`load_d2_state_dict`
+#: are skipped by :func:`load_d2_state_dict`
 OWNED_PREFIXES = ("backbone.", "proposal_generator.", "roi_heads.", "D_img.",
-                  "multi_matching_unsup.", "multi_matching_sup.")
+                  "multi_matching_unsup.", "multi_matching_sup.", "cross_domain.")
 
 
 def _conv(k):
@@ -73,6 +80,30 @@ def _mha_block(blk, prefix, out):
         _dense_block(blk[n], f"{prefix}.{n}", out)
     out[prefix + ".layer_norm.weight"] = np.asarray(blk["layer_norm"]["scale"])
     out[prefix + ".layer_norm.bias"] = np.asarray(blk["layer_norm"]["bias"])
+
+
+def _affinity_block(aff, prefix, out):
+    out[prefix + ".project_sr.weight"] = _dense(aff["project_sr"]["kernel"])
+    out[prefix + ".project_tg.weight"] = _dense(aff["project_tg"]["kernel"])
+    out[prefix + ".fc_M.0.weight"] = np.concatenate(
+        [_dense(aff["fc0_x"]["kernel"]), _dense(aff["fc0_y"]["kernel"])], axis=1)
+    out[prefix + ".fc_M.0.bias"] = np.asarray(aff["fc0_x"]["bias"])
+    _dense_block(aff["fc1"], prefix + ".fc_M.2", out)
+
+
+def _cross_domain_block(cd, out):
+    pre = "cross_domain."
+    _dense_block(cd["seed_project"], pre + "seed_project", out)
+    gcn = cd["intra_gcn"]
+    for n in ("wq", "wk"):
+        _dense_block(gcn["graph"][n], f"{pre}intra_gcn.graph.{n}", out)
+    for n in ("gc1", "gc2", "gc3"):
+        out[f"{pre}intra_gcn.{n}.weight"] = np.asarray(gcn[n]["weight"]["kernel"])
+        out[f"{pre}intra_gcn.{n}.bias"] = np.asarray(gcn[n]["weight"]["bias"])
+    _mha_block(cd["intra_attention"], pre + "intra_attention", out)
+    _mha_block(cd["cross_attention"], pre + "cross_attention", out)
+    _dense_block(cd["node_cls"], pre + "node_cls", out)
+    _affinity_block(cd["matching_affinity"], pre + "matching_affinity", out)
 
 
 def flax_params_to_d2(params: dict, *, box_head_channels: int = 256) -> dict:
@@ -132,14 +163,9 @@ def flax_params_to_d2(params: dict, *, box_head_channels: int = 256) -> dict:
     if "multi_matching_unsup" in p:
         mu = p["multi_matching_unsup"]
         _mha_block(mu["intra_domain_graph"], "multi_matching_unsup.intra_domain_graph", sd)
-        aff = mu["node_affinity"]
-        pre = "multi_matching_unsup.node_affinity"
-        sd[pre + ".project_sr.weight"] = _dense(aff["project_sr"]["kernel"])
-        sd[pre + ".project_tg.weight"] = _dense(aff["project_tg"]["kernel"])
-        sd[pre + ".fc_M.0.weight"] = np.concatenate(
-            [_dense(aff["fc0_x"]["kernel"]), _dense(aff["fc0_y"]["kernel"])], axis=1)
-        sd[pre + ".fc_M.0.bias"] = np.asarray(aff["fc0_x"]["bias"])
-        _dense_block(aff["fc1"], pre + ".fc_M.2", sd)
+        _affinity_block(mu["node_affinity"], "multi_matching_unsup.node_affinity", sd)
+    if "cross_domain" in p:
+        _cross_domain_block(p["cross_domain"], sd)
     return {k: np.asarray(v, np.float32) for k, v in sd.items()}
 
 

@@ -1,1 +1,1 @@
-"""Adaptation steps."""
+"""Adaptation and training steps, the trainers, hooks and pseudo-label probes."""

@@ -1,4 +1,4 @@
-"""The mean-teacher (adaptive-teacher) trainer, without the cross-domain head.
+"""The mean-teacher (adaptive-teacher) trainer.
 
 Counterpart of ``ttdg_mgm_tpu/engine/mean_teacher.py:ATeacherTrainer``:
 below ``burn_up_step`` a supervised step on the labelled strong views with
@@ -8,7 +8,10 @@ the student (a moving average with keep rate 0); after it, every
 ``ema_keep_rate``), and on every step the mean-teacher step
 (``engine/steps.py:make_mt_step``): the teacher's pseudo-labels on the weak
 unlabelled views, the student's supervised, pseudo-labelled and domain
-losses, one SGD step.
+losses, one SGD step; with ``cross_domain``
+(``SEMISUPNET.CROSS_DOMAIN_MATCHING``) also the cross-domain head's losses,
+its EMA class centers (``self.centers``, zeros at the start) threaded
+through every MT step.
 
 The teacher is a second model of the same architecture, a deep copy of the
 student when the trainer is built.  A checkpoint is detectron2's
@@ -16,6 +19,8 @@ student when the trainer is built.  A checkpoint is detectron2's
 "modelTeacher.*"}, "optimizer", "iteration"}``, which
 ``checkpoint/bridge.py:load_reference_checkpoint`` reads as
 ``MODEL.WEIGHTS`` (the teacher, or the student with ``TEST.EVAL_STU``).
+As in the JAX package the class centers are not checkpointed: a resumed
+run starts them at zero again.
 """
 
 from __future__ import annotations
@@ -45,8 +50,8 @@ class ATeacherTrainer(BaselineTrainer):
     def __init__(self, model, optimizer, *, ema_keep_rate: float = 0.9996,
                  teacher_update_iter: int = 1, burn_up_step: int = 0,
                  unsup_weight: float = 1.0, dis_weight: float = 0.1,
-                 pseudo_threshold: float = 0.8, sup_percent: float | None = None,
-                 split_seed: int = 0, **kw):
+                 pseudo_threshold: float = 0.8, cross_domain: bool = False,
+                 sup_percent: float | None = None, split_seed: int = 0, **kw):
         super().__init__(model, optimizer, **kw)
         self.teacher = copy.deepcopy(model)
         self.sup_percent = sup_percent
@@ -55,9 +60,13 @@ class ATeacherTrainer(BaselineTrainer):
         self.teacher_update_iter = teacher_update_iter
         self.burn_up_step = burn_up_step
         self._burnin_step = make_source_step(model, optimizer, loss_weight=0.1)
+        self.cross_domain = cross_domain
+        self.centers = torch.zeros(
+            (model.num_classes + 1, model.cross_domain.dim),
+            device=next(model.parameters()).device) if cross_domain else None
         self._mt_step = make_mt_step(model, optimizer, unsup_weight=unsup_weight,
                                      dis_weight=dis_weight, pseudo_threshold=pseudo_threshold,
-                                     gt_cap=self.gt_cap)
+                                     gt_cap=self.gt_cap, with_cross_domain=cross_domain)
 
     def train_semisup(self, label_names, unlabel_names, *, max_iter: int, batch_size: int = 4,
                       seed: int = 0, log_every: int = 20, hooks=()) -> None:
@@ -89,7 +98,11 @@ class ATeacherTrainer(BaselineTrainer):
                         self.teacher.load_state_dict(self.model.state_dict())
                     elif it % self.teacher_update_iter == 0:
                         ema_update(self.teacher, self.model, self.ema_keep_rate)
-                    metrics = self._mt_step(self.teacher, batch, gen)
+                    if self.cross_domain:
+                        metrics, self.centers = self._mt_step(self.teacher, self.centers,
+                                                              batch, gen)
+                    else:
+                        metrics = self._mt_step(self.teacher, batch, gen)
                 for h in hooks:
                     h(it, metrics)
                 if it % log_every == 0:

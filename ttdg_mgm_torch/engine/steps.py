@@ -4,9 +4,9 @@ Counterparts of ``ttdg_mgm_tpu/engine/steps.py``: ``make_source_step`` (one
 SGD step on the weighted sum of ``MaskRCNN.loss_supervised``'s losses),
 ``make_tta_step`` (one SGD step on ``MaskRCNN.loss_ttt`` per test batch),
 ``ema_update`` (the teacher's exponential moving average),
-``threshold_pseudo_labels`` and ``make_mt_step`` (the mean-teacher step
-without the cross-domain head).  Losses are taken before the update; the
-parameters update in place.
+``threshold_pseudo_labels`` and ``make_mt_step`` (the mean-teacher step,
+with or without the cross-domain head).  Losses are taken before the
+update; the parameters update in place.
 """
 
 from __future__ import annotations
@@ -96,11 +96,11 @@ def threshold_pseudo_labels(detections: dict, *, threshold: float = 0.8,
 
 def make_mt_step(model, optimizer: Optimizer, *, unsup_weight: float = 1.0,
                  dis_weight: float = 0.1, pseudo_threshold: float = 0.8,
-                 gt_cap: int = 20) -> Callable[..., dict]:
-    """The mean-teacher step of ``ttdg_mgm_tpu/engine/steps.py:make_mt_step``
-    without the cross-domain head.  Returns ``step(teacher, batch,
-    generator=None, *, uniforms=None) -> metrics`` for the two-crop batch
-    (``data/loader.py:build_two_crop_loader``) on the model's device:
+                 gt_cap: int = 20, with_cross_domain: bool = False) -> Callable:
+    """The mean-teacher step of ``ttdg_mgm_tpu/engine/steps.py:make_mt_step``.
+    Returns ``step(teacher, batch, generator=None, *, uniforms=None) ->
+    metrics`` for the two-crop batch (``data/loader.py:build_two_crop_loader``)
+    on the model's device:
 
     - the teacher detects on ``unlabel_weak`` (no gradient) and its
       detections scoring above ``pseudo_threshold``, cut to ``gt_cap``, are
@@ -110,15 +110,23 @@ def make_mt_step(model, optimizer: Optimizer, *, unsup_weight: float = 1.0,
       ``loss_rpn_cls`` on ``unlabel_strong`` (its box regression weighted 0,
       no mask head, no matching loss), plus ``dis_weight`` times the two
       domain losses on ``label_weak`` and ``unlabel_weak``;
+    - with ``with_cross_domain``, plus the sum of the cross-domain head's
+      losses (``MaskRCNN.loss_cross_domain`` on the strong views, source
+      nodes from the GT boxes, target nodes from the pseudo-boxes) at
+      weight 1; the head's EMA class centers are state the caller threads
+      through: ``step(teacher, centers, batch, generator=None, *,
+      uniforms=None) -> (metrics, new_centers)``;
     - one SGD step.  The teacher's moving average is a separate call
       (:func:`ema_update`).
 
     The sampling uniforms are ``uniforms["sup"]`` and ``uniforms["unsup"]``,
-    each as ``MaskRCNN.loss_supervised`` takes them, or drawn from
-    ``generator``.  ``metrics`` holds the supervised losses, the pseudo pass's
-    with the suffix ``_pseudo``, ``loss_D_img_s``, ``loss_D_img_t`` and
+    each as ``MaskRCNN.loss_supervised`` takes them, and the head's
+    completion noise ``uniforms["cd"]`` (``CrossDomainGraphHead.noise_shape``),
+    or drawn from ``generator`` in that order.  ``metrics`` holds the
+    supervised losses, the pseudo pass's with the suffix ``_pseudo``,
+    ``loss_D_img_s``, ``loss_D_img_t``, the head's losses and
     ``total_loss``, detached on the device."""
-    def step(teacher, batch, generator=None, *, uniforms=None):
+    def run(teacher, centers, batch, generator, uniforms):
         uniforms = uniforms or {}
         det = teacher.proposals_weak(batch["unlabel_weak"], batch["unlabel_sizes"])
         p_boxes, p_classes, p_valid = threshold_pseudo_labels(
@@ -137,12 +145,29 @@ def make_mt_step(model, optimizer: Optimizer, *, unsup_weight: float = 1.0,
         total = (sum(sup.values())
                  + (unsup["loss_cls"] + unsup["loss_rpn_cls"]) * unsup_weight
                  + (dom["loss_D_img_s"] + dom["loss_D_img_t"]) * dis_weight)
+        cd = {}
+        if with_cross_domain:
+            noise = uniforms.get("cd")
+            if noise is None:
+                noise = model.cross_domain.draw_noise(generator, batch["label_strong"].device)
+            cd, centers = model.loss_cross_domain(
+                batch["label_strong"], batch["label_sizes"], batch["gt_boxes"],
+                batch["gt_classes"], batch["gt_valid"], batch["unlabel_strong"],
+                batch["unlabel_sizes"], p_boxes, p_classes, p_valid, centers, noise=noise)
+            total = total + sum(cd.values())
         total.backward()
         optimizer.step()
         metrics = {k: v.detach() for k, v in sup.items()}
         metrics.update({k + "_pseudo": v.detach() for k, v in unsup.items()})
         metrics.update({k: v.detach() for k, v in dom.items()})
+        metrics.update({k: v.detach() for k, v in cd.items()})
         metrics["total_loss"] = total.detach()
-        return metrics
+        return metrics, centers
 
+    if with_cross_domain:
+        def step(teacher, centers, batch, generator=None, *, uniforms=None):
+            return run(teacher, centers, batch, generator, uniforms)
+    else:
+        def step(teacher, batch, generator=None, *, uniforms=None):
+            return run(teacher, None, batch, generator, uniforms)[0]
     return step

@@ -1,1 +1,2 @@
-"""Graph construction and multi-graph matching for the TTA loss."""
+"""Graph construction, multi-graph matching and the cross-domain head: the
+TTA, universe-matching and mean-teacher losses."""

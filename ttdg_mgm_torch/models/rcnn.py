@@ -1,15 +1,16 @@
 """Mask R-CNN R50-FPN with the multi-graph-matching losses.
 
 Counterpart of ``ttdg_mgm_tpu/models/rcnn.py:MaskRCNN`` for the eval-only
-TTA path, source training and the mean-teacher step without the
-cross-domain head: ``extract_features``, ``_proposals``, ``_pool``,
-``_box_inference``, ``forward_inference``, ``proposals_weak``,
-``loss_ttt``, ``loss_supervised``, ``_dis_feature`` and ``loss_domain``.
-Modules carry detectron2 / reference names (``backbone.bottom_up``,
-``backbone.fpn_*``, ``proposal_generator.rpn_head``, ``roi_heads.*``,
-``D_img``, ``multi_matching_unsup``, ``multi_matching_sup.U``,
-``multi_matching_sup.Net_U``), so the state dict exported from the JAX
-package (``checkpoint/bridge.py``) loads by name.
+TTA path, source training and the mean-teacher step with its cross-domain
+head: ``extract_features``, ``_proposals``, ``_pool``, ``_box_inference``,
+``forward_inference``, ``proposals_weak``, ``loss_ttt``,
+``loss_supervised``, ``loss_cross_domain``, ``_dis_feature`` and
+``loss_domain``.  Modules carry detectron2 / reference names
+(``backbone.bottom_up``, ``backbone.fpn_*``, ``proposal_generator.rpn_head``,
+``roi_heads.*``, ``D_img``, ``multi_matching_unsup``,
+``multi_matching_sup.U``, ``multi_matching_sup.Net_U``) and the JAX names
+of the cross-domain head (``cross_domain.*``), so the state dict exported
+from the JAX package (``checkpoint/bridge.py``) loads by name.
 
 Batch layout as in the JAX package: images ``(B, H, W, 3)`` float RGB 0-255,
 ``image_sizes (B, 2)`` valid (h, w); features leave ``extract_features`` as
@@ -22,8 +23,8 @@ compute in bfloat16 (``models/layers.py``), so the features, the pools
 (kernels A and C on bfloat16 levels) and the heads' activations are
 bfloat16; the consumers that need precision upcast their own small outputs
 (RPN logits and deltas, box scores and deltas, mask logits, the
-discriminator's logits) and the graph nodes enter the matching modules as
-float32; the GT-mask crop stays float32.
+discriminator's logits) and the graph nodes enter the matching modules
+and the cross-domain head as float32; the GT-mask crop stays float32.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ttdg_mgm_torch.graph.cross_domain import CrossDomainGraphHead
+from ttdg_mgm_torch.graph.gcn import GraphConvolution
 from ttdg_mgm_torch.graph.mgm import MGM3Unsup
 from ttdg_mgm_torch.graph.node_sampler import PrototypeComputation
 from ttdg_mgm_torch.graph.universe import USup
@@ -146,6 +149,9 @@ class MaskRCNN(nn.Module):
         else:
             raise ValueError(f"dis_type must be res2..res5 or p2..p6, got {dis_type!r}")
         self.D_img = FCDiscriminatorImg(dis_in, DIS_CHANNELS.get(dis_type, fpn_channels))
+        # graph node dim == FPN width; registered last, so its parameters
+        # follow every other module's
+        self.cross_domain = CrossDomainGraphHead(num_classes, dim=fpn_channels)
         # flax dtype= on exactly these modules (JAX rcnn.py setup); the graph
         # modules stay float32
         for mod in (self.backbone, self.proposal_generator, self.roi_heads, self.D_img):
@@ -322,6 +328,26 @@ class MaskRCNN(nn.Module):
             losses["loss_matching"] = self.multi_matching_sup(nodes.float(), labels, node_mask)
         return losses
 
+    def loss_cross_domain(self, images_s, image_sizes_s, boxes_s, classes_s, valid_s,
+                          images_t, image_sizes_t, boxes_t, classes_t, valid_t, centers,
+                          noise=None):
+        """The cross-domain graph-matching losses of the mean-teacher step
+        (JAX ``loss_cross_domain``): the features of both strong views
+        (a backbone pass of their own), graph nodes from the source's GT
+        boxes and the target's pseudo-boxes, each domain's per-image node
+        sets flattened into one, in float32 through :attr:`cross_domain`
+        with the EMA ``centers`` and the completion ``noise``.  Returns
+        ``(losses, new_centers)``."""
+        def nodes(images, boxes, classes, valid):
+            feats = self.extract_features(images)
+            n, lab, m = self.graph_generator([feats[f"p{i}"] for i in range(2, 7)], boxes,
+                                             classes.to(torch.int32), valid)
+            return n.reshape(-1, n.shape[-1]).float(), lab.reshape(-1), m.reshape(-1)
+
+        return self.cross_domain(*nodes(images_s, boxes_s, classes_s, valid_s),
+                                 *nodes(images_t, boxes_t, classes_t, valid_t), centers,
+                                 noise=noise)
+
     def _dis_feature(self, images):
         """The ``dis_type`` feature map, NCHW in the compute dtype: an FPN
         level (``p2`` .. ``p6``) or a backbone stage (``res2`` .. ``res5``)."""
@@ -350,8 +376,8 @@ def init_weights(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
     (flax defaults), FrozenBN identity with the residual branch's last norm
     at 0.1, RPN convs normal(0.01) with deltas normal(0.001), box predictor
     normal(0.01)/normal(0.001), affinity normal(0.01), ``U`` normal + 1/univ,
-    and last the discriminator (lecun-normal), so the draws before it are
-    those of a model without one."""
+    then the discriminator (lecun-normal) and last the cross-domain head, so
+    the draws before each are those of a model without it."""
 
     def lecun(w, fan_in):
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
@@ -372,9 +398,9 @@ def init_weights(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
     aff = model.multi_matching_unsup.node_affinity
     for m in (aff.project_sr, aff.project_tg, aff.fc_M[0], aff.fc_M[2]):
         special[id(m.weight)] = 0.01
-    disc = set(map(id, model.D_img.modules()))
+    late = set(map(id, model.D_img.modules())) | set(map(id, model.cross_domain.modules()))
     for mod in model.modules():
-        if id(mod) in disc:
+        if id(mod) in late:
             continue
         if isinstance(mod, (nn.Conv2d, nn.Linear, nn.ConvTranspose2d)):
             w = mod.weight
@@ -399,4 +425,22 @@ def init_weights(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
     for conv in (model.D_img.conv1, model.D_img.conv2, model.D_img.classifier):
         lecun(conv.weight, conv.weight.shape[1] * conv.weight.shape[2] * conv.weight.shape[3])
         conv.bias.zero_()
+    # last the cross-domain head: dense kernels lecun-normal, the graph
+    # convolutions' weights normal(0.02), the affinity's normal(0.01)
+    aff = model.cross_domain.matching_affinity
+    affinity = {id(m.weight) for m in (aff.project_sr, aff.project_tg, aff.fc_M[0], aff.fc_M[2])}
+    for mod in model.cross_domain.modules():
+        if isinstance(mod, nn.Linear):
+            if id(mod.weight) in affinity:
+                normal(mod.weight, 0.01)
+            else:
+                lecun(mod.weight, mod.weight.shape[1])
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, GraphConvolution):
+            normal(mod.weight, 0.02)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
     return model

@@ -76,13 +76,18 @@ def sinkhorn(s, nrows=None, ncols=None, *, tau=1.0, max_iter: int = 10,
     return torch.exp(torch.where(real, log_s, neg)).to(orig_dtype)
 
 
-def sinkhorn_masked(s, row_mask, *, tau: float = 1.0, max_iter: int = 10):
-    """Sinkhorn over an explicit (possibly non-contiguous) row mask, every
-    column valid, no dummy rows: rows and columns alternately normalised
-    over valid entries (rows first), invalid rows exactly 0.  The universe
-    learner's one global Sinkhorn over its padded-block score matrix."""
+def sinkhorn_masked(s, row_mask, col_mask=None, *, tau: float = 1.0, max_iter: int = 10):
+    """Sinkhorn over explicit (possibly non-contiguous) row and column
+    masks, no dummy rows: an entry is live where its row and its column
+    are (every column without ``col_mask``); rows and columns alternately
+    normalised over live entries (rows first), the others exactly 0.  The
+    universe learner's one global Sinkhorn over its padded-block score
+    matrix takes the row mask alone; the cross-domain head's matching both."""
     dev = s.device
-    live = row_mask[..., :, None].expand(s.shape)
+    if col_mask is None:
+        live = row_mask[..., :, None].expand(s.shape)
+    else:
+        live = row_mask[..., :, None] & col_mask[..., None, :]
     neg = torch.full((), NEG_INF, device=dev)
     log_s = torch.where(live, s.to(torch.float32) / tau, neg)
     for i in range(max_iter):
