@@ -35,9 +35,12 @@ Phases, each of which exits non-zero when it fails:
    CUDA events, its steps per round and its bound from them, the in-kernel
    clock split of an annealed and of a finale step, and the checks that are
    well-posed although the unconverged finale is chaotic (the annealed
-   rounds against the plain version; one finale step: the power step
-   against the plain one, and the 0/1 output against the host LAP of the
-   kernel's own power step, bit for bit); then a narrow copy of the model on
+   rounds against the plain version, or, where a round runs to its cap
+   unconverged and as chaotic, the rounds before it and one annealed step
+   from the kernel's own U; one finale step: the power step against the
+   plain one, and the 0/1 output against the host LAP of the kernel's own
+   power step, bit for bit, graph 0 against its pin to the identity in the
+   2-graph case); then a narrow copy of the model on
    the GPU and on the CPU (plain versions) compared on a small input;
 5. the training pools at the flagship training shapes: levels of 8 images
    at 800 px, 256 channels; the box pool's 8 x 512 ROIs at P=7 and the mask
@@ -108,11 +111,13 @@ Phases, each of which exits non-zero when it fails:
    ``DATASETS.TRAIN`` with polygon ground truth (the 3 committed JPEGs, 4
    PNG frames of 384 x 288, 3 of 1225 x 966) and a ``BKAI_test`` split for
    the validation loss: 4 steps (checkpoints and validation every 2), the
-   same command to 8 steps resumed at step 4 bit for bit, the same again
+   same command to 6 steps resumed at step 4 bit for bit, the same again
    from a copy holding only the step-4 checkpoint whose final checkpoint
    equals the second call's bit for bit, and ``--eval-only`` with
    ``configs/test_segment.yaml`` on that final file (every tensor loaded,
-   finite Dice, E and S); each call fails unless every loss is finite, the
+   finite Dice, E and S); kernels A, C and D held against their plain
+   versions on the first step's inputs, A and B on the eval call's
+   (``hold_call_kernels``); each call fails unless every loss is finite, the
    checkpoints, ``metrics.json`` lines and validation losses are where
    they belong, kernels A and C (bf16) and D launched on every step, and
    neither Pillow, OpenCV nor PyYAML was imported; it logs per step the
@@ -134,7 +139,9 @@ Phases, each of which exits non-zero when it fails:
    file is phase 12's), then ``--eval-only --config
    configs/test_segment_MT.yaml`` on the final file twice: the teacher
    (``TEST.EVAL_STU False``) and the student (the shipped ``True``), every
-   tensor of the member loaded, kernel B launched, finite Dice, E and S;
+   tensor of the member loaded, kernel B launched, finite Dice, E and S,
+   kernels A and B held on the first of these calls' inputs and A, C and D
+   on the first MT step's;
    every MT loss finite, every parameter and gradient float32, on every MT
    step the teacher's forward-only pool and the training pools called and
    kernels A, C and D launched; it logs the steps' times, one MT step's
@@ -156,7 +163,26 @@ Phases, each of which exits non-zero when it fails:
    Dice, E and S); it logs the MT step's times and its split with the
    cross-domain pass as a fifth, the peak memory, the checkpoint's size and
    the final teacher's pseudo-labels against the unlabelled split's ground
-   truth (``engine/probe.py``).
+   truth (``engine/probe.py``);
+13. the VGG16-BN family (``MODEL.BACKBONE.NAME build_vgg_backbone``) at
+   full width, its trunk float32 under the configs' bf16 policy as in the
+   JAX package (``phase_vgg``): phase 10's calls with the override (4 steps
+   resumed to 6 bit for bit, the restart from the step-4 copy,
+   ``--eval-only`` on the final file); phase 11's calls with the override
+   (the split by pass, resumed to 6, the student evaluated); and the
+   legacy datasets through ``register_all_legacy`` on
+   trees it writes: a VGG model with 8 classes trained 2 steps on foggy
+   Cityscapes (2048 x 1024 frames, the 8 thing classes, a crowd region) and
+   scored on its val split by the COCO evaluator (box and mask AP), and a
+   box-only VGG model with 20 classes adapted (a TTA step without a mask
+   head) and scored on Clipart1k (the committed JPEGs in VOC layout) by the
+   VOC evaluator; A (bf16), C (bf16) and D launched on every VGG training
+   step, B on every adaptation, no Pillow, OpenCV or PyYAML; on each of
+   these paths, every kernel it launches held against its plain version on
+   the path's own inputs (A, C and D on the first training step's, A and B
+   on the adaptation's and the inference's); then the float32
+   trunk's forward and backward timed against the same under autocast bf16,
+   and the legacy test batches' peak memory split by pass.
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off), and cuDNN runs its
@@ -167,8 +193,9 @@ outside the tensor cores, 16 transcendentals per clock per SM (4.18e12/s at
 1.98 GHz).  The last lines are the card's name and power
 limit (nvidia-smi), one JSON object with each kernel's numbers (its
 launches on the TTA, source, eval-only command-line, train command-line,
-mean-teacher and cross-domain mean-teacher command-line paths under
-``launches_by_path``), and the
+mean-teacher and cross-domain mean-teacher command-line paths and the VGG
+paths of phase 13 under ``launches_by_path``; the holds on the
+command-line paths' own inputs under ``held_on_paths``), and the
 device line ``{"ok": true, "device":
 {...}}``.
 
@@ -1167,6 +1194,17 @@ def clock_split(clk, kind: str):
     return out
 
 
+def pin_two_graphs(torch, U, ms):
+    """``U (G, M, universe)`` with, when G is 2, graph 0 pinned to the identity
+    on its valid rows, as both GA-GM versions pin it after every projection
+    (``graph/solvers.py:_gagm_round``, ``csrc/gagm.cu``)."""
+    if U.shape[0] != 2:
+        return U
+    r = torch.arange(U.shape[1], device=U.device)[:, None]
+    c = torch.arange(U.shape[2], device=U.device)[None, :]
+    return torch.stack([((r == c) & (r < ms[0])).to(U.dtype), U[1]])
+
+
 def phase_gagm_main(torch, dev, record, dump_dir=None):
     """Kernel B on the inputs the TTA steps gave it (``record``, from
     :func:`capture_gagm`).  On the first: its time by CUDA events, its steps
@@ -1175,8 +1213,15 @@ def phase_gagm_main(torch, dev, record, dump_dir=None):
     solve that are well-posed although the unconverged finale is chaotic:
     (a) the annealed rounds alone against the plain version; (b) one finale
     step from that U: the kernel's power step V against the plain one, and
-    the kernel's 0/1 output against the host LAP of the kernel's own V."""
-    from ttdg_mgm_torch.graph.solvers import _project_blocks, ga_gm
+    the kernel's 0/1 output against the host LAP of the kernel's own V (in
+    the 2-graph case graph 0 against its pin to the identity, as both
+    versions pin it).  An annealed round that runs to its cap (``mgm_iter``
+    steps) without converging is as chaotic as the finale: there float32
+    round-off alone moves U by O(1) (the plain version in float32 against
+    itself in float64), so (a) holds instead the rounds before it, and one
+    annealed step at the last round's temperature from the kernel's own
+    annealed U."""
+    from ttdg_mgm_torch.graph.solvers import _project_blocks, anneal_taus, ga_gm
     from ttdg_mgm_torch.ops.gagm import ga_gm_fused
     from ttdg_mgm_torch.ops.lap import lap_slots_to_nodes
 
@@ -1196,6 +1241,7 @@ def phase_gagm_main(torch, dev, record, dump_dir=None):
     nbytes = (G * M * M + T * T + 2 * T * nu + G) * 4
     b_ms, b_by = bound(nbytes, flops)
     split = {k: clock_split(clk, k) for k in ("anneal", "finale")}
+    shape_main = f"A, W ({T}, {T}) f32, U0 ({T}, {nu}), ms {ms.tolist()}"
     log(f"gagm main path, first captured input (A, W ({T}, {T}), U0 ({T}, {nu}), ms "
         f"{ms.tolist()}): steps per round {steps}; kernel {ms_k:.4f} ms by events, plain "
         f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms by {b_by} ({sum(steps)} power steps, "
@@ -1205,8 +1251,11 @@ def phase_gagm_main(torch, dev, record, dump_dir=None):
             f"{sp['steps']} steps at {sp['sm_mhz']:.0f} MHz: "
             + ", ".join(f"{k} {v:.2f}" for k, v in sp.items() if k not in ("steps", "sm_mhz")))
 
-    worst_a, worst_v, differ_plain, lap_stats = 0.0, 0.0, 0, {}
+    worst_a, worst_v, differ_plain, lap_stats, chaotic, graphs = 0.0, 0.0, 0, {}, 0, 0
     for i, (A, W, U0, ms, nu, kw) in enumerate(record):
+        G, T = ms.shape[0], A.shape[0]
+        M = T // G
+        graphs += G
         pkw = {("hung_iter_cap" if k == "lap_iter_cap" else k): v for k, v in kw.items()}
         # (a) the annealed rounds: soft assignments in [0, 1]; the products'
         # float32 summation order differs, V / tau at tau = 0.0125 amplifies
@@ -1214,10 +1263,44 @@ def phase_gagm_main(torch, dev, record, dump_dir=None):
         Ua, st_k = ga_gm_fused(A, W, U0, ms, nu, return_steps=True, **{**kw, "lap_iter_cap": 0})
         Up, st_p = ga_gm(A, W, U0, ms, nu, return_steps=True, **{**pkw, "hung_iter_cap": 0})
         err_a = (Ua - Up).abs().max().item()
-        worst_a = max(worst_a, err_a)
-        check(bool(torch.isfinite(Ua).all()) and err_a <= GAGM_ANNEAL_ATOL,
-              f"gagm main path {i}: annealed rounds differ from the plain version by {err_a} "
-              f"(steps {st_k} vs {st_p})")
+        check(bool(torch.isfinite(Ua).all()), f"gagm main path {i}: non-finite annealed U")
+        capped = [r for r, n in enumerate(st_k[:-1]) if n >= kw["mgm_iter"]]
+        if not capped:
+            worst_a = max(worst_a, err_a)
+            check(err_a <= GAGM_ANNEAL_ATOL, f"gagm main path {i}: annealed rounds differ from "
+                  f"the plain version by {err_a} (steps {st_k} vs {st_p})")
+            held_a = f"max |U diff| {err_a:.3e} (atol {GAGM_ANNEAL_ATOL})"
+        else:
+            chaotic += 1
+            taus = anneal_taus(kw["sk_tau0"], kw["sk_gamma"], kw["min_tau"])
+            parts = []
+            if capped[0] > 0:
+                cut = {"min_tau": taus[capped[0] - 1], "lap_iter_cap": 0}
+                Uc, sc_k = ga_gm_fused(A, W, U0, ms, nu, return_steps=True, **{**kw, **cut})
+                Ucp, sc_p = ga_gm(A, W, U0, ms, nu, return_steps=True,
+                                  **{**pkw, "min_tau": cut["min_tau"], "hung_iter_cap": 0})
+                err_c = (Uc - Ucp).abs().max().item()
+                worst_a = max(worst_a, err_c)
+                check(err_c <= GAGM_ANNEAL_ATOL and sc_k == sc_p,
+                      f"gagm main path {i}: the {capped[0]} converged annealed rounds differ "
+                      f"from the plain version by {err_c} (steps {sc_k} vs {sc_p})")
+                parts.append(f"the {capped[0]} rounds before it steps {sc_k[:-1]}, max |U diff| "
+                             f"{err_c:.3e}")
+            one = {"sk_tau0": taus[-1], "min_tau": taus[-1], "mgm_iter": 1}
+            U1, s1 = ga_gm_fused(A, W, Ua, ms, nu, return_steps=True,
+                                 **{**kw, **one, "lap_iter_cap": 0})
+            U1p, s1p = ga_gm(A, W, Ua, ms, nu, return_steps=True,
+                             **{**pkw, **one, "hung_iter_cap": 0})
+            err_1 = (U1 - U1p).abs().max().item()
+            worst_a = max(worst_a, err_1)
+            check(err_1 <= GAGM_ANNEAL_ATOL and s1 == s1p == [1, 0],
+                  f"gagm main path {i}: one annealed step from the kernel's U differs from the "
+                  f"plain version's by {err_1} (steps {s1} vs {s1p})")
+            parts.append(f"one step at tau {taus[-1]:g} from the kernel's U, max |U diff| "
+                         f"{err_1:.3e}")
+            held_a = (f"round {capped[0] + 1} ran to its cap of {kw['mgm_iter']} steps "
+                      f"(chaotic: max |U diff| {err_a:.3e}, not held); held instead: "
+                      + "; ".join(parts) + f" (atol {GAGM_ANNEAL_ATOL})")
         # (b) one finale step from the kernel's annealed U
         out, st, V = ga_gm_fused(A, W, Ua, ms, nu, return_steps=True, return_power_step=True,
                                  **{**kw, "mgm_iter": 0, "lap_iter_cap": 1})
@@ -1231,29 +1314,32 @@ def phase_gagm_main(torch, dev, record, dump_dir=None):
         check(err_v <= GAGM_V_RTOL, f"gagm main path {i}: power step differs by {err_v} of "
                                     f"its largest entry")
         Vg = V.reshape(G, M, nu)
-        want = lap_slots_to_nodes(Vg, ms, lap_stats).reshape(T, nu)
+        want = pin_two_graphs(torch, lap_slots_to_nodes(Vg, ms, lap_stats), ms)
         same = [bool(torch.equal(out.reshape(G, M, nu)[g], want.reshape(G, M, nu)[g]))
                 for g in range(G)]
         check(all(same), f"gagm main path {i}: the kernel's LAP differs from the host LAP of "
                          f"its own V in graphs {[g for g, ok in enumerate(same) if not ok]}")
-        plain = _project_blocks(Vg, ms.long(), nu, tau=1.0, sk_iter=0, exact_hungarian=True)
+        plain = pin_two_graphs(torch, _project_blocks(Vg, ms.long(), nu, tau=1.0, sk_iter=0,
+                                                      exact_hungarian=True), ms)
         differ_plain += sum(1 for g in range(G)
                             if not torch.equal(out.reshape(G, M, nu)[g], plain[g]))
-        log(f"gagm main path input {i}: annealed rounds steps kernel {st_k[:-1]} plain "
-            f"{st_p[:-1]}, max |U diff| {err_a:.3e} (atol {GAGM_ANNEAL_ATOL}); one finale "
-            f"step: |V diff| {err_v:.3e} of max|V| {vmax:.3e} (bound {GAGM_V_RTOL}), LAP equal "
-            f"to the host LAP of the kernel's V in all {G} graphs")
-    search_steps = lap_stats["search_steps"] / (G * len(record))
+        log(f"gagm main path input {i} (ms {ms.tolist()}): annealed rounds steps kernel "
+            f"{st_k[:-1]} plain {st_p[:-1]}, {held_a}; one finale step: |V diff| {err_v:.3e} of "
+            f"max|V| {vmax:.3e} (bound {GAGM_V_RTOL}), LAP equal to the host LAP of the "
+            f"kernel's V in all {G} graphs")
+    search_steps = lap_stats["search_steps"] / graphs
     log(f"gagm main path: the host LAP of one finale step takes {search_steps:.1f} search steps "
-        f"per graph (mean over {G * len(record)} graphs)")
-    log(f"gagm main path: {len(record)} inputs held; the plain projection, which solves "
-        f"ms <= universe graphs in the other orientation, picks another assignment of the "
-        f"same V in {differ_plain} of {G * len(record)} graphs")
+        f"per graph (mean over {graphs} graphs)")
+    log(f"gagm main path: {len(record)} inputs held ({chaotic} with an annealed round at its "
+        f"cap); the plain projection, which solves ms <= universe graphs in the other "
+        f"orientation, picks another assignment of the same V in {differ_plain} of {graphs} "
+        f"graphs")
     return dict(ms_main=ms_k, plain_ms_main=plain_ms, bound_ms_main=b_ms, bound_by_main=b_by,
                 steps_main=steps, clock_split_us=split, anneal_max_abs_err=worst_a,
                 power_step_rel_err=worst_v, inputs_checked=len(record),
+                inputs_with_an_annealed_round_at_its_cap=chaotic,
                 plain_lap_differs_in_graphs=differ_plain, lap_search_steps_per_graph=search_steps,
-                shape_main=f"A, W ({T}, {T}) f32, U0 ({T}, {nu}), ms {ms.tolist()}")
+                shape_main=shape_main)
 
 
 # -- phase 4: end to end -----------------------------------------------------------
@@ -2107,14 +2193,18 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
     model); and listens to the log line of ``init_params``.  With
     ``snapshots``, host copies of the student and the teacher as each of
     the first two MT steps sees them; with ``kernel_inputs``, copies of what
-    kernels A and C get on the first MT step (each pool call's levels and
-    ROIs, :func:`capture_pool_backward`) and of what HiPPI and kernel D get
-    on every MT step (:func:`capture_hippi`).  On a cross-domain MT step
-    (``make_mt_step(..., with_cross_domain=True)``) it keeps host copies of
-    the centers the step gets and returns (``"centers"``), and of the inputs
-    and output of each center update (``"center_updates"``).  Keeps the
-    model, teacher, batch, settings and centers of the last MT step under
-    ``"last"``.  Returns the record and the function that undoes it."""
+    kernels A and C get on the first source or MT step (each pool call's
+    levels and ROIs, :func:`capture_pool_backward`), of what HiPPI and
+    kernel D get on every source or MT step (:func:`capture_hippi`), of the
+    pool calls of ``test`` (the first call of each of
+    :func:`test_pool_name`'s names, under ``"test_pools"``) and of every
+    GA-GM input (:func:`capture_gagm`, under ``"gagm_inputs"``).  On a
+    cross-domain MT step (``make_mt_step(..., with_cross_domain=True)``) it
+    keeps host copies of the centers the step gets and returns
+    (``"centers"``), and of the inputs and output of each center update
+    (``"center_updates"``).  Keeps the model, teacher, batch, settings and
+    centers of the last MT step under ``"last"``.  Returns the record and
+    the function that undoes it."""
     import logging
 
     import ttdg_mgm_torch.build as build
@@ -2129,9 +2219,9 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
     record = {"wait_s": [], "steps": [], "pseudo": [], "resumed": None, "train_s": [],
               "val_s": [], "save_s": [], "save_bytes": [], "load_s": [], "weights": None,
               "init": None, "seen": [], "kernel_inputs": None, "split_ms": None,
-              "centers": [], "center_updates": []}
+              "centers": [], "center_updates": [], "test_pools": {}, "gagm_inputs": []}
     pools = {"forward": 0, "training": 0}
-    taking = {"pools": None}
+    taking = {"pools": None, "where": None}
     patches = []
 
     def patch(obj, name, wrap):
@@ -2162,7 +2252,7 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
         cd = kw.get("with_cross_domain", False)
 
         def run(*a, **k):
-            take = kind == "mt" and kernel_inputs
+            take = kind in ("mt", "source") and kernel_inputs
             first = take and record["kernel_inputs"] is None
             if kind == "mt" and snapshots and len(record["seen"]) < 2:
                 record["seen"].append((_host(model.state_dict()), _host(a[0].state_dict())))
@@ -2216,9 +2306,14 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
         def wrap(real):
             def call(levels, boxes, **k):
                 pools[kind] += 1
-                if taking["pools"] is not None:
-                    taking["pools"].append((kind, [x.detach().clone() for x in levels],
-                                            boxes.detach().clone(), k))
+                name = (test_pool_name(taking["where"], k.get("output_size", 7))
+                        if kernel_inputs and taking["where"] is not None else None)
+                if taking["pools"] is not None or (name and name not in record["test_pools"]):
+                    copy = ([x.detach().clone() for x in levels], boxes.detach().clone(), k)
+                    if taking["pools"] is not None:
+                        taking["pools"].append((kind, *copy))
+                    else:
+                        record["test_pools"][name] = copy
                 return real(levels, boxes, **k)
             return call
         return wrap
@@ -2252,6 +2347,15 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
                 _sync(torch, dev)
                 record["train_s"].append(time.perf_counter() - t0)
         return train
+
+    def where(name, real):
+        def call(*a, **k):
+            before, taking["where"] = taking["where"], name
+            try:
+                return real(*a, **k)
+            finally:
+                taking["where"] = before
+        return call
 
     def val(real):
         def call(self, it, metrics):
@@ -2323,8 +2427,14 @@ def capture_train(torch, dev, snapshots: bool = False, kernel_inputs: bool = Fal
     patch(Checkpointer, "restore", restore)
     patch(build, "init_params", init)
     patch(cross_domain, "update_centers", centers)
+    if kernel_inputs:
+        patch(trainer.BaselineTrainer, "test", lambda real: where("tta", real))
+        patch(trainer, "evaluate_dataset", lambda real: where("inference", real))
+        record["gagm_inputs"], undo_gagm = capture_gagm()
 
     def undo():
+        if kernel_inputs:
+            undo_gagm()
         for obj, name, real in reversed(patches):
             setattr(obj, name, real)
         lg.removeHandler(handler)
@@ -2464,7 +2574,7 @@ def loader_host_s(record, batches: int) -> list:
 
 
 def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
-                    counters=TRAIN_COUNTERS):
+                    counters=TRAIN_COUNTERS, what: str = "train cli"):
     """Source training as a user runs it: ``train_net_torch.main(["--config",
     "configs/seg_res50fpn_source.yaml", ...])`` at full width with the
     shipped config (R50-FPN, batch 8, the bf16 policy of
@@ -2476,18 +2586,22 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
     4 PNG frames of 384 x 288, ``ETIS_LaribPolypDB_train`` 3 PNG frames of
     1225 x 966 (10 records), and ``BKAI_test`` the JPEGs again for the
     validation loss.  Call 1 trains 4 steps (checkpoints every 2, the
-    validation loss every 2); call 2 the same command to 8 steps, resumed
-    at step 4 bit for bit; call 3 call 2 again from a directory that holds
-    only the step-4 checkpoint, its final checkpoint bit for bit call 2's
-    (the loader, its prefetch thread and the generator restart
-    deterministically); call 4 ``--eval-only --config
-    configs/test_segment.yaml`` on call 2's final file (every tensor loaded,
-    finite Dice, E and S on ``BKAI_test``).  Logs per step the loader wait
-    and the synchronized step time, s/iter, the validation loss's seconds,
-    the checkpoints' size and save and load seconds, the peak memory and
-    the kernels' launches per step; then the train loader's host time per
-    batch on one thread (the waits hide behind the first step's set-up and
-    the validation loss) against the step time."""
+    validation loss every 2), its first step also copying its kernels'
+    inputs; call 2 the same command to 6 steps, resumed at step 4 bit for
+    bit; call 3 call 2 again from a directory that holds only the step-4
+    checkpoint, its final checkpoint bit for bit call 2's (the loader, its
+    prefetch thread and the generator restart deterministically); call 4
+    ``--eval-only --config configs/test_segment.yaml`` (with
+    ``eval_opts``) on call 2's final file (every tensor loaded, finite Dice,
+    E and S on ``BKAI_test``).  Kernels A, C and D are held on call 1's
+    first step's inputs, A and B on call 4's (:func:`hold_call_kernels`).
+    ``opts`` follow the command line of every training call; ``what`` names
+    the phase in the log.  Logs per step the loader wait and the
+    synchronized step time, s/iter, the validation loss's seconds, the
+    checkpoints' size and save and load seconds, the peak memory and the
+    kernels' launches per step; then the train loader's host time per batch
+    on one thread (the waits hide behind the first step's set-up and the
+    validation loss) against the step time."""
     import shutil
     import tempfile
 
@@ -2506,55 +2620,54 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
                     "MODEL.WEIGHTS", "", "OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(max_iter),
                     "SOLVER.CHECKPOINT_PERIOD", "2", "TEST.EVAL_PERIOD", "2", *opts]
 
-        log(f"train cli: 10 training records (3 JPEG 1280x959, 4 PNG 384x288, 3 PNG 1225x966) "
+        log(f"{what}: 10 training records (3 JPEG 1280x959, 4 PNG 384x288, 3 PNG 1225x966) "
             f"and BKAI_test written in {time.perf_counter() - t0:.1f} s; "
             f"train_net_torch.main({' '.join(argv(out, 4)[2:4])} ...)")
         ckdir = os.path.join(out, "checkpoints")
         calls = {}
-        src4 = ("source",) * 4
-        calls[1] = _train_call(torch, dev, argv(out, 4), "train cli call 1")
+        calls[1] = _train_call(torch, dev, argv(out, 4), f"{what} call 1", kernel_inputs=True)
         ck_mib = calls[1]["save_bytes"][0] / 2 ** 20
-        _log_train_call(calls[1], "train cli call 1", card)
-        _check_train(calls[1], "train cli call 1", src4, ckdir, (2, 4), counters, (2, 4))
-        check(calls[1]["resumed"] is None, "train cli call 1 resumed from a checkpoint")
+        _log_train_call(calls[1], f"{what} call 1", card)
+        _check_train(calls[1], f"{what} call 1", ("source",) * 4, ckdir, (2, 4), counters, (2, 4))
+        check(calls[1]["resumed"] is None, f"{what} call 1 resumed from a checkpoint")
         lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json")).read().splitlines()]
         check([x["iteration"] for x in lines] == [3] and "total_loss" in lines[0],
-              f"train cli call 1: metrics.json lines {lines}")
+              f"{what} call 1: metrics.json lines {lines}")
+        held = hold_call_kernels(torch, dev, calls[1], f"{what} call 1", step_pools=SOURCE_POOLS)
+        del calls[1]["kernel_inputs"], calls[1]["test_pools"], calls[1]["gagm_inputs"]
         out3 = os.path.join(tmp, "out3")
         os.makedirs(os.path.join(out3, "checkpoints"))
         shutil.copy(os.path.join(ckdir, "model_0000004.pth"), os.path.join(out3, "checkpoints"))
 
-        calls[2] = _train_call(torch, dev, argv(out, 8), "train cli call 2")
-        _log_train_call(calls[2], "train cli call 2", card)
-        _check_train(calls[2], "train cli call 2", src4, ckdir, (2, 4, 6, 8), counters, (6, 8))
+        calls[2] = _train_call(torch, dev, argv(out, 6), f"{what} call 2")
+        _log_train_call(calls[2], f"{what} call 2", card)
+        _check_train(calls[2], f"{what} call 2", ("source",) * 2, ckdir, (2, 4, 6), counters,
+                     (6,))
         step4 = torch.load(os.path.join(ckdir, "model_0000004.pth"), map_location="cpu",
                            weights_only=False)
         res = calls[2]["resumed"]
-        check(res is not None, "train cli call 2 did not resume")
+        check(res is not None, f"{what} call 2 did not resume")
         diff = _checkpoint_differences(torch, res, step4)
-        check(not diff, f"train cli call 2: the resumed state differs from the step-4 file in "
+        check(not diff, f"{what} call 2: the resumed state differs from the step-4 file in "
               f"{diff[:6]}")
         lines = [json.loads(x) for x in open(os.path.join(out, "metrics.json")).read().splitlines()]
-        check([x["iteration"] for x in lines] == [3, 7], f"train cli call 2: metrics.json {lines}")
-
-        calls[3] = _train_call(torch, dev, argv(out3, 8), "train cli call 3")
-        _log_train_call(calls[3], "train cli call 3", card)
-        _check_train(calls[3], "train cli call 3", src4, os.path.join(out3, "checkpoints"),
-                     (4, 6, 8), counters, (6, 8))
-        final2 = torch.load(os.path.join(ckdir, "model_0000008.pth"), map_location="cpu",
-                            weights_only=False)
-        final3 = torch.load(os.path.join(out3, "checkpoints", "model_0000008.pth"),
+        check([x["iteration"] for x in lines] == [3, 5], f"{what} call 2: metrics.json {lines}")
+        weights = os.path.join(ckdir, "model_0000006.pth")
+        final2 = torch.load(weights, map_location="cpu", weights_only=False)
+        calls[3] = _train_call(torch, dev, argv(out3, 6), f"{what} call 3")
+        _log_train_call(calls[3], f"{what} call 3", card)
+        _check_train(calls[3], f"{what} call 3", ("source",) * 2,
+                     os.path.join(out3, "checkpoints"), (4, 6), counters, (6,))
+        final3 = torch.load(os.path.join(out3, "checkpoints", "model_0000006.pth"),
                             map_location="cpu", weights_only=False)
         diff = _checkpoint_differences(torch, final2, final3)
-        check(not diff, f"train cli call 3: its final checkpoint differs from call 2's in "
-              f"{diff[:6]}")
+        check(not diff, f"{what} call 3: its final checkpoint differs from call 2's in {diff[:6]}")
         check([s["losses"]["total_loss"] for s in calls[3]["steps"]]
               == [s["losses"]["total_loss"] for s in calls[2]["steps"]],
-              "train cli call 3: losses differ from call 2's")
+              f"{what} call 3: losses differ from call 2's")
         host_s = loader_host_s(calls[1], LOADER_BATCHES)
 
-        weights = os.path.join(ckdir, "model_0000008.pth")
-        # after 8 steps from random weights every polyp score is below the
+        # after 6 steps from random weights every polyp score is below the
         # config's SCORE_THRESH_TEST 0.05: no detection, and Dice, E and S of
         # nothing are NaN; a floor of 0 keeps the top detections scored
         ev = ["--eval-only", "--device", str(dev), "--config",
@@ -2563,21 +2676,25 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
               "DATASETS.TEST", '["BKAI_test"]', "TEST.DICE_THRES", "0.0",
               "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
               "OUTPUT_DIR", os.path.join(tmp, "eval"), *eval_opts]
-        calls[4] = _train_call(torch, dev, ev, "train cli call 4")
-        log(f"train cli call 4 ({card}): eval-only on the trained file {calls[4]['main_s']:.1f} "
+        calls[4] = _train_call(torch, dev, ev, f"{what} call 4", kernel_inputs=True)
+        log(f"{what} call 4 ({card}): eval-only on the trained file {calls[4]['main_s']:.1f} "
             f"s, init_params {calls[4]['weights']}, results "
             f"{json.dumps(calls[4]['result'].get('BKAI_test'))}, launches "
             f"{ {k: v for k, v in calls[4]['launches'].items() if v} }")
         n_loaded, _, n_shape, n_absent = calls[4]["weights"] or (0, "", -1, -1)
         check(n_loaded == len(final2["model"]) and n_shape == 0 and n_absent == 0,
-              f"train cli call 4: {n_loaded} of {len(final2['model'])} tensors loaded, "
+              f"{what} call 4: {n_loaded} of {len(final2['model'])} tensors loaded, "
               f"{n_shape} of another shape, {n_absent} absent")
         metrics = calls[4]["result"]["BKAI_test"]
         check(len(metrics) == 3 and all(math.isfinite(v) for v in metrics.values()),
-              f"train cli call 4: Dice, E and S not all finite: {metrics}")
+              f"{what} call 4: Dice, E and S not all finite: {metrics}")
+        held_eval = hold_call_kernels(torch, dev, calls[4], f"{what} call 4",
+                                      test_pools=TEST_POOLS)
+        del calls[4]["test_pools"], calls[4]["gagm_inputs"]
 
+    trained = (1, 2, 3)
     summary = {}
-    for c in (1, 2, 3):
+    for c in trained:
         r = calls[c]
         summary[f"call{c}"] = dict(
             wait_s=r["wait_s"], step_ms=[s["ms"] for s in r["steps"]],
@@ -2585,15 +2702,17 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
             main_s=r["main_s"], val_s=r["val_s"], save_s=r["save_s"], load_s=r["load_s"],
             peak_gib=r["peak_gib"], total_loss=[s["losses"]["total_loss"] for s in r["steps"]],
             launches_per_step=[s["launches"] for s in r["steps"]], launches=r["launches"])
-    steps = [s["ms"] for c in (1, 2, 3) for s in calls[c]["steps"][1:]]
+    steps = [s["ms"] for c in trained for s in calls[c]["steps"][1:]]
     ratio = statistics.median(host_s) * 1e3 / statistics.median(steps)
-    log(f"train cli ({card}): the loader's host time per batch of 8 on one thread "
+    log(f"{what} ({card}): the loader's host time per batch of 8 on one thread "
         f"{[round(x, 3) for x in host_s]} s, median {statistics.median(host_s):.3f} s, against "
         f"the median step after the first {statistics.median(steps):.1f} ms: loader / step "
         f"{ratio:.1f}")
+    held["pools"].update(held_eval.pop("pools"))
     return dict(summary=summary, launches=calls[1]["launches"], checkpoint_mib=ck_mib,
                 loader_host_s=host_s, loader_over_step=ratio, eval_metrics=metrics,
-                eval_main_s=calls[4]["main_s"])
+                eval_main_s=calls[4]["main_s"], eval_launches=calls[4]["launches"],
+                peak_gib=calls[1]["peak_gib"], held={**held, **held_eval})
 
 
 # -- phase 11: the mean-teacher trainer through the command line ------------------
@@ -2703,43 +2822,77 @@ def probe_teacher(torch, dev, record, teacher, batch, kw) -> dict:
                                        host["gv"]))
 
 
-def hold_mt_kernels(torch, dev, rec, what: str = "mt cli") -> dict:
-    """Kernels A, C and D on what one MT step gave them (``rec``, from
-    :func:`capture_train` with ``kernel_inputs``), each against its plain
-    version: A on the teacher's forward-only box pool and on the student's
-    training pools (the labelled box and mask pools, the pseudo-labelled
-    box pool) of the first MT step, C on that step's three cotangents
-    (focal-loss and pseudo-label gradients), D on every projection of the
-    labelled pass's HiPPI on every MT step, and the longest of those HiPPI
-    calls rerun with the plain projection; ``what`` names the phase in the
-    log.  These launches are not the main path's."""
-    check(rec is not None, f"{what}: no MT step's kernel inputs were taken")
-    pools, names = {}, []
-    for kind, levels, rois, kw in rec["pools"]:
-        P = kw.get("output_size", 7)
-        check(kw.get("sampling_ratio", 0) == 0, f"{what}: pool options {kw} are not the "
-              "flagship's")
-        if kind == "forward":
-            name = "teacher box"
-        else:
-            name = "labelled " + ("box" if P == 7 else "mask")
-            if name in pools:
-                name = "pseudo-labelled box"
-            names.append((rois, name))
-        B, K = rois.shape[:2]
-        pools[name] = hold_pool(torch, levels, rois, P, f"{what} roi_pool {name}",
-                                f"levels {tuple(levels[0].shape)}..{tuple(levels[-1].shape)}, "
-                                f"{B} x {K} ROIs of one MT step")
-    check(sorted(pools) == ["labelled box", "labelled mask", "pseudo-labelled box",
-                            "teacher box"], f"{what}: pool calls of one MT step {sorted(pools)}")
-    bwd = phase_roi_backward_main(torch, dev, rec["backward"], names=names)
-    steps = [h[-1]["steps"] for h in rec["hippi"]["hippi"]]
-    log(f"{what}: {len(steps)} HiPPI calls on the MT steps, iterations {steps}")
-    err, rerun = hold_sinkhorn(torch, rec["hippi"], "the MT steps")
-    return dict(pools=pools, backward=bwd,
-                sinkhorn=dict(max_abs_err=err, hippi_steps=steps,
-                              projections_checked=len(rec["hippi"]["projections"]),
-                              hippi_rerun=rerun))
+def test_pool_name(where: str, P: int) -> str:
+    """The name of a pool call of ``test``: ``where`` it runs (``"tta"``, the
+    adaptation step; ``"inference"``, ``evaluate_dataset``) and what it
+    pools."""
+    return f"{where} {'box' if P == 7 else 'mask'}"
+
+
+def hold_call_kernels(torch, dev, rec, what: str, step_pools=(), test_pools=()) -> dict:
+    """Each kernel of one call on what the call gave it (``rec``, from
+    :func:`capture_train` with ``kernel_inputs``), against its plain
+    version; ``what`` names the call in the log.  With ``step_pools`` (the
+    names of the first step's pool calls: ``"teacher box"``, the MT step's
+    forward-only box pool; ``"labelled box"`` and ``"labelled mask"``, the
+    training pools of the labelled pass; ``"pseudo-labelled box"``): A on
+    each of those calls, C on that step's cotangents, D on every projection
+    of HiPPI on every source or MT step, and the longest of those HiPPI
+    calls rerun with the plain projection.  With ``test_pools`` (the names
+    of :func:`test_pool_name`): A on the first pool call of each, and B on
+    every GA-GM input of the call's adaptation (:func:`phase_gagm_main`).
+    These launches are not the main path's."""
+    out = {"pools": {}}
+    if step_pools:
+        ki = rec["kernel_inputs"]
+        check(ki is not None, f"{what}: no step's kernel inputs were taken")
+        names = []
+        for kind, levels, rois, kw in ki["pools"]:
+            P = kw.get("output_size", 7)
+            check(kw.get("sampling_ratio", 0) == 0, f"{what}: pool options {kw} are not the "
+                  "flagship's")
+            if kind == "forward":
+                name = "teacher box"
+            else:
+                name = "labelled " + ("box" if P == 7 else "mask")
+                if name in out["pools"]:
+                    name = "pseudo-labelled box"
+                names.append((rois, name))
+            B, K = rois.shape[:2]
+            out["pools"][name] = hold_pool(
+                torch, levels, rois, P, f"{what} roi_pool {name}",
+                f"levels {tuple(levels[0].shape)}..{tuple(levels[-1].shape)}, {B} x {K} ROIs "
+                "of one step")
+        check(sorted(out["pools"]) == sorted(step_pools),
+              f"{what}: pool calls of one step {sorted(out['pools'])}, expected "
+              f"{sorted(step_pools)}")
+        out["backward"] = phase_roi_backward_main(torch, dev, ki["backward"], names=names)
+        steps = [h[-1]["steps"] for h in ki["hippi"]["hippi"]]
+        log(f"{what}: {len(steps)} HiPPI calls on the steps, iterations {steps}")
+        err, rerun = hold_sinkhorn(torch, ki["hippi"], f"{what}'s steps")
+        out["sinkhorn"] = dict(max_abs_err=err, hippi_steps=steps,
+                               projections_checked=len(ki["hippi"]["projections"]),
+                               hippi_rerun=rerun)
+    if test_pools:
+        got = rec["test_pools"]
+        check(sorted(got) == sorted(test_pools), f"{what}: pool calls of test {sorted(got)}, "
+              f"expected {sorted(test_pools)}")
+        for name, (levels, rois, kw) in got.items():
+            B, K = rois.shape[:2]
+            out["pools"][name] = hold_pool(
+                torch, levels, rois, kw.get("output_size", 7), f"{what} roi_pool {name}",
+                f"levels {tuple(levels[0].shape)}..{tuple(levels[-1].shape)}, {B} x {K} ROIs "
+                "of the first such call of test")
+        out["gagm"] = phase_gagm_main(torch, dev, rec["gagm_inputs"])
+    return out
+
+
+#: the pool calls of one step of each kind, and of ``test`` with and
+#: without a mask head, as :func:`hold_call_kernels` names them
+SOURCE_POOLS = ("labelled box", "labelled mask")
+MT_POOLS = ("teacher box", "labelled box", "labelled mask", "pseudo-labelled box")
+TEST_POOLS = ("tta box", "inference box", "inference mask")
+BOX_TEST_POOLS = ("tta box", "inference box")
 
 
 def write_mt_splits(data: str, splits=MT_SPLITS) -> None:
@@ -2764,7 +2917,7 @@ def _mt_cli_calls(torch, dev, card: str, what: str, tmp: str, data: str, overrid
     ``split_reps`` and the kernels' inputs): :func:`_check_train`'s gates
     (``extra_losses`` on its MT steps too), no resume, the step-4 file in
     the ensemble layout; then ``on_call1(record, step4)`` and kernels A, C
-    and D held on its MT steps' inputs (:func:`hold_mt_kernels`).  Call 2
+    and D held on its first MT step's inputs (:func:`hold_call_kernels`).  Call 2
     runs the same command to 6 steps, resumed at step 4 bit for bit; then
     ``on_call2(record)``.  With ``restart``, call 3 runs call 2 again from a
     directory that holds only the step-4 checkpoint, and its final
@@ -2772,8 +2925,9 @@ def _mt_cli_calls(torch, dev, card: str, what: str, tmp: str, data: str, overrid
     --config configs/test_segment_MT.yaml`` call on call 2's final file, on
     a REFUGE test split, for each ``(member, extra overrides)`` of
     ``members``, numbered from 4: every tensor of the member loaded, the
-    kernels of ``eval_counters`` launched, Dice, E and S finite.  The hooks
-    return dicts that join the result.  Returns ``(result, calls)``."""
+    kernels of ``eval_counters`` launched, Dice, E and S finite; kernels A
+    and B held on call 4's inputs.  The hooks return dicts that join the
+    result.  Returns ``(result, calls)``."""
     import shutil
 
     cfg = os.path.join(HERE, "configs", "seg_res50fpn_MT.yaml")
@@ -2803,7 +2957,8 @@ def _mt_cli_calls(torch, dev, card: str, what: str, tmp: str, data: str, overrid
           f"{what} call 1: checkpoint keys not in the ensemble layout: {keys[:3]}")
     if on_call1 is not None:
         res.update(on_call1(calls[1], step4) or {})
-    held = hold_mt_kernels(torch, dev, calls[1].pop("kernel_inputs"), what)
+    held = hold_call_kernels(torch, dev, calls[1], f"{what} call 1", step_pools=MT_POOLS)
+    del calls[1]["kernel_inputs"], calls[1]["test_pools"], calls[1]["gagm_inputs"]
 
     calls[2] = _train_call(torch, dev, argv(out, 6), f"{what} call 2")
     _log_train_call(calls[2], f"{what} call 2", card)
@@ -2842,7 +2997,7 @@ def _mt_cli_calls(torch, dev, card: str, what: str, tmp: str, data: str, overrid
           "OUTPUT_DIR", os.path.join(tmp, "eval"), *eval_opts]
     evals = {}
     for c, (member, extra) in enumerate(members, start=4):
-        calls[c] = _train_call(torch, dev, ev + extra, f"{what} call {c}")
+        calls[c] = _train_call(torch, dev, ev + extra, f"{what} call {c}", kernel_inputs=c == 4)
         want = {k[len(member) + 1:]: v for k, v in final2["model"].items()
                 if k.startswith(member + ".")}
         got = calls[c]["init"]
@@ -2860,6 +3015,12 @@ def _mt_cli_calls(torch, dev, card: str, what: str, tmp: str, data: str, overrid
               f"{what} call {c}: Dice, E and S not all finite: {metrics}")
         evals[c] = dict(main_s=calls[c]["main_s"], metrics=metrics,
                         launches=calls[c]["launches"])
+        if c == 4:
+            held_eval = hold_call_kernels(torch, dev, calls[c], f"{what} call {c}",
+                                          test_pools=TEST_POOLS)
+            held["pools"].update(held_eval.pop("pools"))
+            held.update(held_eval)
+            del calls[c]["test_pools"], calls[c]["gagm_inputs"]
 
     # the MT steps that also copied their kernels' inputs are left out
     mt_steps = [s["ms"] for c in trained for s in calls[c]["steps"]
@@ -3069,6 +3230,314 @@ def phase_mt_cd_cli(torch, dev, card: str = "", data: str | None = None, opts=()
     return res
 
 
+# -- phase 13: the VGG16-BN family and the legacy datasets -------------------------------
+
+#: phase 13's trunk, with its reason
+VGG_OVERRIDE = ("MODEL.BACKBONE.NAME", "build_vgg_backbone", "the option under test: the "
+                "VGG16-BN trunk (JAX build.py:40; every shipped config names the R50)")
+#: foggy-Cityscapes frames of phase 13: (split, frames); 2048 x 1024 each
+CITY_SPLITS = (("train", 8), ("val", 2))
+CITY_HW = (1024, 2048)
+#: Clipart1k's VOC objects on the 3 committed JPEGs: (id, [(class, difficult,
+#: xmin, ymin, xmax, ymax)], 1-indexed corners)
+CLIPART_OBJECTS = (("p0", (("dog", 0, 101, 211, 640, 700), ("person", 1, 700, 100, 1100, 900))),
+                   ("p1", (("car", 0, 51, 61, 500, 400), ("bicycle", 0, 600, 500, 900, 800))),
+                   ("p2", (("cat", 0, 300, 200, 1000, 800), ("bird", 0, 20, 20, 200, 150))))
+
+
+def write_cityscapes_foggy(root: str, seed: int = 0) -> None:
+    """Foggy-Cityscapes splits of ``CITY_SPLITS`` in the dataset's layout
+    under ``root/cityscapes_foggy`` (what ``register_all_legacy`` reads):
+    ``leftImg8bit/{split}/aachen/*_leftImg8bit_foggy_beta_0.02.png`` frames
+    of 2048 x 1024 (a hazy street: road, sky and one block per object) and
+    ``gtFine/{split}/aachen/*_gtFine_polygons.json`` with one polygon of each
+    of the 8 thing classes, a ``cargroup`` crowd region, a ``deleted`` car
+    and a ``sky`` region."""
+    import numpy as np
+
+    from ttdg_mgm_torch.data.datasets.cityscapes_foggy import CITYSCAPES_THING_CLASSES
+
+    h, w = CITY_HW
+    rng = np.random.RandomState(seed)
+    yy = np.mgrid[:h, :1][0].astype(np.float32)
+    for split, n in CITY_SPLITS:
+        img_dir = os.path.join(root, "cityscapes_foggy", "leftImg8bit", split, "aachen")
+        gt_dir = os.path.join(root, "cityscapes_foggy", "gtFine", split, "aachen")
+        os.makedirs(img_dir, exist_ok=True)
+        os.makedirs(gt_dir, exist_ok=True)
+        for i in range(n):
+            base = np.where(yy < 0.45 * h, 200.0, 90.0 + 40 * yy / h)
+            img = np.repeat(np.repeat(base[:, :, None], w, 1), 3, 2)
+            objs = []
+            for c, name in enumerate(CITYSCAPES_THING_CLASSES):
+                x0 = (0.03 + 0.12 * c + rng.uniform(0, 0.02)) * w
+                y0 = rng.uniform(0.35, 0.5) * h
+                x1, y1 = x0 + rng.uniform(0.04, 0.1) * w, y0 + rng.uniform(0.1, 0.3) * h
+                img[int(y0):int(y1), int(x0):int(x1)] = rng.uniform(20, 160, 3)
+                objs.append({"label": name, "polygon": [[x0, y0], [x1, y0], [x1, y1],
+                                                        [(x0 + x1) / 2, y1 + 8], [x0, y1]]})
+            objs += [{"label": "cargroup", "polygon": [[0.55 * w, 0.75 * h], [0.95 * w, 0.75 * h],
+                                                       [0.95 * w, 0.95 * h], [0.55 * w, 0.95 * h]]},
+                     {"label": "car", "deleted": 1, "polygon": [[10, 600], [90, 600], [90, 660]]},
+                     {"label": "sky", "polygon": [[0, 0], [w, 0], [w, 0.3 * h], [0, 0.3 * h]]}]
+            fog = 0.6 * img + 0.4 * 210 + rng.normal(0, 3, img.shape)
+            stem = f"aachen_{i:06d}_000019_"
+            write_png(os.path.join(img_dir, stem + "leftImg8bit_foggy_beta_0.02.png"),
+                      np.clip(fog, 0, 255).astype(np.uint8))
+            with open(os.path.join(gt_dir, stem + "gtFine_polygons.json"), "w") as f:
+                json.dump({"imgHeight": h, "imgWidth": w, "objects": objs}, f)
+
+
+def write_clipart(root: str) -> None:
+    """Clipart1k's test split in VOC layout under ``root/clipart``: the 3
+    committed 1280 x 959 JPEGs with ``CLIPART_OBJECTS`` (one difficult)."""
+    import shutil
+
+    d = os.path.join(root, "clipart")
+    for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    for fid, objs in CLIPART_OBJECTS:
+        shutil.copy(os.path.join(JPEG_FIXTURES, fid + ".jpg"), os.path.join(d, "JPEGImages"))
+        xml = "".join(f"<object><name>{c}</name><difficult>{df}</difficult><bndbox><xmin>{x0}"
+                      f"</xmin><ymin>{y0}</ymin><xmax>{x1}</xmax><ymax>{y1}</ymax></bndbox>"
+                      "</object>" for c, df, x0, y0, x1, y1 in objs)
+        with open(os.path.join(d, "Annotations", fid + ".xml"), "w") as f:
+            f.write("<annotation><size><width>1280</width><height>959</height><depth>3</depth>"
+                    f"</size>{xml}</annotation>")
+    with open(os.path.join(d, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("".join(fid + "\n" for fid, _ in CLIPART_OBJECTS))
+
+
+def _legacy_run(torch, dev, what: str, config: str, opts, train: bool, dataset: str,
+                tta_batch: int, counters, test_pools):
+    """``build_trainer`` on ``configs/{config}`` with ``opts`` (a VGG model
+    with random weights) under :func:`capture_train` with the kernels'
+    inputs; with ``train``, 2 source steps on ``cityscapes_foggy_train``
+    (every loss finite, the kernels of ``counters`` launched on each); then
+    ``test([dataset])`` with one TTA step per batch of ``tta_batch`` and the
+    dataset's own evaluator.  The kernel counters are set to 0 just before
+    and read just after.  Then each kernel is held on what the run gave it
+    (:func:`hold_call_kernels`): A, C and D on the first source step's
+    inputs, A on ``test_pools`` and B on the adaptation's.  Returns the
+    record, with the results and the holds."""
+    from ttdg_mgm_torch.build import build_trainer
+    from ttdg_mgm_torch.config import setup_cfg
+
+    cfg = setup_cfg(os.path.join(HERE, "configs", config), list(opts))
+    record, undo = capture_train(torch, dev, kernel_inputs=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    try:
+        t0 = time.perf_counter()
+        trainer = build_trainer(cfg, device=dev)
+        if train:
+            trainer.train(["cityscapes_foggy_train"], max_iter=2,
+                          batch_size=cfg.SOLVER.IMS_PER_BATCH, seed=cfg.SEED)
+        t1 = time.perf_counter()
+        record["result"] = trainer.test([dataset], ttt=True, tta_batch=tta_batch)[dataset]
+        record["test_s"] = time.perf_counter() - t1
+        record["main_s"] = time.perf_counter() - t0
+    finally:
+        record["launches"] = read_counters()
+        undo()
+    record["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
+    for i, s in enumerate(record["steps"]):
+        bad = {k: v for k, v in s["losses"].items() if not math.isfinite(v)}
+        check(not bad, f"{what} step {i}: non-finite losses {bad}")
+        missing = [k for k in counters if s["launches"].get(k, 0) < 1]
+        check(not missing, f"{what} step {i}: kernels {missing} not launched ({s['launches']})")
+    check(len(record["steps"]) == (2 if train else 0), f"{what}: {len(record['steps'])} steps")
+    check(record["launches"]["gagm"] >= 1, f"{what}: the TTA step did not launch kernel B")
+    record["held"] = hold_call_kernels(torch, dev, record, what,
+                                       step_pools=SOURCE_POOLS if train else (),
+                                       test_pools=test_pools)
+    del record["kernel_inputs"], record["test_pools"], record["gagm_inputs"]
+    return record
+
+
+#: the VGG trunk's measured batch, the source step's (images, height, width)
+VGG_TRUNK_SHAPE = (8, 800, 800)
+#: the legacy test batches whose peak memory is split by pass: (name,
+#: classes, mask head, images, canvas height, width), as phase 13 runs them,
+#: and the Clipart1k batch at 1 image (how the peak grows with the batch)
+VGG_TEST_SHAPES = (("cityscapes", 8, True, 2, 832, 1344), ("clipart", 20, False, 3, 832, 1088),
+                   ("clipart_1", 20, False, 1, 832, 1088))
+
+
+def vgg_costs(torch, dev, trunk_shape=VGG_TRUNK_SHAPE, test_shapes=VGG_TEST_SHAPES,
+              reps: int = 3) -> dict:
+    """Two measurements of phase 13's VGG paths, outside its counted runs.
+    (1) The cost of the float32 trunk: its forward and backward on the
+    source step's batch (``trunk_shape``), float32 with TF32 off as the port
+    and the JAX model run it, against the same under ``torch.autocast`` in
+    bf16 (what a bf16 trunk would take; no path of the port): the mean time
+    of ``reps`` by CUDA events and the peak memory of each.  (2) Where the
+    legacy test batches' peak goes: for each of ``test_shapes`` a full-width
+    VGG model with random weights, its classes and mask head, and a batch
+    on the test canvas: the peak of ``forward_inference`` and of one
+    ``loss_ttt`` forward and backward apart, over what the model holds,
+    beside the card's memory."""
+    import contextlib
+
+    from ttdg_mgm_torch.build import build_model
+    from ttdg_mgm_torch.models.vgg import VGG16FPNBackbone
+
+    def peak_of(fn):
+        _sync(torch, dev)
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        _sync(torch, dev)
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    out = {"trunk": {}, "test": {}, "card_gib": torch.cuda.mem_get_info(dev)[1] / 2 ** 30}
+    B, H, W = trunk_shape
+    trunk = VGG16FPNBackbone().to(dev)
+    x = torch.randn(B, 3, H, W, device=dev)
+    modes = (("float32", contextlib.nullcontext),
+             ("autocast_bf16", lambda: torch.autocast(dev.type, dtype=torch.bfloat16)))
+    for mode, ctx in modes:
+        def fwd_bwd(ctx=ctx):
+            trunk.zero_grad(set_to_none=True)
+            with ctx():
+                feats = trunk(x)
+            sum(f.float().mean() for f in feats.values()).backward()
+
+        gib = peak_of(fwd_bwd)
+        out["trunk"][mode] = dict(ms=event_ms(torch, fwd_bwd, reps), peak_gib=gib)
+    del trunk, x
+    for name, classes, mask_on, n, h, w in test_shapes:
+        model = build_model(device=dev, seed=0, backbone_name="vgg16", num_classes=classes,
+                            mask_on=mask_on, score_thresh_test=0.0)
+        images = torch.rand(n, h, w, 3, device=dev) * 255
+        sizes = torch.tensor([[float(h), float(w)]] * n, device=dev)
+        held = torch.cuda.memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
+        out["test"][name] = dict(
+            batch=f"{n} x {h} x {w}", model_gib=held,
+            inference_peak_gib=peak_of(lambda: model.forward_inference(images, sizes)),
+            tta_peak_gib=peak_of(lambda: model.loss_ttt(images, sizes).backward()))
+        del model, images
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    t = out["trunk"]
+    log(f"vgg costs: the trunk's forward and backward on {B} x {H} x {W}: float32 (TF32 off) "
+        f"{t['float32']['ms']:.2f} ms, peak {t['float32']['peak_gib']:.2f} GiB; under autocast "
+        f"bf16 {t['autocast_bf16']['ms']:.2f} ms, peak {t['autocast_bf16']['peak_gib']:.2f} GiB; "
+        f"peak by pass of the legacy test batches {json.dumps(out['test'])}, of the card's "
+        f"{out['card_gib']:.2f} GiB")
+    return out
+
+
+def phase_vgg(torch, dev, card: str = "", mt_data: str | None = None, opts=(), eval_opts=(),
+              counters=TRAIN_COUNTERS, legacy_opts=(), split_reps: int = 1):
+    """The VGG16-BN family at full width (FPN 256, box head 1024, mask head
+    256, 1000 proposals, universe 32, 60 nodes per graph; the trunk float32
+    under each config's bf16 policy, as the JAX model's), with
+    ``MODEL.BACKBONE.NAME build_vgg_backbone`` (``VGG_OVERRIDE``, printed
+    with its reason) on the shipped configs, through the entry points a user
+    calls:
+
+    1. source training through the command line, phase 10's calls
+       (:func:`phase_train_cli`) with the override: 4 steps of
+       ``configs/seg_res50fpn_source.yaml`` (batch 8, square 800 canvas) on
+       phase 10's synthetic splits, resumed to 6 bit for bit, the same from
+       a copy of the step-4 file, then ``--eval-only --config
+       configs/test_segment.yaml`` on the final file (every tensor loaded,
+       finite Dice, E and S); kernels A (bf16), C (bf16) and D launched on
+       every step;
+    2. the mean-teacher trainer through the command line, phase 11's calls
+       (:func:`_mt_cli_calls`) with the override on phase 11's splits
+       (``mt_data``): 4 steps (2 burn-in, 2 MT), the split by pass, resumed
+       to 6 bit for bit, ``--eval-only`` on the student;
+    3. the legacy datasets through ``register_all_legacy`` on trees written
+       under a temporary root: foggy Cityscapes (8 train and 2 val frames of
+       2048 x 1024, the 8 thing classes, a crowd region, a deleted object): a
+       VGG model with 8 classes (``seg_res50fpn_source.yaml``) takes 2
+       source steps on ``cityscapes_foggy_train``, then ``test`` on
+       ``cityscapes_foggy_val`` (a TTA step, COCO box and mask AP, finite);
+       Clipart1k (the 3 committed JPEGs in VOC layout, one difficult box): a
+       VGG model with 20 classes and ``MODEL.MASK_ON False``
+       (``test_segment.yaml``) adapts with a TTA step without a mask head,
+       as the JAX package does, and is scored by the VOC evaluator (finite
+       mAP).  Neither Pillow, OpenCV nor PyYAML is imported;
+    4. :func:`vgg_costs`: the float32 trunk's cost against a bf16 one, and
+       the legacy test batches' peak memory split between inference and the
+       TTA step.
+
+    On each path of 1-3 every kernel it launches is held against its plain
+    version on the path's own inputs (:func:`hold_call_kernels`): A, C and
+    D on the first training step's, A and B on the adaptation's and the
+    inference's.
+
+    Random weights score near 1/(classes + 1), so ``SCORE_THRESH_TEST`` is 0
+    on the legacy runs (printed with its reason)."""
+    import tempfile
+
+    from ttdg_mgm_torch.data.builtin import register_all_legacy
+
+    key, value, why = VGG_OVERRIDE
+    log(f"vgg: override {key} {value}: {why}")
+    vgg = [key, value]
+    src = phase_train_cli(torch, dev, card, opts=[*vgg, *opts], eval_opts=[*vgg, *eval_opts],
+                          counters=counters, what="vgg train cli")
+    log(f"vgg train cli ({card}): checkpoint {src['checkpoint_mib']:.1f} MiB, peak "
+        f"{src['peak_gib']:.2f} GiB, eval-only {src['eval_main_s']:.1f} s "
+        f"{json.dumps(src['eval_metrics'])}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if mt_data is None:
+            mt_data = os.path.join(tmp, "data")
+            write_mt_splits(mt_data)
+        mt, _ = _mt_cli_calls(
+            torch, dev, card, "vgg mt cli", tmp, mt_data, (*MT_OVERRIDES, VGG_OVERRIDE), opts,
+            [*vgg, *eval_opts], counters, ("gagm",), split_reps, (("modelStudent", []),))
+    log(f"vgg mt cli ({card}): median MT step {mt['mt_step_median_ms']:.1f} ms; split "
+        f"{mt['split_ms']} ms; peak {mt['peak_gib']:.2f} GiB; checkpoint "
+        f"{mt['checkpoint_mib']:.1f} MiB")
+
+    log("vgg legacy: override MODEL.ROI_HEADS.SCORE_THRESH_TEST 0.0: random weights score "
+        "near 1/(classes + 1), at or under the configs' 0.05")
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_cityscapes_foggy(root)
+        write_clipart(root)
+        register_all_legacy(root)
+        log(f"vgg legacy: foggy Cityscapes {CITY_SPLITS} frames of {CITY_HW[1]} x {CITY_HW[0]} "
+            f"and Clipart1k's 3 JPEGs written and registered in {time.perf_counter() - t0:.1f} s")
+        common = [*vgg, "MODEL.WEIGHTS", "", "MODEL.ROI_HEADS.SCORE_THRESH_TEST", "0.0",
+                  "OUTPUT_DIR", os.path.join(root, "out"), *legacy_opts]
+        city = _legacy_run(torch, dev, "vgg cityscapes", "seg_res50fpn_source.yaml",
+                           [*common, "MODEL.ROI_HEADS.NUM_CLASSES", "8"], True,
+                           "cityscapes_foggy_val", 2, counters, TEST_POOLS)
+        clip = _legacy_run(torch, dev, "vgg clipart", "test_segment.yaml",
+                           [*common, "MODEL.ROI_HEADS.NUM_CLASSES", "20", "MODEL.MASK_ON",
+                            "False"], False, "Clipart1k_test", 3, (), BOX_TEST_POOLS)
+    for what, r, keys in (("cityscapes", city, ("bbox_AP", "bbox_AP50", "segm_AP")),
+                          ("clipart", clip, ("bbox_AP50",))):
+        res = r["result"]
+        check(all(math.isfinite(res.get(k, float("nan"))) for k in keys),
+              f"vgg {what}: {keys} not all finite in {res}")
+        log(f"vgg {what} ({card}): steps {[round(s['ms'], 1) for s in r['steps']]} ms, loader "
+            f"waits {[round(x, 3) for x in r['wait_s']]} s, test {r['test_s']:.1f} s, results "
+            f"{ {k: res[k] for k in keys} }, peak {r['peak_gib']:.2f} GiB, launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }")
+    check(not any(k.startswith("segm") for k in clip["result"]),
+          f"vgg clipart: a box-only model scored masks {sorted(clip['result'])}")
+    foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2", "yaml"))
+    check(not foreign, f"vgg: imported {foreign[:5]}")
+    launches = {k: src["launches"][k] + src["eval_launches"][k] + mt["launches"][k]
+                + city["launches"][k] + clip["launches"][k] for k in src["launches"]}
+    return dict(source=src, mt=mt, launches=launches, costs=vgg_costs(torch, dev),
+                cityscapes=dict(step_ms=[s["ms"] for s in city["steps"]], wait_s=city["wait_s"],
+                                test_s=city["test_s"], results=city["result"],
+                                peak_gib=city["peak_gib"], launches=city["launches"],
+                                held=city["held"]),
+                clipart=dict(test_s=clip["test_s"], results=clip["result"],
+                             peak_gib=clip["peak_gib"], launches=clip["launches"],
+                             held=clip["held"]))
+
+
 # -- main ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -3129,53 +3598,69 @@ def main() -> int:
         write_mt_splits(mt_data)
         mtc = phase_mt_cli(torch, dev, card, data=mt_data)
         mtcd = phase_mt_cd_cli(torch, dev, card, data=mt_data)
+        vgg = phase_vgg(torch, dev, card, mt_data=mt_data)
     if "--warm" in argv:
         phase_warm(torch, dev)
 
     g4 = gagm["G4_M60"]
     paths = {"tta": e2e, "source": src, "cli": cli, "tta_bf16": e2e16, "source_bf16": src16,
-             "cli_bf16": cli16, "train_cli": train, "mt_cli": mtc, "mt_cd_cli": mtcd}
+             "cli_bf16": cli16, "train_cli": train, "mt_cli": mtc, "mt_cd_cli": mtcd,
+             "vgg_train_cli": vgg["source"], "vgg_eval_cli": {"launches": vgg["source"][
+                 "eval_launches"]}, "vgg_mt_cli": vgg["mt"], "vgg_cityscapes": vgg["cityscapes"],
+             "vgg_clipart": vgg["clipart"]}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items()} for k in e2e["launches"]}
     pick = ("ms", "kernel_only_ms", "args_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "shape")
 
-    held, held_cd = mtc.pop("held"), mtcd.pop("held")
+    # each kernel's holds on the command-line paths' own inputs, by path
+    held = {"train_cli": train.pop("held"), "mt_cli": mtc.pop("held"),
+            "mt_cd_cli": mtcd.pop("held"), "vgg_train_cli": vgg["source"].pop("held"),
+            "vgg_mt_cli": vgg["mt"].pop("held"), "vgg_cityscapes": vgg["cityscapes"].pop("held"),
+            "vgg_clipart": vgg["clipart"].pop("held")}
 
-    def pool_kernel(name, pools, train, tta, mt=None, mt_cd=None):
+    def held_by_path(part):
+        return {p: h[part] for p, h in held.items() if part in h}
+
+    def pool_kernel(name, pools, train, tta, on_paths=None):
         box, mask = pools["box"], pools["mask"]
-        mt, mt_cd = mt or {}, mt_cd or {}
+        on_paths = on_paths or {}
         return dict(name=name, route="cuda", source="ttdg_mgm_torch/csrc/roi_pool.cu",
                     replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:113",
                     launches=tta["launches"][name], launches_by_path=by_path[name],
-                    max_abs_err=max(r["max_abs_err"] for r in (*pools.values(), *train.values(),
-                                                               *mt.values(), *mt_cd.values())),
+                    max_abs_err=max(r["max_abs_err"] for r in (
+                        *pools.values(), *train.values(),
+                        *(r for calls in on_paths.values() for r in calls.values()))),
                     tolerance=pool_tolerance(name.endswith("bf16")),
                     ms=box["ms"], plain_ms=box["plain_ms"], bound_ms=box["bound_ms"],
                     bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
                     kernel_only_ms=box["kernel_only_ms"], args_ms=box["args_ms"],
                     geometry_ulps=max(r["geometry_ulps"] for r in (*pools.values(),
                                                                   *train.values())),
-                    mask_pool={k: mask[k] for k in pick}, train_pools=train, mt_step_pools=mt,
-                    mt_cd_step_pools=mt_cd,
+                    mask_pool={k: mask[k] for k in pick}, train_pools=train,
+                    held_on_paths=on_paths,
                     rect_canvas={k: v for k, v in pools.items() if k not in ("box", "mask")})
 
-    def backward_kernel(name, bwd, main_path, source, mt=None, mt_cd=None):
+    def backward_kernel(name, bwd, main_path, source, on_paths=None):
         box, mask = bwd["box"], bwd["mask"]
+        on_paths = on_paths or {}
         return dict(name=name, route="cuda", source="ttdg_mgm_torch/csrc/roi_pool_backward.cu",
                     replaces="ttdg_mgm_tpu/ops/pallas/roi_pool_pallas.py:350",
                     launches=source["launches"][name], launches_by_path=by_path[name],
-                    max_abs_err=max(box["max_abs_err"], mask["max_abs_err"]),
+                    max_abs_err=max(r["max_abs_err"] for r in (
+                        box, mask, *main_path.values(),
+                        *(r for calls in on_paths.values() for r in calls.values()))),
                     tolerance=pool_tolerance(name.endswith("bf16"), backward=True),
                     ms=box["ms"], plain_ms=box["plain_ms"], bound_ms=box["bound_ms"],
                     bound_by=box["bound_by"], library_ms=None, shape=box["shape"],
                     kernel_only_ms=box["kernel_only_ms"], args_ms=box["args_ms"],
                     deterministic=box["deterministic"] and mask["deterministic"],
-                    main_path=main_path, mt_step=mt, mt_cd_step=mt_cd,
+                    main_path=main_path, held_on_paths=on_paths,
                     mask_pool={k: mask[k] for k in pick})
 
+    sk_held = held_by_path("sinkhorn")
     kernels = [
         pool_kernel("roi_pool", roi, roi_train, e2e),
-        pool_kernel("roi_pool_bf16", roi16, roi_train16, e2e16, held["pools"], held_cd["pools"]),
+        pool_kernel("roi_pool_bf16", roi16, roi_train16, e2e16, held_by_path("pools")),
         dict(name="gagm", route="cuda", source="ttdg_mgm_torch/csrc/gagm.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/gagm_pallas.py:53",
              launches=e2e["launches"]["gagm"], launches_by_path=by_path["gagm"],
@@ -3184,23 +3669,23 @@ def main() -> int:
              bound_by=g4["bound_by"], library_ms=None, shape=g4["shape"],
              steps=g4["steps"], input_dtypes_bf16_path=e2e16["kernel_b_dtypes"], **gagm_main,
              other_cases={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "steps")}
-                          for k, v in gagm.items() if k != "G4_M60"}),
+                          for k, v in gagm.items() if k != "G4_M60"},
+             held_on_paths=held_by_path("gagm")),
         backward_kernel("roi_pool_backward", roi_bwd, bwd_main, src),
-        backward_kernel("roi_pool_backward_bf16", roi_bwd16, bwd_main16, src16, held["backward"],
-                        held_cd["backward"]),
+        backward_kernel("roi_pool_backward_bf16", roi_bwd16, bwd_main16, src16,
+                        held_by_path("backward")),
         dict(name="sinkhorn", route="cuda", source="ttdg_mgm_torch/csrc/sinkhorn.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/sinkhorn_pallas.py:31",
              launches=src["launches"]["sinkhorn"], launches_by_path=by_path["sinkhorn"],
-             max_abs_err=max(sk["max_abs_err"], held["sinkhorn"]["max_abs_err"],
-                             held_cd["sinkhorn"]["max_abs_err"]), ms=sk["ms"],
-             plain_ms=sk["plain_ms"],
+             max_abs_err=max(sk["max_abs_err"], *(r["max_abs_err"] for r in sk_held.values())),
+             ms=sk["ms"], plain_ms=sk["plain_ms"],
              bound_ms=sk["bound_ms"], bound_by=sk["bound_by"], library_ms=None,
              shape=sk["shape"], chain_floor_ms=sk["chain_floor_ms"],
              transcendentals=sk["transcendentals"], kernel_only_ms=sk["kernel_only_ms"],
              generic_path_ms=sk["generic_path_ms"],
              input_dtypes_bf16_path=src16["kernel_d_dtypes"],
              projections_checked=sk["projections_checked"], hippi_rerun=sk["hippi_rerun"],
-             mt_step=held["sinkhorn"], mt_cd_step=held_cd["sinkhorn"]),
+             held_on_paths=sk_held),
     ]
     e2e_keys = ("step_ms", "steady_ms", "images_per_s", "losses", "infer_ms", "peak_gib")
     src_keys = ("batch", "step_ms", "steady_ms", "images_per_s", "total_loss", "peak_gib")
@@ -3217,6 +3702,7 @@ def main() -> int:
     log(f"train cli summary ({card}): {json.dumps(train)}")
     log(f"mt cli summary ({card}): {json.dumps(mtc)}")
     log(f"mt cd cli summary ({card}): {json.dumps(mtcd)}")
+    log(f"vgg summary ({card}): {json.dumps(vgg)}")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,8 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_fixture import (DEMO, jax_model_and_params, port_kwargs, port_model,
-                                source_batch)
+from torch_port_fixture import DEMO, jax_model_and_params, port_model, source_batch
 from ttdg_mgm_tpu import build as jbuild
 from ttdg_mgm_tpu import config as jconfig
 from ttdg_mgm_tpu.models import MaskRCNN as JMaskRCNN
@@ -118,7 +117,7 @@ def bf16_models():
     jm, jp = jax_model_and_params()
     jm16 = JMaskRCNN(**{**DEMO["model_kwargs"], "compute_dtype": "bfloat16"})
     pm32 = port_model(jp)
-    pm16 = MaskRCNN(**{**port_kwargs(DEMO["model_kwargs"]), "compute_dtype": "bfloat16"})
+    pm16 = MaskRCNN(**{**DEMO["model_kwargs"], "compute_dtype": "bfloat16"})
     pm16.load_state_dict(pm32.state_dict())
     return jm16, jp, pm32, pm16
 
@@ -148,7 +147,7 @@ def test_bf16_steps_keep_float32_parameters(bf16_models):
     """A bf16 source step and a bf16 TTA step: every loss finite and
     float32, the TTA loss > 0, every parameter and gradient float32."""
     _, _, _, pm16 = bf16_models
-    model = MaskRCNN(**{**port_kwargs(DEMO["model_kwargs"]), "compute_dtype": "bfloat16"})
+    model = MaskRCNN(**{**DEMO["model_kwargs"], "compute_dtype": "bfloat16"})
     model.load_state_dict(pm16.state_dict())
     opt = build_optimizer(model, lambda _: 1e-3)
     b = {k: torch.from_numpy(v) for k, v in source_batch(seed=3, n=2).items()}

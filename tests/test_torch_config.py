@@ -17,7 +17,6 @@ from ttdg_mgm_tpu import build as jbuild
 from ttdg_mgm_tpu import config as jconfig
 from ttdg_mgm_torch import build as tbuild
 from ttdg_mgm_torch import config as tconfig
-from ttdg_mgm_torch.build import OUT_OF_SLICE
 from ttdg_mgm_torch.models.rcnn import MaskRCNN
 from ttdg_mgm_torch.utils import yaml_lite
 
@@ -109,8 +108,8 @@ def test_get_cfg_defaults_match_jax():
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
 def test_model_fields_match_jax_build_model(path):
     """Every field of the JAX model that ``ttdg_mgm_tpu/build.py`` builds
-    for the config (less ``OUT_OF_SLICE``) equals the port's: from
-    ``model_kwargs`` or the port model's default."""
+    for the config equals the port's: from ``model_kwargs`` or the port
+    model's default."""
     opts = CLI_OPTS["eval_only_tta"] + FLOAT32
     jm = jbuild.build_model(jconfig.setup_cfg(path, opts))
     kw = tbuild.model_kwargs(tconfig.setup_cfg(path, opts))
@@ -121,8 +120,6 @@ def test_model_fields_match_jax_build_model(path):
     fields = [f for f in jm.__dataclass_fields__ if f not in ("parent", "name")]
     assert set(kw) <= set(fields)
     for f in fields:
-        if f in OUT_OF_SLICE:
-            continue
         want = getattr(jm, f)
         got = kw.get(f, defaults[f])
         assert _same(tuple(got) if isinstance(got, list) else got,
@@ -130,16 +127,24 @@ def test_model_fields_match_jax_build_model(path):
 
 
 def test_unported_options_are_refused():
-    """The VGG backbone raises, naming the way out; bf16 compute, the
-    mean-teacher trainer and its cross-domain head are ported and no longer
-    refused (their mapping and dispatch are held in
-    tests/test_torch_bf16.py, tests/test_torch_ateacher.py and
-    tests/test_torch_mt_cross_domain.py)."""
+    """The VGG backbone is ported: ``MODEL.BACKBONE.NAME build_vgg_backbone``
+    maps to ``backbone_name="vgg16"`` as ``ttdg_mgm_tpu/build.py`` maps it,
+    and the R50 name to ``"resnet50"``.  What is still refused is drawing
+    (``TEST.DRAW``, the visualizer), with a message naming the way out.
+    bf16 compute, the mean-teacher trainer and its cross-domain head are
+    ported (their mapping and dispatch are held in tests/test_torch_bf16.py,
+    tests/test_torch_ateacher.py and tests/test_torch_mt_cross_domain.py)."""
+    from ttdg_mgm_torch.engine.trainer import evaluate_dataset
+
     seg = os.path.join(REPO, "configs", "test_segment.yaml")
     assert tbuild.model_kwargs(tconfig.setup_cfg(seg))["compute_dtype"] == "bfloat16"
-    with pytest.raises(NotImplementedError, match="VGG backbone"):
-        tbuild.model_kwargs(tconfig.setup_cfg(seg, FLOAT32 + ["MODEL.BACKBONE.NAME",
-                                                              "build_vgg_backbone"]))
+    for name, want in (("build_vgg_backbone", "vgg16"), ("build_resnet_fpn_backbone",
+                                                         "resnet50")):
+        opts = FLOAT32 + ["MODEL.BACKBONE.NAME", name]
+        got = tbuild.model_kwargs(tconfig.setup_cfg(seg, opts))["backbone_name"]
+        assert got == jbuild.build_model(jconfig.setup_cfg(seg, opts)).backbone_name == want
+    with pytest.raises(NotImplementedError, match="TEST.DRAW"):
+        evaluate_dataset(None, "Drishti_GS_test", draw_dir="out")
     mt = os.path.join(REPO, "configs", "test_segment_MT.yaml")
     cfg = tconfig.setup_cfg(mt, FLOAT32 + ["SEMISUPNET.CROSS_DOMAIN_MATCHING", "True"])
     assert cfg.SEMISUPNET.CROSS_DOMAIN_MATCHING is True

@@ -30,7 +30,7 @@ from ttdg_mgm_torch.evaluation import dice as tdice
 from ttdg_mgm_torch.models.rcnn import MaskRCNN, init_weights
 from ttdg_mgm_torch.ops.mask_paste import paste_masks
 
-from torch_port_fixture import (jax_model_and_params, port_kwargs, shifted_images,  # noqa: E402
+from torch_port_fixture import (jax_model_and_params, shifted_images,  # noqa: E402
                                 to_numpy_tree)
 
 
@@ -189,7 +189,7 @@ def fixture_export(tmp_path_factory):
 def _port_model():
     from demo_config import DEMO
 
-    return MaskRCNN(**port_kwargs(DEMO["model_kwargs"]))
+    return MaskRCNN(**DEMO["model_kwargs"])
 
 
 @pytest.mark.parametrize("which", ["plain", "teacher", "student"])

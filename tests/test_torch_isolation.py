@@ -2,8 +2,9 @@
 ``chip_smoke.py`` import neither JAX nor the JAX package, nor Pillow,
 OpenCV or PyYAML (the chip machine has none of the three; the eval-only CLI
 on PNG images with RLE ground truth and the mean-teacher training CLI with
-its strong augmentation load none of them either), and the
-port's entry points run on CUDA unless the caller asks for the CPU."""
+its strong augmentation load none of them either, nor do the legacy
+dataset loaders on PNG and JPEG trees), and the port's entry points run on
+CUDA unless the caller asks for the CPU."""
 
 import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
 
@@ -56,6 +57,10 @@ def test_fresh_import_loads_no_jax(tmp_path):
     assert {"ttdg_mgm_torch.graph.gcn", "ttdg_mgm_torch.graph.ot",
             "ttdg_mgm_torch.graph.contrastive", "ttdg_mgm_torch.graph.cross_domain",
             "ttdg_mgm_torch.engine.probe"} <= set(mods)
+    assert {"ttdg_mgm_torch.models.vgg", "ttdg_mgm_torch.data.datasets",
+            "ttdg_mgm_torch.data.datasets.cityscapes_foggy",
+            "ttdg_mgm_torch.data.datasets.pascal_voc",
+            "ttdg_mgm_torch.data.datasets.fetus"} <= set(mods)
 
 
 def test_cli_imports_no_pillow_opencv_or_yaml(tmp_path):
@@ -100,6 +105,47 @@ def test_mt_train_cli_imports_no_pillow_opencv_or_yaml(tmp_path):
             "import train_net_torch\n"
             f"res = train_net_torch.main({args!r})\n"
             "assert res['iteration'] == 2, res\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', 'yaml'))\n"
+            "print('FOREIGN', len(bad), bad[:5])\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=tmp_path, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "FOREIGN 0 []" in res.stdout, res.stdout[-2000:]
+
+
+def test_legacy_loaders_import_no_pillow_opencv_or_yaml(tmp_path):
+    """``register_all_legacy`` over foggy-Cityscapes PNG frames and a
+    Clipart1k tree of the committed JPEGs, a train batch and a test batch of
+    each, a VGG model built from ``MODEL.BACKBONE.NAME build_vgg_backbone``
+    and ``FetusDataset`` decoding PNG and JPEG images, in a fresh
+    interpreter: no PIL, cv2 or yaml module in sys.modules."""
+    from test_torch_legacy_data import write_cityscapes, write_fetus, write_voc
+
+    write_cityscapes(str(tmp_path), "train", 2, hw=(128, 256))
+    write_voc(os.path.join(str(tmp_path), "clipart"))
+    write_fetus(str(tmp_path / "fetus"))
+    code = ("import sys\n"
+            f"sys.path.insert(0, {REPO!r})\n"
+            "from ttdg_mgm_torch.build import model_kwargs\n"
+            "from ttdg_mgm_torch.config import setup_cfg\n"
+            "from ttdg_mgm_torch.data.builtin import register_all_legacy\n"
+            "from ttdg_mgm_torch.data.datasets import FetusDataset\n"
+            "from ttdg_mgm_torch.data.loader import build_test_loader, build_train_loader\n"
+            "from ttdg_mgm_torch.models.rcnn import MaskRCNN\n"
+            f"register_all_legacy({str(tmp_path)!r})\n"
+            "b = next(build_train_loader(['cityscapes_foggy_train'], batch_size=2, canvas=128,"
+            " min_size=64, max_size=128, prefetch=0))\n"
+            "assert b['gt_valid'].sum() == 16, b['gt_valid']\n"
+            "t = list(build_test_loader('Clipart1k_test', batch_size=3, min_size=64,"
+            " max_size=96, prefetch=0))\n"
+            "assert t[0][0]['image'].shape[0] == 3\n"
+            f"cfg = setup_cfg({os.path.join(REPO, 'configs', 'test_segment.yaml')!r},"
+            " ['MODEL.BACKBONE.NAME', 'build_vgg_backbone'])\n"
+            "MaskRCNN(**model_kwargs(cfg))\n"
+            f"ds = FetusDataset({str(tmp_path / 'fetus')!r}, ['hospital_A'],"
+            " ['three_vessel_tracheal'])\n"
+            "assert {ds[i]['file_name'][-3:] for i in range(len(ds))} == {'png', 'jpg'}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', 'yaml'))\n"
             "print('FOREIGN', len(bad), bad[:5])\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

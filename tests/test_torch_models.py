@@ -24,7 +24,7 @@ from torch_port_fixture import jax_model_and_params, port_model, to_numpy_tree
 from ttdg_mgm_tpu.build import build_model as j_build_model
 from ttdg_mgm_tpu.config import setup_cfg
 from ttdg_mgm_tpu.models import MaskRCNN as JMaskRCNN
-from ttdg_mgm_torch.build import FLAGSHIP_KWARGS, OUT_OF_SLICE
+from ttdg_mgm_torch.build import FLAGSHIP_KWARGS
 from ttdg_mgm_torch.checkpoint.bridge import flax_params_to_d2, load_d2_state_dict
 from ttdg_mgm_torch.models.rcnn import MaskRCNN
 from ttdg_mgm_torch.synth import synth_batch
@@ -38,13 +38,10 @@ def _norm(v):
 
 def test_flagship_kwargs_equal_the_jax_build():
     """The port's flagship model is what the JAX package builds for
-    configs/test_segment.yaml, field for field, except the fields outside
-    this slice (training, discriminator, bf16 compute policy)."""
+    configs/test_segment.yaml, field for field."""
     jm = j_build_model(setup_cfg(os.path.join(REPO, "configs", "test_segment.yaml")))
     fields = [f for f in jm.__dataclass_fields__ if f not in ("parent", "name")]
     for f in fields:
-        if f in OUT_OF_SLICE:
-            continue
         assert f in FLAGSHIP_KWARGS, f"flagship kwargs lack {f}"
         assert _norm(FLAGSHIP_KWARGS[f]) == _norm(getattr(jm, f)), f
     assert set(FLAGSHIP_KWARGS) <= set(fields)

@@ -6,7 +6,10 @@ checkpoints and ``metrics.json`` and logs a finite validation loss; a second
 call with a larger ``SOLVER.MAX_ITER`` resumes from the latest checkpoint
 and trains on; an ``--eval-only`` call with ``configs/test_segment.yaml``
 reads the final file as ``MODEL.WEIGHTS`` (every tensor loaded) and
-evaluates it with the COCO evaluator (``TEST.EVALUATOR coco``)."""
+evaluates it with the COCO evaluator (``TEST.EVALUATOR coco``).  Each with
+the R50 trunk and with ``MODEL.BACKBONE.NAME build_vgg_backbone``.
+``configs/test_detection.yaml`` names a split neither package registers
+(``fetus_head_c1_test``): both raise ``KeyError``."""
 
 import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
 
@@ -15,6 +18,8 @@ import logging
 import os
 
 import torch
+
+import pytest
 
 import train_net_torch
 from torch_port_fixture import cli_args, write_mini_split
@@ -37,11 +42,16 @@ def _train_args(root, out, max_iter):
         "INPUT.MIN_SIZE_TRAIN", "(56, 64)", "MODEL.RPN.PRE_NMS_TOPK_TRAIN", "64"]
 
 
-def test_train_resume_and_eval_only(tmp_path, caplog):
+BACKBONES = {"resnet": [], "vgg": ["MODEL.BACKBONE.NAME", "build_vgg_backbone"]}
+
+
+@pytest.mark.parametrize("backbone", list(BACKBONES))
+def test_train_resume_and_eval_only(tmp_path, caplog, backbone):
     root = write_mini_split(tmp_path / "data")
     out = tmp_path / "out"
+    trunk = BACKBONES[backbone]
     with caplog.at_level(logging.INFO, logger="ttdg_mgm_torch"):
-        first = train_net_torch.main(_train_args(root, out, 2))
+        first = train_net_torch.main(_train_args(root, out, 2) + trunk)
     ckdir = out / "checkpoints"
     assert sorted(os.listdir(ckdir)) == ["last_checkpoint", "model_0000001.pth",
                                          "model_0000002.pth"]
@@ -54,17 +64,18 @@ def test_train_resume_and_eval_only(tmp_path, caplog):
     assert "resumed" not in caplog.text
     saved = torch.load(ckdir / "model_0000002.pth", weights_only=False)
     assert saved["iteration"] == 2 and saved["optimizer"]["state"]
+    assert ("backbone.bottom_up.features.0.weight" in saved["model"]) == (backbone == "vgg")
 
     caplog.clear()
     with caplog.at_level(logging.INFO, logger="ttdg_mgm_torch"):
-        second = train_net_torch.main(_train_args(root, out, 3))
+        second = train_net_torch.main(_train_args(root, out, 3) + trunk)
     assert "resumed from checkpoint at iteration 2" in caplog.text
     assert second["iteration"] == 3 and (ckdir / "model_0000003.pth").exists()
     lines = [json.loads(x) for x in (out / "metrics.json").read_text().splitlines()]
     assert [x["iteration"] for x in lines] == [1, 2]
 
     caplog.clear()
-    ev = cli_args(root, tmp_path / "eval") + NARROW + [
+    ev = cli_args(root, tmp_path / "eval") + NARROW + trunk + [
         "MODEL.WEIGHTS", second["checkpoint"], "TEST.EVALUATOR", "coco"]
     with caplog.at_level(logging.INFO, logger="ttdg_mgm_torch"):
         results = train_net_torch.main(ev)
@@ -73,3 +84,26 @@ def test_train_resume_and_eval_only(tmp_path, caplog):
     assert {"bbox_AP", "bbox_AP50", "segm_AP"} <= set(r)
     rec = json.loads((tmp_path / "eval" / "result_ap.txt").read_text().splitlines()[-1])
     assert rec["weights"] == second["checkpoint"]
+
+
+def test_detection_config_raises_as_jax(tmp_path):
+    """``configs/test_detection.yaml`` (box-only, 7 classes) evaluates
+    ``fetus_head_c1_test``, which neither package registers (the
+    fetal-ultrasound loader is a library function in both): the port's
+    command line raises ``KeyError`` naming it, as the JAX package's test
+    loader does.  As shipped the file also sets ``TEST.DRAW True``, which
+    the port refuses first, naming the visualizer."""
+    from ttdg_mgm_tpu.data import loader as jloader
+    from ttdg_mgm_tpu.data.builtin import register_all_medical
+
+    args = ["--eval-only", "--device", "cpu", "--config",
+            os.path.join(REPO, "configs", "test_detection.yaml"),
+            "--datasets-root", str(tmp_path), "OUTPUT_DIR", str(tmp_path / "out"),
+            "MODEL.RESNETS.DEPTH", "14", *NARROW]
+    with pytest.raises(NotImplementedError, match="TEST.DRAW"):
+        train_net_torch.main(args)
+    with pytest.raises(KeyError, match="fetus_head_c1_test"):
+        train_net_torch.main(args + ["TEST.DRAW", "False"])
+    register_all_medical(str(tmp_path))
+    with pytest.raises(KeyError, match="fetus_head_c1_test"):
+        jloader.build_test_loader("fetus_head_c1_test")

@@ -39,7 +39,7 @@ import torch
 from PIL import Image
 
 from demo_config import DEMO
-from torch_port_fixture import jax_model_and_params, jax_uniforms, port_kwargs, port_model
+from torch_port_fixture import jax_model_and_params, jax_uniforms, port_model
 from ttdg_mgm_tpu.data import coco as jcoco
 from ttdg_mgm_tpu.data.catalog import DatasetCatalog as JCatalog
 from ttdg_mgm_tpu.engine.trainer import BaselineTrainer as JTrainer
@@ -148,7 +148,7 @@ def _trainer(seed=None):
     if seed is None:
         model = port_model(jax_model_and_params()[1])
     else:
-        model = MaskRCNN(**port_kwargs(DEMO["model_kwargs"]))
+        model = MaskRCNN(**DEMO["model_kwargs"])
         init_weights(model, torch.Generator().manual_seed(seed))
     opt = t_solver.build_optimizer(model, t_solver.warmup_multistep_schedule(**SCHEDULE))
     return BaselineTrainer(model, opt, **GEOM)

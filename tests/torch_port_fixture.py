@@ -22,16 +22,11 @@ import numpy as np
 
 from demo_config import DEMO, load_fixture_weights
 from ttdg_mgm_tpu.models import MaskRCNN as JMaskRCNN
-from ttdg_mgm_torch.build import OUT_OF_SLICE
 from ttdg_mgm_torch.checkpoint.bridge import flax_params_to_d2, load_d2_state_dict
 from ttdg_mgm_torch.models.rcnn import MaskRCNN
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(HERE, "fixtures", "tta_demo_weights.msgpack")
-
-
-def port_kwargs(kwargs: dict) -> dict:
-    return {k: v for k, v in kwargs.items() if k not in OUT_OF_SLICE}
 
 
 @functools.lru_cache(maxsize=1)
@@ -52,7 +47,7 @@ def to_numpy_tree(tree):
 
 def port_model(params) -> MaskRCNN:
     """Port model on the CPU carrying the JAX ``params``."""
-    kw = port_kwargs(DEMO["model_kwargs"])
+    kw = DEMO["model_kwargs"]
     model = MaskRCNN(**kw)
     sd = flax_params_to_d2(to_numpy_tree(params),
                            box_head_channels=kw["fpn_channels"])

@@ -9,8 +9,8 @@ wrote) by name, and :func:`build_trainer` puts them together with the train
 and test geometry: ``SEMISUPNET.Trainer`` ``"baseline"`` builds
 ``engine/trainer.py:BaselineTrainer``, ``"ateacher"`` (the default)
 ``engine/mean_teacher.py:ATeacherTrainer`` (with its cross-domain head
-under ``SEMISUPNET.CROSS_DOMAIN_MATCHING``).  The port refuses, with a
-message naming the way out, what it has not ported: the VGG backbone.
+under ``SEMISUPNET.CROSS_DOMAIN_MATCHING``).  A ``MODEL.BACKBONE.NAME``
+containing ``"vgg"`` builds the VGG-16-BN trunk (``backbone_name="vgg16"``).
 ``SOLVER.AMP.ENABLED`` or
 ``TPU.PRECISION bfloat16`` (the default) selects the bf16 compute policy,
 ``compute_dtype="bfloat16"``, as ``ttdg_mgm_tpu/build.py`` does.
@@ -28,8 +28,6 @@ ROIs, cross-entropy, 50 HiPPI iterations).  Source training
 ``SOURCE_SOLVER`` holds that file's solver settings (``IMS_PER_BATCH`` 8,
 ``BASE_LR`` 0.0025, over ``config.py``'s defaults, which
 ``solver/build.py`` keeps as its own: momentum 0.9, weight decay 1e-4).
-The VGG backbone switch of the JAX model is not ported yet;
-``OUT_OF_SLICE`` names it.
 """
 
 from __future__ import annotations
@@ -52,7 +50,7 @@ FLAGSHIP_KWARGS = dict(
     pixel_mean=(103.53, 116.28, 123.675), pixel_std=(1.0, 1.0, 1.0),
     pre_nms_topk_test=1000, post_nms_topk=1000, detections_per_image=100,
     sk_iters=20, sk_tau=0.05, gagm_iters=200, lap_polish_iters=200,
-    resnet_depth=50, resnet_width=256, freeze_at=2, mask_on=True,
+    backbone_name="resnet50", resnet_depth=50, resnet_width=256, freeze_at=2, mask_on=True,
     score_thresh_test=0.05, nms_thresh_test=0.5, rpn_nms_thresh=0.7,
     pooler_sampling_ratio=0, fpn_channels=256, box_fc_dim=1024, box_num_fc=2,
     mask_conv_dim=256, mask_num_conv=4,
@@ -65,20 +63,12 @@ FLAGSHIP_KWARGS = dict(
 #: the JAX trainer (``engine/trainer.py:196``)
 SOURCE_SOLVER = dict(ims_per_batch=8, base_lr=0.0025, mask_res=256)
 
-#: JAX ``MaskRCNN`` fields outside this package's slice: the VGG backbone
-#: switch
-OUT_OF_SLICE = ("backbone_name",)
-
-
 def model_kwargs(cfg: CfgNode) -> dict:
     """The model's fields from ``cfg``, as ``ttdg_mgm_tpu/build.py:build_model``
-    maps them, less ``OUT_OF_SLICE``: bf16 compute when
-    ``SOLVER.AMP.ENABLED`` or ``TPU.PRECISION == "bfloat16"``.  Raises for
-    the VGG backbone, which the port has not ported."""
-    if "vgg" in cfg.MODEL.BACKBONE.NAME:
-        raise NotImplementedError(
-            f"MODEL.BACKBONE.NAME {cfg.MODEL.BACKBONE.NAME!r}: the VGG backbone is not ported "
-            "to ttdg_mgm_torch yet (ROADMAP.md, Queue 1: the long tail)")
+    maps them: the VGG-16-BN trunk when ``MODEL.BACKBONE.NAME`` contains
+    ``"vgg"`` (``build_vgg_backbone``), else the ResNet of
+    ``MODEL.RESNETS.DEPTH``; bf16 compute when ``SOLVER.AMP.ENABLED`` or
+    ``TPU.PRECISION == "bfloat16"``."""
     g = cfg.MODEL.GRAPH
     return dict(
         num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
@@ -94,6 +84,7 @@ def model_kwargs(cfg: CfgNode) -> dict:
         post_nms_topk=cfg.MODEL.RPN.POST_NMS_TOPK_TEST,
         detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
         batch_size_per_image=cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
+        backbone_name="vgg16" if "vgg" in cfg.MODEL.BACKBONE.NAME else "resnet50",
         resnet_depth=cfg.MODEL.RESNETS.DEPTH,
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
         mask_on=cfg.MODEL.MASK_ON,

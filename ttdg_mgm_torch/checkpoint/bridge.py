@@ -10,6 +10,11 @@ dicts of NumPy arrays:
   ``(O, I)``; transposed-conv kernels are spatially flipped;
 * FrozenBatchNorm ``scale``/``bias`` -> d2's four buffers with mean 0 and
   variance ``1 - eps``;
+* a VGG trunk's ``backbone/trunk/conv{i}`` and ``conv{i}_norm`` go to
+  ``backbone.bottom_up.features.{CONV_IDX[i]}`` and the index after it
+  (torchvision ``vgg16_bn``'s numbering, ``models/vgg.py``); the JAX
+  exporter reads ``stem_conv1`` unconditionally and raises ``KeyError`` on
+  such a tree, so this mapping is the port's own;
 * the box head's ``fc1`` kernel is re-flattened from the JAX NHWC order
   ``(P, P, C)`` to d2's NCHW ``(C, P, P)``;
 * the affinity's split first layer is re-joined into ``fc_M.0``;
@@ -28,6 +33,10 @@ checkpoint (``MODEL.WEIGHTS``) into the port's modules by name, with d2's
 leniency (``build.py:init_params``).  A reference checkpoint has no
 ``cross_domain.*`` names (the reference never wired its ``GModule``): the
 merge reports them missing and they keep their initial values.
+
+:func:`vgg16bn_to_d2` is the counterpart of
+``ttdg_mgm_tpu/checkpoint/converter.py:vgg16bn_to_flax``: torchvision
+``vgg16_bn`` weights (``features.N.*``) as the port's trunk tensors.
 """
 
 from __future__ import annotations
@@ -35,7 +44,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ttdg_mgm_torch.models.vgg import CONV_IDX as VGG_CONV_IDX
+
 BN_EPS = 1e-5
+#: the VGG trunk's prefix in the detector's state dict
+VGG_PREFIX = "backbone.bottom_up.features."
 
 #: state-dict prefixes of the modules this package owns; names outside them
 #: are skipped by :func:`load_d2_state_dict`
@@ -111,7 +124,12 @@ def flax_params_to_d2(params: dict, *, box_head_channels: int = 256) -> dict:
     NumPy state dict."""
     p = dict(params)
     sd: dict = {}
-    if "backbone" in p:
+    if "backbone" in p and "trunk" in p["backbone"]:
+        trunk = p["backbone"]["trunk"]
+        for i, idx in enumerate(VGG_CONV_IDX):
+            _conv_block(trunk[f"conv{i}"], f"{VGG_PREFIX}{idx}", sd)
+            _bn(trunk[f"conv{i}_norm"], f"{VGG_PREFIX}{idx + 1}", sd)
+    elif "backbone" in p:
         bb = p["backbone"]
         bu = "backbone.bottom_up."
         _conv_block(bb["stem_conv1"], bu + "stem.conv1", sd)
@@ -167,6 +185,27 @@ def flax_params_to_d2(params: dict, *, box_head_channels: int = 256) -> dict:
     if "cross_domain" in p:
         _cross_domain_block(p["cross_domain"], sd)
     return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def vgg16bn_to_d2(sd: dict, prefix: str = "features.") -> dict:
+    """torchvision ``vgg16_bn`` weights (``{prefix}{N}.*``: each conv's
+    ``weight`` and ``bias``, its BatchNorm's ``weight``, ``bias``,
+    ``running_mean`` and ``running_var`` at ``N + 1``, as JAX's defaults 0
+    and 1 when absent) -> the detector's VGG trunk tensors
+    (``backbone.bottom_up.features.{N}.*``), float32 NumPy.  The statistics
+    stay d2 ``FrozenBatchNorm2d`` buffers (eps 1e-5, torchvision's), which
+    compute what JAX's folded ``scale`` and ``bias`` compute;
+    ``num_batches_tracked`` is dropped."""
+    out = {}
+    for idx in VGG_CONV_IDX:
+        conv, bn = f"{prefix}{idx}.", f"{prefix}{idx + 1}."
+        w = np.asarray(sd[bn + "weight"], np.float32)
+        tensors = {f"{idx}.weight": sd[conv + "weight"], f"{idx}.bias": sd[conv + "bias"],
+                   f"{idx + 1}.weight": w, f"{idx + 1}.bias": sd[bn + "bias"],
+                   f"{idx + 1}.running_mean": sd.get(bn + "running_mean", np.zeros_like(w)),
+                   f"{idx + 1}.running_var": sd.get(bn + "running_var", np.ones_like(w))}
+        out.update({VGG_PREFIX + k: np.asarray(v, np.float32) for k, v in tensors.items()})
+    return out
 
 
 def load_d2_state_dict(model: torch.nn.Module, sd: dict) -> list:

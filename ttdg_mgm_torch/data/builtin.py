@@ -1,12 +1,14 @@
-"""The built-in medical dataset registry.
+"""The built-in dataset registries.
 
-This package's own copy of ``SPLITS``, ``FAMILIES`` and
-``register_all_medical`` of ``ttdg_mgm_tpu/data/builtin.py``: 9 fundus
+This package's own copy of ``SPLITS``, ``FAMILIES``,
+``register_all_medical``, ``_load_images_only_json`` and
+``register_all_legacy`` of ``ttdg_mgm_tpu/data/builtin.py``: 9 fundus
 splits (Drishti-GS, ORIGA, REFUGE, RIM-ONE-r3 train and test, REFUGE-Valid),
 8 polyp splits (BKAI, CVC-ClinicDB, ETIS-LaribPolypDB, Kvasir-SEG) and
-COVID lung, under a root given as an argument or by ``TTDG_DATASETS``.
-The legacy registrations (COCO unlabeled, foggy Cityscapes, Clipart1k,
-Watercolor) are not ported: they need those datasets' own loaders.
+COVID lung, under a root given as an argument or by ``TTDG_DATASETS``; and
+the legacy domain-adaptation registrations (COCO-2017 unlabeled, foggy
+Cityscapes, Clipart1k, Watercolor), a library entry point that no command
+line calls, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -66,3 +68,64 @@ def register_all_medical(root: str | None = None, force: bool = False):
         register_coco_instances(name, os.path.join(root, json_rel),
                                 os.path.join(root, img_rel), evaluator_type="dice")
     _registered = True
+
+
+def _load_images_only_json(json_file: str, image_root: str) -> list[dict]:
+    """Image records without annotations, sorted by image id (reference
+    ``load_coco_unlabel_json``, ``builtin.py:75-108``)."""
+    import json
+
+    with open(json_file) as f:
+        coco = json.load(f)
+    return [{"file_name": os.path.join(image_root, img["file_name"]),
+             "height": img["height"], "width": img["width"], "image_id": img["id"],
+             "annotations": []}
+            for img in sorted(coco["images"], key=lambda im: im["id"])]
+
+
+def register_all_legacy(root: str | None = None):
+    """The legacy domain-adaptation registrations (reference
+    ``builtin.py:32-183``) under ``root`` (or ``DETECTRON2_DATASETS``, or
+    ``TTDG_DATASETS``, or ``datasets``), each loaded when first read:
+    ``coco_2017_unlabel`` and ``coco_2017_for_voc20`` (image-only records),
+    ``cityscapes_foggy_{train,val,test}`` (``cityscapes_foggy/leftImg8bit``
+    and ``gtFine``, every fog rendering, 8 classes, COCO evaluator) and
+    ``Clipart1k_{train,test}`` and ``Watercolor_{train,test}`` (VOC layout
+    under ``clipart`` and ``watercolor``, 20 classes, VOC evaluator;
+    Watercolor's scores its 6-class subset).  A name already registered
+    raises ``KeyError``."""
+    from ttdg_mgm_torch.data.catalog import MetadataCatalog
+    from ttdg_mgm_torch.data.datasets.cityscapes_foggy import (CITYSCAPES_THING_CLASSES,
+                                                               load_cityscapes_foggy_instances)
+    from ttdg_mgm_torch.data.datasets.pascal_voc import register_pascal_voc
+
+    root = root or os.environ.get("DETECTRON2_DATASETS",
+                                  os.environ.get("TTDG_DATASETS", "datasets"))
+    for name, (image_root, json_file) in {
+        "coco_2017_unlabel": ("coco/unlabeled2017",
+                              "coco/annotations/image_info_unlabeled2017.json"),
+        "coco_2017_for_voc20": (
+            "coco", "coco/annotations/google/instances_unlabeledtrainval20class.json"),
+    }.items():
+        DatasetCatalog.register(
+            name, lambda j=os.path.join(root, json_file), i=os.path.join(root, image_root):
+            _load_images_only_json(j, i))
+        MetadataCatalog.get(name)["evaluator_type"] = "coco"
+
+    for split in ("train", "val", "test"):
+        name = f"cityscapes_foggy_{split}"
+        img_dir = os.path.join(root, f"cityscapes_foggy/leftImg8bit/{split}")
+        gt_dir = os.path.join(root, f"cityscapes_foggy/gtFine/{split}")
+        DatasetCatalog.register(
+            name, lambda i=img_dir, g=gt_dir: load_cityscapes_foggy_instances(i, g))
+        meta = MetadataCatalog.get(name)
+        meta["thing_classes"] = list(CITYSCAPES_THING_CLASSES)
+        meta["evaluator_type"] = "coco"
+
+    for name, dirname, split in (("Clipart1k_train", "clipart", "train"),
+                                 ("Clipart1k_test", "clipart", "test"),
+                                 ("Watercolor_train", "watercolor", "train"),
+                                 ("Watercolor_test", "watercolor", "test")):
+        register_pascal_voc(name, os.path.join(root, dirname), split)
+        if name.startswith("Watercolor"):
+            MetadataCatalog.get(name)["evaluator_type"] = "pascal_voc_water"

@@ -44,8 +44,7 @@ logger = logging.getLogger("ttdg_mgm_torch")
 
 #: the visualizer (``TEST.DRAW``) is a later slice's
 _NO_DRAW = ("drawing detections (TEST.DRAW) needs utils/visualize.py, which is not ported "
-            "to ttdg_mgm_torch yet (ROADMAP.md, Queue 1: the COCO and VOC evaluators, the "
-            "visualizer and bench.py)")
+            "to ttdg_mgm_torch yet (ROADMAP.md, Queue 1: the visualizer)")
 
 
 def postprocess_detections(det: dict, meta: dict, b: int, *, mask_threshold: float = 0.5,

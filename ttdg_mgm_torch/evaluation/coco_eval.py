@@ -6,6 +6,10 @@ small, medium and large area ranges for boxes and masks, with pycocotools'
 matching: per image and class, score-sorted detections each take the
 highest-IoU unmatched GT at each IoU threshold; crowd GT are ignore regions
 whose IoU is over the detection's area; 101-point interpolated precision.
+
+One difference, where the JAX package fails: a class with ground truth and
+no detection at all scores AP 0 at every threshold, as in pycocotools; the
+JAX evaluator raises ``IndexError`` there (an empty precision array).
 """
 
 from __future__ import annotations
@@ -165,6 +169,9 @@ class COCOEvaluator:
             if total_gt == 0:
                 continue
             scores = np.concatenate(scores_all)
+            if not len(scores):
+                aps[:, ci] = 0.0  # ground truth and no detection: no recall
+                continue
             matches = np.concatenate(match_all, axis=1)
             ignores = np.concatenate(ignore_all, axis=1)
             order = np.argsort(-scores, kind="mergesort")

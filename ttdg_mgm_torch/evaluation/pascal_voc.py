@@ -3,24 +3,17 @@
 This package's own copy of ``ttdg_mgm_tpu/evaluation/pascal_voc.py`` (the
 reference's ``PascalVOCDetectionEvaluator`` and ``voc_eval``): per-class AP
 at IoU 0.5, by the area under the precision envelope or the VOC 2007
-11-point metric, difficult GT ignored, optionally over a class subset; with
-its own copies of the class lists of
-``ttdg_mgm_tpu/data/datasets/pascal_voc.py``.
+11-point metric, difficult GT ignored, optionally over a class subset.  The
+class lists are the dataset loader's (``data/datasets/pascal_voc.py``).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ttdg_mgm_torch.data.datasets.pascal_voc import (VOC_CLASS_NAMES,  # noqa: F401
+                                                     WATERCOLOR_CLASS_NAMES)
 from ttdg_mgm_torch.evaluation.coco_eval import bbox_iou_matrix
-
-VOC_CLASS_NAMES = (
-    "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
-    "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person",
-    "pottedplant", "sheep", "sofa", "train", "tvmonitor",
-)
-#: the Watercolor / Comic class subset (the reference's "water" evaluator type)
-WATERCOLOR_CLASS_NAMES = ("bicycle", "bird", "car", "cat", "dog", "person")
 
 
 def voc_ap(recall, precision, use_07_metric: bool = False) -> float:

@@ -1,1 +1,1 @@
-"""Detector modules: ResNet trunk, FPN, RPN, ROI heads and ``MaskRCNN``."""
+"""Detector modules: ResNet and VGG trunks, FPN, RPN, ROI heads and ``MaskRCNN``."""

@@ -17,7 +17,6 @@ from __future__ import annotations
 from torch import nn
 
 from ttdg_mgm_torch.models.layers import Conv2d
-from ttdg_mgm_torch.models.resnet import ResNet
 
 
 def upsample_nearest_2x(x):
@@ -27,7 +26,11 @@ def upsample_nearest_2x(x):
 
 
 class FPN(nn.Module):
-    def __init__(self, bottom_up: ResNet, in_channels, out_channels: int = 256):
+    """The pyramid over ``bottom_up``, a trunk returning ``res2 .. res5`` of
+    widths ``in_channels`` (``models/resnet.py:ResNet`` or
+    ``models/vgg.py:VGG16FPNBackbone``)."""
+
+    def __init__(self, bottom_up: nn.Module, in_channels, out_channels: int = 256):
         super().__init__()
         self.bottom_up = bottom_up
         for i, c in zip(range(2, 6), in_channels):

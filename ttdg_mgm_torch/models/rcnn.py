@@ -1,4 +1,5 @@
-"""Mask R-CNN R50-FPN with the multi-graph-matching losses.
+"""Mask R-CNN with an FPN on a ResNet or VGG-16-BN trunk
+(``backbone_name``), with the multi-graph-matching losses.
 
 Counterpart of ``ttdg_mgm_tpu/models/rcnn.py:MaskRCNN`` for the eval-only
 TTA path, source training and the mean-teacher step with its cross-domain
@@ -24,7 +25,9 @@ compute in bfloat16 (``models/layers.py``), so the features, the pools
 bfloat16; the consumers that need precision upcast their own small outputs
 (RPN logits and deltas, box scores and deltas, mask logits, the
 discriminator's logits) and the graph nodes enter the matching modules
-and the cross-domain head as float32; the GT-mask crop stays float32.
+and the cross-domain head as float32; the GT-mask crop stays float32.  The
+VGG trunk computes in float32 on the bf16-rounded input, as the JAX model's
+does (``models/vgg.py``).
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ from ttdg_mgm_torch.models.roi_heads import (BoxHead, BoxPredictor, MaskHead, co
                                              label_and_sample_proposals, mask_loss,
                                              roi_box_inference)
 from ttdg_mgm_torch.models.rpn import RPNHead, generate_proposals, level_anchors, rpn_losses
+from ttdg_mgm_torch.models.vgg import STAGE_CHANNELS as VGG_STAGE_CHANNELS
+from ttdg_mgm_torch.models.vgg import VGG16FPNBackbone
 from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_train
 
 #: compute dtypes of the JAX ``MaskRCNN.compute_dtype`` field (None: the
@@ -59,8 +64,9 @@ COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 PIXEL_MEAN = (103.530, 116.280, 123.675)
 PIXEL_STD = (1.0, 1.0, 1.0)
 
-#: the discriminator's width by ``dis_type`` (JAX ``rcnn.py:163-166``): the
-#: raw backbone stages' R50 widths; an FPN level takes ``fpn_channels``
+#: the discriminator's hidden width by ``dis_type`` (JAX ``rcnn.py:163-167``):
+#: the raw backbone stages' R50 widths, whatever the trunk (flax infers only
+#: the input width); an FPN level takes ``fpn_channels``
 DIS_CHANNELS = {"res2": 256, "res3": 512, "res4": 1024, "res5": 2048}
 
 
@@ -78,12 +84,17 @@ class ProposalGenerator(nn.Module):
 
 
 class ROIHeads(nn.Module):
+    """The box head and predictor, and the mask head when ``mask_on`` (the
+    JAX model of ``mask_on=False`` never calls its mask head, so it has no
+    such parameters)."""
+
     def __init__(self, channels: int, num_classes: int, box_fc_dim: int, box_num_fc: int,
-                 mask_conv_dim: int, mask_num_conv: int):
+                 mask_conv_dim: int, mask_num_conv: int, mask_on: bool = True):
         super().__init__()
         self.box_head = BoxHead(channels, 7, box_fc_dim, box_num_fc)
         self.box_predictor = BoxPredictor(box_fc_dim, num_classes)
-        self.mask_head = MaskHead(channels, num_classes, mask_conv_dim, mask_num_conv)
+        self.mask_head = (MaskHead(channels, num_classes, mask_conv_dim, mask_num_conv)
+                          if mask_on else None)
 
 
 class MaskRCNN(nn.Module):
@@ -94,7 +105,8 @@ class MaskRCNN(nn.Module):
                  pixel_std: Sequence[float] = PIXEL_STD, pre_nms_topk_train: int = 2000,
                  pre_nms_topk_test: int = 1000, post_nms_topk: int = 1000,
                  detections_per_image: int = 100, batch_size_per_image: int = 512,
-                 mask_fg_cap: int = 128, compute_dtype: str = "float32", sk_iters: int = 20,
+                 mask_fg_cap: int = 128, compute_dtype: str = "float32",
+                 backbone_name: str = "resnet50", sk_iters: int = 20,
                  sk_tau: float = 0.05, hippi_iters: int = 50, gagm_iters: int = 200,
                  lap_polish_iters: int = 200, resnet_depth: int = 50,
                  resnet_width: int = 256, freeze_at: int = 2, mask_on: bool = True,
@@ -108,6 +120,8 @@ class MaskRCNN(nn.Module):
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got "
                              f"{compute_dtype!r}")
+        if backbone_name not in ("resnet50", "vgg16"):
+            raise ValueError(f"backbone_name must be 'resnet50' or 'vgg16', got {backbone_name!r}")
         self.compute_dtype = compute_dtype
         self.num_classes = num_classes
         self.univ_size = univ_size
@@ -130,11 +144,15 @@ class MaskRCNN(nn.Module):
                              persistent=False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32),
                              persistent=False)
-        bottom_up = ResNet(STAGE_BLOCKS[resnet_depth], resnet_width, freeze_at)
-        self.backbone = FPN(bottom_up, [resnet_width * 2 ** i for i in range(4)], fpn_channels)
+        if backbone_name == "vgg16":
+            bottom_up, stage_channels = VGG16FPNBackbone(), VGG_STAGE_CHANNELS
+        else:
+            bottom_up = ResNet(STAGE_BLOCKS[resnet_depth], resnet_width, freeze_at)
+            stage_channels = tuple(resnet_width * 2 ** i for i in range(4))
+        self.backbone = FPN(bottom_up, stage_channels, fpn_channels)
         self.proposal_generator = ProposalGenerator(fpn_channels)
         self.roi_heads = ROIHeads(fpn_channels, num_classes, box_fc_dim, box_num_fc,
-                                  mask_conv_dim, mask_num_conv)
+                                  mask_conv_dim, mask_num_conv, mask_on)
         self.multi_matching_sup = USup(num_classes, univ_size, fpn_channels, sk_tau=sk_tau,
                                        sk_iter=sk_iters, hippi_iters=hippi_iters)
         self.multi_matching_unsup = MGM3Unsup(
@@ -142,8 +160,8 @@ class MaskRCNN(nn.Module):
             mgm_iter=gagm_iters, lap_polish_iters=lap_polish_iters)
         self.graph_generator = PrototypeComputation(num_classes, sample_dist,
                                                     node_cap_per_level)
-        if dis_type.startswith("res"):
-            dis_in = resnet_width * 2 ** (int(dis_type[3:]) - 2)
+        if dis_type in ("res2", "res3", "res4", "res5"):
+            dis_in = stage_channels[int(dis_type[3:]) - 2]
         elif dis_type in ("p2", "p3", "p4", "p5", "p6"):
             dis_in = fpn_channels
         else:
@@ -156,6 +174,9 @@ class MaskRCNN(nn.Module):
         # modules stay float32
         for mod in (self.backbone, self.proposal_generator, self.roi_heads, self.D_img):
             set_compute_dtype(mod, COMPUTE_DTYPES[compute_dtype])
+        if backbone_name == "vgg16":
+            # JAX builds the VGG trunk without a dtype: it computes in float32
+            set_compute_dtype(bottom_up, None)
 
     # -- shared feature path -------------------------------------------------
 
@@ -373,8 +394,8 @@ def _to_nhwc(feats):
 def init_weights(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
     """Random weights drawn from the JAX package's init distributions, from
     ``generator``: lecun-normal kernels (truncated at 2 std) and zero biases
-    (flax defaults), FrozenBN identity with the residual branch's last norm
-    at 0.1, RPN convs normal(0.01) with deltas normal(0.001), box predictor
+    (flax defaults; the VGG trunk's convs too), FrozenBN identity with the
+    ResNet residual branch's last norm at 0.1, RPN convs normal(0.01) with deltas normal(0.001), box predictor
     normal(0.01)/normal(0.001), affinity normal(0.01), ``U`` normal + 1/univ,
     then the discriminator (lecun-normal) and last the cross-domain head, so
     the draws before each are those of a model without it."""

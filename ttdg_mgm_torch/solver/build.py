@@ -94,7 +94,10 @@ def clip_gradients(params, clip_type: str, clip_value: float) -> None:
 
 def trainable_mask(model: torch.nn.Module, *, freeze_at: int = 2) -> dict:
     """``{name: trainable}`` over ``model.named_parameters()``: False for the
-    stem (``freeze_at >= 1``), stages ``res2 .. res{freeze_at}`` and any norm."""
+    stem (``freeze_at >= 1``), stages ``res2 .. res{freeze_at}`` and any norm.
+    As in the JAX package, the freeze goes by those names, which a VGG trunk
+    (``backbone.bottom_up.features.*``) never has: all its convs train
+    whatever ``freeze_at`` says."""
     frozen = [f"backbone.bottom_up.res{i}." for i in range(2, freeze_at + 1)]
     if freeze_at >= 1:
         frozen.append("backbone.bottom_up.stem.")
