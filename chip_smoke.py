@@ -2171,6 +2171,16 @@ def copy_jpeg_split(root: str, split: str) -> None:
     shutil.copy(os.path.join(JPEG_FIXTURES, "annotations.json"), os.path.join(root, json_rel))
 
 
+def write_train_data(data: str) -> None:
+    """Phase 10's synthetic splits of ``configs/seg_res50fpn_source.yaml``'s
+    ``DATASETS.TRAIN`` and ``BKAI_test`` under ``data`` (the same files on
+    every call)."""
+    copy_jpeg_split(data, "BKAI_train")
+    copy_jpeg_split(data, "BKAI_test")
+    for i, (split, n, hw) in enumerate(POLYP_PNG_SPLITS):
+        write_polyp_split(data, split, n, hw, seed=i)
+
+
 def _sync(torch, dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -2608,10 +2618,7 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         data = os.path.join(tmp, "data")
-        copy_jpeg_split(data, "BKAI_train")
-        copy_jpeg_split(data, "BKAI_test")
-        for i, (split, n, hw) in enumerate(POLYP_PNG_SPLITS):
-            write_polyp_split(data, split, n, hw, seed=i)
+        write_train_data(data)
         cfg = os.path.join(HERE, "configs", "seg_res50fpn_source.yaml")
         out = os.path.join(tmp, "out")
 
@@ -2710,6 +2717,7 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
         f"{ratio:.1f}")
     held["pools"].update(held_eval.pop("pools"))
     return dict(summary=summary, launches=calls[1]["launches"], checkpoint_mib=ck_mib,
+                step_losses=[s["losses"] for s in calls[1]["steps"]],
                 loader_host_s=host_s, loader_over_step=ratio, eval_metrics=metrics,
                 eval_main_s=calls[4]["main_s"], eval_launches=calls[4]["launches"],
                 peak_gib=calls[1]["peak_gib"], held={**held, **held_eval})
@@ -3378,10 +3386,15 @@ def vgg_costs(torch, dev, trunk_shape=VGG_TRUNK_SHAPE, test_shapes=VGG_TEST_SHAP
     VGG model with random weights, its classes and mask head, and a batch
     on the test canvas: the peak of ``forward_inference`` and of one
     ``loss_ttt`` forward and backward apart, over what the model holds,
-    beside the card's memory."""
+    beside the card's memory: with box inference as it is (the class-aware
+    NMS on the valid candidates) and as it was (``dense``:
+    ``batched_nms_mask`` over all ``K x classes`` candidates in its place),
+    the detections of the two equal bit for bit."""
     import contextlib
 
+    import ttdg_mgm_torch.models.roi_heads as roi_heads
     from ttdg_mgm_torch.build import build_model
+    from ttdg_mgm_torch.ops.nms import batched_nms_mask
     from ttdg_mgm_torch.models.vgg import VGG16FPNBackbone
 
     def peak_of(fn):
@@ -3407,17 +3420,29 @@ def vgg_costs(torch, dev, trunk_shape=VGG_TRUNK_SHAPE, test_shapes=VGG_TEST_SHAP
         gib = peak_of(fwd_bwd)
         out["trunk"][mode] = dict(ms=event_ms(torch, fwd_bwd, reps), peak_gib=gib)
     del trunk, x
+    compact = roi_heads.compact_batched_nms_mask
     for name, classes, mask_on, n, h, w in test_shapes:
         model = build_model(device=dev, seed=0, backbone_name="vgg16", num_classes=classes,
                             mask_on=mask_on, score_thresh_test=0.0)
         images = torch.rand(n, h, w, 3, device=dev) * 255
         sizes = torch.tensor([[float(h), float(w)]] * n, device=dev)
         held = torch.cuda.memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
-        out["test"][name] = dict(
-            batch=f"{n} x {h} x {w}", model_gib=held,
-            inference_peak_gib=peak_of(lambda: model.forward_inference(images, sizes)),
-            tta_peak_gib=peak_of(lambda: model.loss_ttt(images, sizes).backward()))
-        del model, images
+        row, dets = dict(batch=f"{n} x {h} x {w}", model_gib=held), {}
+        for mode, fn in (("dense_", batched_nms_mask), ("", compact)):
+            roi_heads.compact_batched_nms_mask = fn
+            try:
+                row[mode + "inference_peak_gib"] = peak_of(
+                    lambda: dets.__setitem__(mode, model.forward_inference(images, sizes)))
+                row[mode + "tta_peak_gib"] = peak_of(
+                    lambda: model.loss_ttt(images, sizes).backward())
+            finally:
+                roi_heads.compact_batched_nms_mask = compact
+            model.zero_grad(set_to_none=True)
+        differs = [k for k in dets[""] if not torch.equal(dets[""][k], dets["dense_"][k])]
+        check(not differs, f"vgg costs {name}: the detections differ from the dense NMS's in "
+              f"{differs}")
+        out["test"][name] = row
+        del model, images, dets
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     t = out["trunk"]
@@ -3538,6 +3563,383 @@ def phase_vgg(torch, dev, card: str = "", mt_data: str | None = None, opts=(), e
                              held=clip["held"]))
 
 
+# -- phase 14: data parallelism ----------------------------------------------------
+
+#: the kernels each data-parallel step kind must launch on every rank
+DP_COUNTERS = {"source": ("roi_pool_bf16", "roi_pool_backward_bf16", "sinkhorn"),
+               "tta": ("roi_pool_bf16", "gagm"),
+               "mt_cd": ("roi_pool_bf16", "roi_pool_backward_bf16", "sinkhorn")}
+#: each kind's pool calls held on rank 0's first step (:func:`hold_call_kernels`)
+DP_POOLS = {"source": dict(step_pools=SOURCE_POOLS), "tta": dict(test_pools=("tta box",)),
+            "mt_cd": dict(step_pools=MT_POOLS)}
+DP_TIMEOUT_S = 900
+DP_SEED = 0
+
+
+def capture_step_kernels():
+    """Wraps the pools (as ``models/rcnn.py`` calls them), kernel C's, HiPPI's
+    and the GA-GM solver's entry points to keep copies of what one step
+    gives each kernel, in the layout :func:`hold_call_kernels` reads:
+    ``kernel_inputs`` (every pool call with its kind, C's, HiPPI's and D's
+    inputs), ``test_pools`` (the first forward-only box pool, as ``"tta
+    box"``) and ``gagm_inputs``.  Returns the record and the function that
+    undoes it."""
+    import ttdg_mgm_torch.models.rcnn as rcnn
+
+    pools, test_pools = [], {}
+    reals = (rcnn.multilevel_roi_pool, rcnn.multilevel_roi_pool_train)
+
+    def pool(kind, real):
+        def call(levels, boxes, **k):
+            copy = ([x.detach().clone() for x in levels], boxes.detach().clone(), k)
+            pools.append((kind, *copy))
+            if kind == "forward" and k.get("output_size", 7) == 7:
+                test_pools.setdefault("tta box", copy)
+            return real(levels, boxes, **k)
+        return call
+
+    rcnn.multilevel_roi_pool = pool("forward", reals[0])
+    rcnn.multilevel_roi_pool_train = pool("training", reals[1])
+    bwd, undo_bwd = capture_pool_backward()
+    hippi, undo_hippi = capture_hippi()
+    gagm, undo_gagm = capture_gagm()
+
+    def undo():
+        undo_gagm()
+        undo_hippi()
+        undo_bwd()
+        rcnn.multilevel_roi_pool, rcnn.multilevel_roi_pool_train = reals
+
+    return dict(kernel_inputs=dict(pools=pools, backward=bwd, hippi=hippi),
+                test_pools=test_pools, gagm_inputs=gagm), undo
+
+
+def dp_kind(torch, dev, kind: str, size: int, **model_kw):
+    """One data-parallel step kind at full width (bf16): a fresh flagship
+    model (seed 0) with its optimizer and step, the global batch on the
+    host, and for the MT kind the teacher and centers.  ``source``: 8
+    labelled disc images (the source solver's lr under bench.py's warm-up
+    and clip 1.0); ``tta``: 4 images, lr ``TTA_LR``; ``mt_cd``: 4 labelled
+    + 4 unlabelled images with their strong views, the cross-domain head,
+    pseudo-threshold 0.3 (random weights score near 1/3).  ``run(batch,
+    generator)`` takes a step and returns its metrics and new centers;
+    ``reset()`` puts the centers back to zero."""
+    import copy
+
+    from ttdg_mgm_torch.build import SOURCE_SOLVER, build_model
+    from ttdg_mgm_torch.engine.steps import make_mt_step, make_source_step, make_tta_step
+    from ttdg_mgm_torch.solver.build import build_optimizer, warmup_multistep_schedule
+    from ttdg_mgm_torch.synth import synth_batch
+
+    model = build_model(device=dev, seed=0, **model_kw)
+    mask_res = SOURCE_SOLVER["mask_res"]
+    if kind == "source":
+        opt = build_optimizer(model, warmup_multistep_schedule(SOURCE_SOLVER["base_lr"],
+                                                               **WARM_SCHEDULE), clip=WARM_CLIP)
+        step = make_source_step(model, opt)
+        batch = synth_batch(size, 8, seed=0, with_gt=True, mask_res=mask_res)
+        return dict(model=model, opt=opt, batch=batch, reset=lambda: None,
+                    run=lambda b, gen: (step(b, gen), None))
+    if kind == "tta":
+        opt = build_optimizer(model, lambda _: TTA_LR)
+        step = make_tta_step(model, opt)
+        batch = synth_batch(size, 4, seed=0)
+        return dict(model=model, opt=opt, batch=batch, reset=lambda: None,
+                    run=lambda b, gen: ({"loss": step(b)}, None))
+    opt = build_optimizer(model, lambda _: SOURCE_SOLVER["base_lr"])
+    step = make_mt_step(model, opt, pseudo_threshold=0.3, with_cross_domain=True)
+    lab, unl = (synth_batch(size, 4, seed=s, with_gt=True, mask_res=mask_res) for s in (1, 2))
+    batch = {"label_strong": lab["image"] * 0.9 + 10, "label_weak": lab["image"],
+             "label_sizes": lab["image_sizes"], "gt_boxes": lab["gt_boxes"],
+             "gt_classes": lab["gt_classes"], "gt_masks": lab["gt_masks"],
+             "gt_valid": lab["gt_valid"],
+             "unlabel_strong": (unl["image"] * 1.1 - 5).clip(0, 255).astype(unl["image"].dtype),
+             "unlabel_weak": unl["image"], "unlabel_sizes": unl["image_sizes"]}
+    teacher = copy.deepcopy(model)
+    state = {}
+
+    def reset():
+        state["centers"] = torch.zeros((model.num_classes + 1, model.cross_domain.dim),
+                                       device=dev)
+
+    def run(b, gen):
+        metrics, state["centers"] = step(teacher, state["centers"], b, gen)
+        return metrics, state["centers"]
+
+    reset()
+    return dict(model=model, opt=opt, batch=batch, run=run, reset=reset)
+
+
+def _flat_params(torch, model):
+    return torch.cat([v.detach().reshape(-1).float().cpu() for v in model.state_dict().values()
+                      if v.is_floating_point()])
+
+
+def dp_rank(out_dir: str, size: int, hold: bool, dev_type: str = "cuda",
+            model_kw=None) -> None:
+    """One rank of phase 14(b), in a process of its own (gloo, the card
+    shared with the other rank): for each of :data:`DP_POOLS`' kinds, a
+    fresh model takes two steps on this rank's shard of the global batch
+    (``mesh.shard_batch``) with the rank's generator (seed ``DP_SEED +
+    rank * 2**32``, ``engine/trainer.py:rank_seed``), the kernel counters
+    set to 0 before and read after; the ranks' weights after each step are
+    gathered and compared bit for bit; after the first step rank 0
+    recomputes it as one process without the group (each shard's gradients
+    and losses from the same weights, averaged ``(a + b) / 2``, one
+    optimizer step) and compares bit for bit, then, with ``hold``, holds
+    each kernel against its plain version on what the step gave it.
+    Saves what it measured to ``out_dir/rank{r}.pt``.  ``dev_type`` "cpu"
+    and a small ``model_kw`` rehearse it on the CPU (without ``hold``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from ttdg_mgm_torch import configure_torch
+
+    configure_torch()
+    from ttdg_mgm_torch.ops import _cuda
+    from ttdg_mgm_torch.parallel import mesh
+
+    model_kw = model_kw or {}
+    cuda = dev_type == "cuda"
+    if cuda:
+        _cuda.lib()
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device("cpu")
+    r, w = mesh.rank(), mesh.world_size()
+    real_reduce, reduce_s = mesh.all_reduce_mean, []
+
+    def timed_reduce(ts):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = real_reduce(ts)
+        _sync(torch, dev)
+        reduce_s.append(time.perf_counter() - t0)
+        return out
+
+    def gathered_equal(model):
+        flat = _flat_params(torch, model)
+        got = [torch.empty_like(flat) for _ in range(w)]
+        dist.all_gather(got, flat)
+        return all(torch.equal(got[0], g) for g in got[1:])
+
+    out = {"rank": r, "world": w, "backend": dist.get_backend(), "kinds": {}, "held": {}}
+    mesh.all_reduce_mean = timed_reduce
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        for kind in DP_POOLS:
+            k = dp_kind(torch, dev, kind, size, **model_kw)
+            shard = {n: torch.from_numpy(v.copy()).to(dev)
+                     for n, v in mesh.shard_batch(k["batch"]).items()}
+            gen = torch.Generator(device=dev).manual_seed(DP_SEED + (r << 32))
+            start = _flat_params(torch, k["model"])
+            rec = {"ms": [], "reduce_s": [], "equal_ranks": [], "launches": []}
+            for i in range(2):
+                if i == 0 and hold and r == 0:
+                    taken, undo = capture_step_kernels()
+                reduce_s.clear()
+                reset_counters()
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                try:
+                    metrics, centers = k["run"](shard, gen)
+                    _sync(torch, dev)
+                finally:
+                    if i == 0 and hold and r == 0:
+                        undo()
+                rec["ms"].append((time.perf_counter() - t0) * 1e3)
+                rec["launches"].append({n: v for n, v in read_counters().items() if v})
+                rec["reduce_s"].append(sum(reduce_s))
+                rec["equal_ranks"].append(gathered_equal(k["model"]))
+                if i == 0:
+                    rec["losses"] = {n: float(v) for n, v in metrics.items()}
+                    rec["moved"] = not torch.equal(start, _flat_params(torch, k["model"]))
+                    if r == 0:
+                        rec["shard_average"] = dp_shard_average(
+                            torch, dev, kind, size, k, metrics, centers, w, model_kw)
+                        if hold:
+                            out["held"][kind] = hold_call_kernels(
+                                torch, dev, taken, f"dp {kind} rank 0", **DP_POOLS[kind])
+                            del taken
+                    dist.barrier()
+            out["kinds"][kind] = rec
+            del k, shard
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        mesh.all_reduce_mean = real_reduce
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    torch.save(out, os.path.join(out_dir, f"rank{r}.pt"))
+
+
+def dp_shard_average(torch, dev, kind: str, size: int, k: dict, metrics, centers,
+                     w: int, model_kw) -> dict:
+    """Rank 0's single-process recomputation of the first step of ``kind``:
+    a fresh model of the same seed; each shard's gradients and losses (the
+    shard's own generator), with the process group out of the step's
+    sight; the average ``(a + b) / 2`` in rank order and one optimizer
+    step.  Returns what differs from the data-parallel step (``k``, its
+    ``metrics`` and ``centers``): nothing, when it holds bit for bit."""
+    from ttdg_mgm_torch.parallel import mesh
+
+    ref = dp_kind(torch, dev, kind, size, **model_kw)
+    opt = ref["opt"]
+    grads, losses, new_centers = [], [], []
+    n = next(iter(ref["batch"].values())).shape[0] // w
+    real_active = mesh.active
+    opt.step = lambda: grads.append([torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                                     for p in opt.params])
+    mesh.active = lambda: False
+    try:
+        for s in range(w):
+            shard = {name: torch.from_numpy(v[s * n:(s + 1) * n].copy()).to(dev)
+                     for name, v in ref["batch"].items()}
+            gen = torch.Generator(device=dev).manual_seed(DP_SEED + (s << 32))
+            ref["reset"]()  # each shard's step starts from the centers both ranks had
+            m, c = ref["run"](shard, gen)
+            losses.append(m)
+            new_centers.append(c)
+    finally:
+        mesh.active = real_active
+        del opt.step
+    for i, p in enumerate(opt.params):
+        p.grad = (grads[0][i] + grads[1][i]) / w
+    opt.step()
+    diff = [f"loss {name}" for name in losses[0]
+            if not torch.equal((losses[0][name] + losses[1][name]) / w, metrics[name])]
+    want, got = ref["model"].state_dict(), k["model"].state_dict()
+    diff += [name for name in want if not torch.equal(want[name], got[name])]
+    if centers is not None and not torch.equal((new_centers[0] + new_centers[1]) / w, centers):
+        diff.append("centers")
+    del ref
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"differs": diff[:8], "n_differs": len(diff)}
+
+
+def phase_dp(torch, dev, card: str = "", phase10_losses=None, opts=(), size: int = 800,
+             hold: bool = True, counters=TRAIN_COUNTERS, dp_counters=DP_COUNTERS,
+             model_kw=None) -> dict:
+    """Data parallelism (``ttdg_mgm_torch/parallel/``) on the one card:
+
+    (a) NCCL at world size 1: ``train_net_torch.main`` with phase 10's
+    command (``configs/seg_res50fpn_source.yaml`` as shipped, its splits
+    written again, the same files) and ``--dist-url tcp://127.0.0.1:<free
+    port> --num-machines 1``, 2 steps: a process group exists, so the
+    reduction runs (its calls, backend and world checked, timed); the
+    logged losses of both steps must equal phase 10's first two
+    (``phase10_losses``) bit for bit, a sum over one rank divided by 1
+    being exact; the process group is gone after the call;
+
+    (b) two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), spawned by ``multihost.launch`` (:func:`dp_rank`): a source
+    step of 8 images (4 per rank), a TTA step of 4 (2 per rank, so kernel
+    B solves G = 2 graphs) and an MT step of 4 + 4 with the cross-domain
+    head, bf16 at full width, two of each; the ranks' weights after every
+    step equal bit for bit, equal after the first to one process averaging
+    both shards' gradients bit for bit (rank 0), every kernel of the kind
+    launched on every step of every rank, and each held against its plain
+    version on rank 0's own first-step inputs (``hold``).
+
+    Logs the step times per kind, the reduction's seconds per step and the
+    peak memory of each rank; ``opts`` follow (a)'s command line.  On the
+    CPU (a rehearsal: small ``opts`` and ``model_kw``, ``hold`` False,
+    empty ``counters`` and ``dp_counters``) (a) runs gloo and (b) CPU
+    ranks."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ttdg_mgm_torch.parallel import mesh, multihost
+
+    real_reduce, calls = mesh.all_reduce_mean, []
+
+    def timed_reduce(ts):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        res = real_reduce(ts)
+        _sync(torch, dev)
+        calls.append(dict(s=time.perf_counter() - t0, backend=dist.get_backend(),
+                          world=mesh.world_size(), tensors=len(ts)))
+        return res
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_train_data(data)
+        argv = ["--dist-url", f"tcp://127.0.0.1:{multihost.free_port()}", "--num-machines", "1",
+                "--device", str(dev), "--config",
+                os.path.join(HERE, "configs", "seg_res50fpn_source.yaml"), "--datasets-root",
+                data, "MODEL.WEIGHTS", "", "OUTPUT_DIR", os.path.join(tmp, "out"),
+                "SOLVER.MAX_ITER", "2", "SOLVER.CHECKPOINT_PERIOD", "2", "TEST.EVAL_PERIOD", "0",
+                *opts]
+        log(f"dp nccl: train_net_torch.main({' '.join(argv[:4])} ...) with phase 10's command")
+        mesh.all_reduce_mean = timed_reduce
+        try:
+            nccl = _train_call(torch, dev, argv, "dp nccl")
+        finally:
+            mesh.all_reduce_mean = real_reduce
+        _log_train_call(nccl, "dp nccl", card)
+        _check_train(nccl, "dp nccl", ("source",) * 2, os.path.join(tmp, "out", "checkpoints"),
+                     (2,), counters)
+    check(not mesh.active(), "dp nccl: the process group outlived the call")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    check([(c["backend"], c["world"]) for c in calls] == [(backend, 1)] * 2,
+          f"dp nccl: reductions {calls}, expected one per step over NCCL at world size 1")
+    got = [s["losses"] for s in nccl["steps"]]
+    if phase10_losses is not None:
+        check(got == phase10_losses[:2], f"dp nccl: losses {got} differ from phase 10's first "
+              f"two {phase10_losses[:2]}")
+    log(f"dp nccl ({card}): losses equal phase 10's first two bit for bit: "
+        f"{phase10_losses is not None}; all-reduce s per step {[round(c['s'], 4) for c in calls]} "
+        f"over {calls[0]['tensors']} tensors")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        multihost.launch(dp_rank, 2, dist_url=f"file://{os.path.join(tmp, 'store')}",
+                         device=dev.type, backend="gloo",
+                         args=(tmp, size, hold, dev.type, model_kw), timeout_s=DP_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    check([(x["backend"], x["world"], x["rank"]) for x in ranks]
+          == [("gloo", 2, 0), ("gloo", 2, 1)], "dp gloo: the ranks' world")
+    kinds = {}
+    for kind in DP_POOLS:
+        recs = [x["kinds"][kind] for x in ranks]
+        for r, rec in enumerate(recs):
+            check(all(rec["equal_ranks"]), f"dp gloo {kind}: the ranks' weights differ after "
+                  f"steps {rec['equal_ranks']}")
+            check(rec["moved"], f"dp gloo {kind} rank {r}: the step left the weights as they were")
+            bad = {n: v for n, v in rec["losses"].items() if not math.isfinite(v)}
+            check(not bad, f"dp gloo {kind} rank {r}: non-finite losses {bad}")
+            for i, launches in enumerate(rec["launches"]):
+                missing = [n for n in dp_counters.get(kind, ()) if launches.get(n, 0) < 1]
+                check(not missing, f"dp gloo {kind} rank {r} step {i}: kernels {missing} not "
+                      f"launched ({launches})")
+        check(recs[0]["losses"] == recs[1]["losses"], f"dp gloo {kind}: the ranks' averaged "
+              f"losses differ: {recs[0]['losses']} {recs[1]['losses']}")
+        avg = recs[0]["shard_average"]
+        check(avg["n_differs"] == 0, f"dp gloo {kind}: {avg['n_differs']} tensors differ from "
+              f"the single-process shard average, first {avg['differs']}")
+        kinds[kind] = dict(step_ms=[rec["ms"] for rec in recs],
+                           median_ms=statistics.median(recs[0]["ms"] + recs[1]["ms"]),
+                           reduce_s=[rec["reduce_s"] for rec in recs],
+                           losses=recs[0]["losses"], launches=recs[0]["launches"])
+    launches = {n: sum(st.get(n, 0) for rec in ranks[0]["kinds"].values()
+                       for st in rec["launches"]) for n in read_counters()}
+    peaks = [x["peak_gib"] for x in ranks]
+    times = {k: {n: v[n] for n in ("step_ms", "median_ms", "reduce_s")} for k, v in kinds.items()}
+    log(f"dp gloo ({card}): 2 ranks on one card, spawned and joined in {spawn_s:.1f} s; per "
+        f"kind the step ms by rank, their median, the reduction's s per step by rank "
+        f"{json.dumps(times)}; peak memory by rank {[round(p, 2) for p in peaks]} GiB; rank 0's "
+        f"launches {launches}")
+    return dict(nccl=dict(losses=got, reduce_s=[c["s"] for c in calls], main_s=nccl["main_s"],
+                          step_ms=[s["ms"] for s in nccl["steps"]], peak_gib=nccl["peak_gib"],
+                          launches=nccl["launches"]),
+                gloo=dict(kinds=kinds, spawn_s=spawn_s, peak_gib=peaks, launches=launches),
+                launches=launches, held=ranks[0]["held"])
+
+
 # -- main ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -3572,33 +3974,53 @@ def main() -> int:
     argv = sys.argv[1:]
     profile = "--profile" in argv
     dump_dir = argv[argv.index("--dump-dir") + 1] if "--dump-dir" in argv else None
+    t_run = time.perf_counter()
+
+    def done(phase):
+        log(f"phase {phase} done at {time.perf_counter() - t_run:.1f} s")
+
     roi = phase_roi_pool(torch, dev, profile=profile)
     roi16 = phase_roi_pool(torch, dev, dtype="bfloat16")
+    done(2)
     gagm = phase_gagm(torch, dev)
+    done(3)
     e2e = phase_e2e(torch, dev, profile=profile)
     gagm_main = phase_gagm_main(torch, dev, e2e.pop("gagm_inputs"), dump_dir=dump_dir)
     e2e16 = phase_e2e(torch, dev, profile=profile, prec="bfloat16")
     del e2e16["gagm_inputs"]
     phase_small_reference(torch, dev)
+    done(4)
     roi_bwd, roi_train = phase_roi_backward(torch, dev)
     roi_bwd16, roi_train16 = phase_roi_backward(torch, dev, dtype="bfloat16")
+    done(5)
     src = phase_source(torch, dev, profile=profile)
     bwd_main = phase_roi_backward_main(torch, dev, src.pop("pools"), dump_dir=dump_dir)
+    done(6)
     sk = phase_sinkhorn(torch, dev, src.pop("hippi"), dump_dir=dump_dir)
+    done(7)
     src16 = phase_source(torch, dev, profile=profile, prec="bfloat16")
     del src16["hippi"]
     bwd_main16 = phase_roi_backward_main(torch, dev, src16.pop("pools"))
+    done("6 (bf16)")
     det = phase_determinism(torch, dev)
+    done(9)
     cli = phase_cli(torch, dev, card)
     cli16 = phase_cli_bf16(torch, dev, card)
+    done(8)
     train = phase_train_cli(torch, dev, card)
+    done(10)
     import tempfile
 
     with tempfile.TemporaryDirectory() as mt_data:
         write_mt_splits(mt_data)
         mtc = phase_mt_cli(torch, dev, card, data=mt_data)
+        done(11)
         mtcd = phase_mt_cd_cli(torch, dev, card, data=mt_data)
+        done(12)
         vgg = phase_vgg(torch, dev, card, mt_data=mt_data)
+        done(13)
+    dp = phase_dp(torch, dev, card, phase10_losses=train["step_losses"])
+    done(14)
     if "--warm" in argv:
         phase_warm(torch, dev)
 
@@ -3607,7 +4029,7 @@ def main() -> int:
              "cli_bf16": cli16, "train_cli": train, "mt_cli": mtc, "mt_cd_cli": mtcd,
              "vgg_train_cli": vgg["source"], "vgg_eval_cli": {"launches": vgg["source"][
                  "eval_launches"]}, "vgg_mt_cli": vgg["mt"], "vgg_cityscapes": vgg["cityscapes"],
-             "vgg_clipart": vgg["clipart"]}
+             "vgg_clipart": vgg["clipart"], "dp_nccl": dp["nccl"], "dp_gloo": dp["gloo"]}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items()} for k in e2e["launches"]}
     pick = ("ms", "kernel_only_ms", "args_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "shape")
@@ -3616,7 +4038,8 @@ def main() -> int:
     held = {"train_cli": train.pop("held"), "mt_cli": mtc.pop("held"),
             "mt_cd_cli": mtcd.pop("held"), "vgg_train_cli": vgg["source"].pop("held"),
             "vgg_mt_cli": vgg["mt"].pop("held"), "vgg_cityscapes": vgg["cityscapes"].pop("held"),
-            "vgg_clipart": vgg["clipart"].pop("held")}
+            "vgg_clipart": vgg["clipart"].pop("held"),
+            **{f"dp_gloo_{kind}": h for kind, h in dp.pop("held").items()}}
 
     def held_by_path(part):
         return {p: h[part] for p, h in held.items() if part in h}
@@ -3703,6 +4126,8 @@ def main() -> int:
     log(f"mt cli summary ({card}): {json.dumps(mtc)}")
     log(f"mt cd cli summary ({card}): {json.dumps(mtcd)}")
     log(f"vgg summary ({card}): {json.dumps(vgg)}")
+    log(f"dp summary ({card}): {json.dumps(dp)}")
+    log(f"chip_smoke ran in {time.perf_counter() - t_run:.1f} s after the kernel build")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

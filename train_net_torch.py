@@ -49,8 +49,20 @@ algorithms (``ttdg_mgm_torch.configure_torch``, set before the first CUDA
 call), so two runs of one command give the same bits.  ``TPU.PRECISION``
 defaults to ``"bfloat16"`` as in the JAX package: the bf16 compute policy
 (``TPU.PRECISION float32`` computes in float32).  Images are read as PNG or
-baseline JPEG by the port's own decoders.  Multi-machine runs are not
-ported yet and raise.
+baseline JPEG by the port's own decoders.
+
+Data parallel (``ttdg_mgm_torch/parallel/``): ``TPU.MESH_SHAPE`` (``[-1]``,
+every visible GPU, by default) sets the processes per machine.  On a
+machine with more than one GPU the command starts one process per GPU
+(``torch.multiprocessing.spawn``, detectron2's ``launch``); they join an
+NCCL process group at ``--dist-url`` (a free local port when it is not
+given), and each trains or adapts on its shard of every batch with the
+gradients averaged.  Several machines run the same command with
+``--num-machines``, their own ``--machine-rank`` and one ``--dist-url``
+(``tcp://host:port`` of machine 0).  On one GPU a ``--dist-url`` makes a
+process group of one rank.  ``--device cpu`` with ``--dist-url`` runs gloo
+ranks on the CPU (``TPU.MESH_SHAPE [n]`` of them per machine).  Only the
+main process writes checkpoints, ``metrics.json`` and ``result_ap.txt``.
 """
 
 from __future__ import annotations
@@ -72,7 +84,9 @@ def parse_args(argv=None):
                    help="root of the Fundus/Polyp dataset tree (or TTDG_DATASETS)")
     p.add_argument("--num-machines", type=int, default=1)
     p.add_argument("--machine-rank", type=int, default=0)
-    p.add_argument("--dist-url", default=None)
+    p.add_argument("--dist-url", default=None,
+                   help="rendezvous of the process group: tcp://host:port of machine 0 (or "
+                        "file://<path>)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default cuda; cpu runs the plain versions "
                         "of the kernels)")
@@ -83,17 +97,55 @@ def parse_args(argv=None):
 def main(argv=None) -> dict:
     """Run the command line ``argv`` (``sys.argv[1:]`` when None); returns
     the results of an eval-only run, or of training ``{"iteration",
-    "checkpoint", "validation_loss"}``."""
+    "checkpoint", "validation_loss"}`` (the main process's, when it starts
+    one process per device)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
-    if args.num_machines > 1 or args.dist_url:
-        raise NotImplementedError("multi-machine runs are not ported to ttdg_mgm_torch yet "
-                                  "(ROADMAP.md, Queue 1: data parallelism)")
 
+    from ttdg_mgm_torch.build import local_data_ranks
+    from ttdg_mgm_torch.config import setup_cfg
+    from ttdg_mgm_torch.parallel import multihost
+
+    local = local_data_ranks(setup_cfg(args.config_file, args.opts), args.device)
+    if args.num_machines > 1 and not args.dist_url:
+        raise ValueError("--num-machines above 1 needs --dist-url (machine 0's tcp://host:port)")
+    if local == 1 and args.num_machines == 1 and not args.dist_url:
+        return run(args)
+    dist_url = args.dist_url or f"tcp://127.0.0.1:{multihost.free_port()}"
+    if local == 1:
+        multihost.initialize_multihost(dist_url, args.num_machines, args.machine_rank,
+                                       device=args.device)
+        try:
+            return run(args)
+        finally:
+            multihost.shutdown()
+    import torch.multiprocessing as mp
+
+    results = mp.get_context("spawn").SimpleQueue()
+    multihost.launch(_rank_run, local, dist_url=dist_url, num_machines=args.num_machines,
+                     machine_rank=args.machine_rank, device=args.device, args=(args, results))
+    return results.get()
+
+
+def _rank_run(args, results) -> None:
+    """One spawned rank of :func:`main`; the main process hands back its
+    result."""
+    from ttdg_mgm_torch.parallel.mesh import is_main_process
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    out = run(args)
+    if is_main_process():
+        results.put(out)
+
+
+def run(args) -> dict:
+    """The command of ``args`` in this process (a rank of the process group
+    when one exists)."""
     from ttdg_mgm_torch import configure_torch
     from ttdg_mgm_torch.build import build_trainer
     from ttdg_mgm_torch.config import setup_cfg
     from ttdg_mgm_torch.data.builtin import register_all_medical
+    from ttdg_mgm_torch.parallel.mesh import is_main_process
 
     configure_torch()
     cfg = setup_cfg(args.config_file, args.opts)
@@ -114,9 +166,10 @@ def main(argv=None) -> dict:
                         ("coco", "dice", "pascal_voc", "pascal_voc_water") else None),
         draw_dir=cfg.OUTPUT_DIR if cfg.TEST.DRAW else None,
     )
-    with open(os.path.join(cfg.OUTPUT_DIR, "result_ap.txt"), "a") as f:
-        f.write(json.dumps({"weights": cfg.MODEL.WEIGHTS, "results": results}) + "\n")
-    print(json.dumps(results, indent=2))
+    if is_main_process():
+        with open(os.path.join(cfg.OUTPUT_DIR, "result_ap.txt"), "a") as f:
+            f.write(json.dumps({"weights": cfg.MODEL.WEIGHTS, "results": results}) + "\n")
+        print(json.dumps(results, indent=2))
     return results
 
 

@@ -14,6 +14,8 @@ containing ``"vgg"`` builds the VGG-16-BN trunk (``backbone_name="vgg16"``).
 ``SOLVER.AMP.ENABLED`` or
 ``TPU.PRECISION bfloat16`` (the default) selects the bf16 compute policy,
 ``compute_dtype="bfloat16"``, as ``ttdg_mgm_tpu/build.py`` does.
+:func:`build_mesh` reads ``TPU.MESH_SHAPE`` for the data-parallel world
+(``parallel/``) and gives each rank its device.
 
 ``FLAGSHIP_KWARGS`` is the R50-FPN Mask R-CNN that the JAX package builds
 for ``configs/test_segment.yaml``: full widths, 1000 proposals, 100
@@ -155,6 +157,39 @@ def init_params(cfg: CfgNode, model: MaskRCNN, seed: int = 0) -> MaskRCNN:
     return model
 
 
+def local_data_ranks(cfg: CfgNode, device=None) -> int:
+    """The data-parallel processes of this machine from ``TPU.MESH_SHAPE``,
+    as ``ttdg_mgm_tpu/build.py:build_mesh`` reads it: ``[-1]`` is every
+    visible GPU (one process each), ``[n]`` is ``n`` of them; a device that
+    names its GPU (``cuda:N``) is one process on it, and ``[n]`` above 1
+    then raises.  On the CPU ``[-1]`` is one process and ``[n]`` is ``n``
+    gloo ranks.  A model axis above 1 raises ``ValueError``; CUDA without a
+    GPU raises as :func:`~ttdg_mgm_torch.resolve_device` does."""
+    from ttdg_mgm_torch.parallel.mesh import data_axis_size
+
+    dev = resolve_device(device)
+    shape = list(cfg.TPU.MESH_SHAPE)
+    if dev.type != "cuda":
+        return data_axis_size(shape, max(shape[0] if shape else 1, 1))
+    return data_axis_size(shape, 1 if dev.index is not None else torch.cuda.device_count())
+
+
+def build_mesh(cfg: CfgNode, device=None) -> torch.device:
+    """This rank's device, the counterpart of
+    ``ttdg_mgm_tpu/build.py:build_mesh``: on CUDA in a process group,
+    ``cuda:<local rank>``, made the current device (one process per GPU);
+    else ``device`` as :func:`~ttdg_mgm_torch.resolve_device` gives it.
+    ``TPU.MESH_SHAPE`` is checked as :func:`local_data_ranks` reads it."""
+    from ttdg_mgm_torch.parallel import mesh
+
+    dev = resolve_device(device)
+    local_data_ranks(cfg, dev)
+    if dev.type == "cuda" and dev.index is None and mesh.active():
+        dev = torch.device("cuda", mesh.local_rank() % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    return dev
+
+
 def _clip(cfg: CfgNode) -> dict | None:
     c = cfg.SOLVER.CLIP_GRADIENTS
     if not c.get("ENABLED"):
@@ -189,11 +224,12 @@ def build_trainer(cfg: CfgNode, *, device=None, seed: int = 0):
     settings as the JAX package does (``EMA_KEEP_RATE`` 0 reads as 0.9996,
     ``CROSS_DOMAIN_MATCHING`` adds the cross-domain head) and, with
     ``DATALOADER.SUP_PERCENT`` below 100, splits its labelled records with
-    ``DATALOADER.RANDOM_DATA_SEED``."""
+    ``DATALOADER.RANDOM_DATA_SEED``.  In a process group the device is the
+    rank's (:func:`build_mesh`)."""
     from ttdg_mgm_torch.engine.mean_teacher import ATeacherTrainer
     from ttdg_mgm_torch.engine.trainer import BaselineTrainer
 
-    dev = resolve_device(device)
+    dev = build_mesh(cfg, device)
     ss = cfg.SEMISUPNET
     model = init_params(cfg, MaskRCNN(**model_kwargs(cfg)), seed).to(dev)
     opt = build_optimizer(model, build_schedule(cfg), momentum=cfg.SOLVER.MOMENTUM,

@@ -29,8 +29,8 @@ dicts of NumPy arrays:
   affinity layout above: 41 JAX leaves, 40 tensors.
 
 :func:`load_reference_checkpoint` and :func:`merge_state_dict` read a d2
-checkpoint (``MODEL.WEIGHTS``) into the port's modules by name, with d2's
-leniency (``build.py:init_params``).  A reference checkpoint has no
+checkpoint or a Caffe2 ImageNet pickle (``MODEL.WEIGHTS``) into the port's
+modules by name, with d2's leniency (``build.py:init_params``).  A reference checkpoint has no
 ``cross_domain.*`` names (the reference never wired its ``GModule``): the
 merge reports them missing and they keep their initial values.
 
@@ -208,6 +208,50 @@ def vgg16bn_to_d2(sd: dict, prefix: str = "features.") -> dict:
     return out
 
 
+_C2_BRANCH = {"branch2a": "conv1", "branch2b": "conv2", "branch2c": "conv3",
+              "branch1": "shortcut"}
+
+
+def c2_resnet_to_d2_names(sd: dict) -> dict:
+    """Caffe2 MSRA ImageNet ResNet names (``R-50.pkl``: ``conv1_w``,
+    ``res_conv1_bn_{s,b}``, ``res{stage}_{block}_{branch}_{w,bn_s,bn_b}``)
+    as d2 backbone names; other names (``fc1000``) are dropped.  This
+    package's own copy of
+    ``ttdg_mgm_tpu/checkpoint/converter.py:c2_resnet_to_d2_names``.
+
+    Caffe2's norms are affine with no running statistics.  The JAX
+    converter folds them with mean 0 and variance 1, a scale of ``bn_s /
+    sqrt(1 + eps)``; so every norm loaded here also gets ``running_mean``
+    0 and ``running_var`` 1 (the port's ``FrozenBatchNorm2d`` otherwise
+    keeps ``1 - eps``, a scale of ``bn_s`` exactly)."""
+    import re
+
+    out = {}
+
+    def norm(base, kind, v):
+        out[f"{base}.norm.{'weight' if kind == 'bn_s' else 'bias'}"] = v
+        out[base + ".norm.running_mean"] = np.zeros_like(v)
+        out[base + ".norm.running_var"] = np.ones_like(v)
+
+    for k, v in sd.items():
+        if k == "conv1_w":
+            out["backbone.bottom_up.stem.conv1.weight"] = v
+        elif k in ("res_conv1_bn_s", "res_conv1_bn_b"):
+            norm("backbone.bottom_up.stem.conv1", k[-4:], v)
+        else:
+            m = re.match(r"res(\d)_(\d+)_(branch\w+)_(w|bn_s|bn_b)$", k)
+            conv = _C2_BRANCH.get(m.group(3)) if m else None
+            if conv is None:
+                continue
+            stage, block, _, kind = m.groups()
+            base = f"backbone.bottom_up.res{stage}.{block}.{conv}"
+            if kind == "w":
+                out[base + ".weight"] = v
+            else:
+                norm(base, kind, v)
+    return out
+
+
 def load_d2_state_dict(model: torch.nn.Module, sd: dict) -> list:
     """Copy a d2-named state dict into ``model``.  Strict on the names the
     model owns: every parameter and buffer under :data:`OWNED_PREFIXES`
@@ -234,7 +278,9 @@ def load_reference_checkpoint(path: str, *, prefer: str = "modelTeacher") -> dic
     array}``.  A teacher-student checkpoint (``modelTeacher.*`` and
     ``modelStudent.*``) gives the member ``prefer`` with its prefix removed,
     as ``ttdg_mgm_tpu/checkpoint/converter.py:load_reference_checkpoint``
-    does.  Checkpoints are pickles: load only files from a trusted source."""
+    does; a Caffe2 ImageNet pickle (``conv1_w``) gives its backbone under d2
+    names (:func:`c2_resnet_to_d2_names`).  Checkpoints are pickles: load
+    only files from a trusted source."""
     if path.endswith(".pkl"):
         import pickle
 
@@ -244,10 +290,8 @@ def load_reference_checkpoint(path: str, *, prefer: str = "modelTeacher") -> dic
         data = torch.load(path, map_location="cpu", weights_only=False)
     sd = data.get("model", data)
     sd = {k: v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for k, v in sd.items()}
-    if "conv1_w" in sd:
-        raise NotImplementedError(
-            f"{path} is a Caffe2 ImageNet pickle; its name map (c2_resnet_to_d2_names) is not "
-            "ported to ttdg_mgm_torch yet (ROADMAP.md, Queue 1: the long tail)")
+    if "conv1_w" in sd:  # Caffe2 ImageNet pickle (backbone-only init)
+        return c2_resnet_to_d2_names(sd)
     if any(k.startswith("modelTeacher.") for k in sd):
         pre = prefer + "."
         sd = {k[len(pre):]: v for k, v in sd.items() if k.startswith(pre)}

@@ -10,6 +10,10 @@ step}``.  It is written under a temporary name and then renamed with
 ``os.replace``, so a save cut short leaves no partial file under a
 checkpoint's name; ``last_checkpoint`` (written the same way) names the
 newest file, and only the ``max_to_keep`` newest files are kept.
+
+Data parallel (``parallel/mesh.py``): the ranks hold the same state, so
+only the main process writes, and every rank waits at a barrier after each
+save; on resume every rank reads the same file.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import os
 import re
 
 import torch
+
+from ttdg_mgm_torch.parallel import mesh
 
 _NAME = re.compile(r"^model_(\d{7})\.pth$")
 LAST = "last_checkpoint"
@@ -49,17 +55,20 @@ class Checkpointer:
     def save(self, step: int, state: dict) -> str:
         """Write ``state`` (``{"model", "optimizer", "iteration"}``) as the
         checkpoint of ``step``, name it in ``last_checkpoint`` and drop all
-        but the ``max_to_keep`` newest files.  Returns its path."""
+        but the ``max_to_keep`` newest files (on the main process; every
+        rank then waits at a barrier).  Returns its path."""
         path = self.path(step)
-        _atomic_write(path, lambda p: torch.save(state, p))
+        if mesh.is_main_process():
+            _atomic_write(path, lambda p: torch.save(state, p))
 
-        def write_last(p):
-            with open(p, "w") as f:
-                f.write(os.path.basename(path))
+            def write_last(p):
+                with open(p, "w") as f:
+                    f.write(os.path.basename(path))
 
-        _atomic_write(os.path.join(self.directory, LAST), write_last)
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+            _atomic_write(os.path.join(self.directory, LAST), write_last)
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        mesh.barrier()
         return path
 
     def latest_step(self) -> int | None:

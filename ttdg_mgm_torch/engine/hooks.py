@@ -10,6 +10,11 @@ Hooks are callables ``hook(iteration, metrics)`` that the trainer calls on
 every iteration; ``metrics`` holds the step's losses as tensors on the
 device.  A hook reads them on the host only at its own period, so the loop
 does not wait on the device at every step.
+
+Data parallel (``parallel/mesh.py``): every rank calls every hook; the
+checkpointer writes on the main process only (``checkpoint/save.py``), the
+trainers give the writer hook to the main process only, and
+``LossEvalHook`` runs whole on every rank, as the JAX hook runs replicated.
 """
 
 from __future__ import annotations

@@ -21,6 +21,13 @@ student when the trainer is built.  A checkpoint is detectron2's
 ``MODEL.WEIGHTS`` (the teacher, or the student with ``TEST.EVAL_STU``).
 As in the JAX package the class centers are not checkpointed: a resumed
 run starts them at zero again.
+
+Data parallel (``parallel/mesh.py``): the labelled and the unlabelled
+batch are both sharded, each rank takes the MT step on its shards (the
+teacher's pseudo-labels of its own unlabelled images), and the step
+averages the gradients, the losses and the new class centers; the teacher
+stays replicated, every rank computing the same moving average from the
+same student.
 """
 
 from __future__ import annotations
@@ -33,7 +40,8 @@ import torch
 from ttdg_mgm_torch.data.loader import build_two_crop_loader
 from ttdg_mgm_torch.engine.steps import (ema_update, make_mt_step, make_source_step,
                                          make_tta_step)
-from ttdg_mgm_torch.engine.trainer import BaselineTrainer
+from ttdg_mgm_torch.engine.trainer import BaselineTrainer, rank_seed
+from ttdg_mgm_torch.parallel import mesh
 from ttdg_mgm_torch.solver.build import Optimizer
 
 logger = logging.getLogger("ttdg_mgm_torch")
@@ -72,21 +80,23 @@ class ATeacherTrainer(BaselineTrainer):
                       seed: int = 0, log_every: int = 20, hooks=()) -> None:
         """Mean-teacher training from the optimizer's step count to
         ``max_iter`` on batches of ``batch_size`` labelled and
-        ``batch_size`` unlabelled images (``build_two_crop_loader``).  The
-        loader and the sampling generator (on the model's device) are seeded
-        with ``seed`` on every call.  Hooks and the log as in
-        ``BaselineTrainer.train``."""
+        ``batch_size`` unlabelled images (``build_two_crop_loader``; each
+        rank takes its shards of them).  The loader and the sampling
+        generator (on the model's device) are seeded with ``seed``
+        (:func:`~ttdg_mgm_torch.engine.trainer.rank_seed`) on every call.
+        Hooks and the log as in ``BaselineTrainer.train``."""
         dev = next(self.model.parameters()).device
         loader = build_two_crop_loader(
             label_names, unlabel_names, batch_size=batch_size, canvas=self.canvas,
             min_size=self.min_size, max_size=self.max_size, gt_cap=self.gt_cap,
             mask_res=self.mask_res, seed=seed, sup_percent=self.sup_percent,
             split_seed=self.split_seed)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = torch.Generator(device=dev).manual_seed(rank_seed(seed))
         it = metrics = None
         try:
             for it in range(self.optimizer.count, max_iter):
-                batch = {k: torch.from_numpy(v).to(dev) for k, v in next(loader).items()}
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in mesh.shard_batch(next(loader)).items()}
                 if it < self.burn_up_step:
                     metrics = self._burnin_step(
                         {"image": batch["label_strong"], "image_sizes": batch["label_sizes"],

@@ -7,6 +7,17 @@ SGD step on the weighted sum of ``MaskRCNN.loss_supervised``'s losses),
 ``threshold_pseudo_labels`` and ``make_mt_step`` (the mean-teacher step,
 with or without the cross-domain head).  Losses are taken before the
 update; the parameters update in place.
+
+Data parallel (``parallel/mesh.py``): each rank runs a step on its own
+shard of the global batch (its own graph matching, its own draws), and
+after ``backward()`` the gradients, the total loss and every other loss
+(and the cross-domain head's new class centers) are averaged over the
+ranks before the optimizer, as the JAX steps ``pmean`` them under
+``shard_map`` (``ttdg_mgm_tpu/engine/steps.py:81-82, 128-129, 243-249``).
+The optimizer's clip then acts on the averaged gradients, as optax's does
+after the ``pmean``.  The steps call the model's loss methods directly, so
+the reduction is explicit (``DistributedDataParallel`` reduces only
+through ``forward()``).  Without a process group it is a no-op.
 """
 
 from __future__ import annotations
@@ -16,7 +27,26 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ttdg_mgm_torch.parallel import mesh
 from ttdg_mgm_torch.solver.build import Optimizer
+
+
+def reduce_step(optimizer: Optimizer, metrics: dict, *extra: torch.Tensor) -> dict:
+    """Average over the ranks, in place and in one collective per dtype, the
+    gradients of the optimizer's parameters (a parameter without one gets
+    zeros first, as :meth:`Optimizer.step` gives it), ``metrics`` (detached
+    copies, returned) and ``extra`` tensors.  A no-op without a process
+    group."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if not mesh.active():
+        return metrics
+    metrics = {k: v.clone() for k, v in metrics.items()}
+    for p in optimizer.params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    mesh.all_reduce_mean([p.grad for p in optimizer.params] + list(metrics.values())
+                         + list(extra))
+    return metrics
 
 
 def make_source_step(model, optimizer: Optimizer, *,
@@ -38,9 +68,8 @@ def make_source_step(model, optimizer: Optimizer, *,
             batch["gt_masks"], batch["gt_valid"], generator=generator, uniforms=uniforms)
         total = sum(losses.values()) * loss_weight
         total.backward()
+        metrics = reduce_step(optimizer, {**losses, "total_loss": total})
         optimizer.step()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total_loss"] = total.detach()
         return metrics
 
     return step
@@ -54,8 +83,9 @@ def make_tta_step(model, optimizer: Optimizer) -> Callable[[dict], torch.Tensor]
         optimizer.zero_grad()
         loss = model.loss_ttt(batch["image"], batch["image_sizes"])
         loss.backward()
+        loss = reduce_step(optimizer, {"loss": loss})["loss"]
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return step
 
@@ -156,12 +186,10 @@ def make_mt_step(model, optimizer: Optimizer, *, unsup_weight: float = 1.0,
                 batch["unlabel_sizes"], p_boxes, p_classes, p_valid, centers, noise=noise)
             total = total + sum(cd.values())
         total.backward()
+        metrics = {**sup, **{k + "_pseudo": v for k, v in unsup.items()}, **dom, **cd,
+                   "total_loss": total}
+        metrics = reduce_step(optimizer, metrics, *([centers] if with_cross_domain else []))
         optimizer.step()
-        metrics = {k: v.detach() for k, v in sup.items()}
-        metrics.update({k + "_pseudo": v.detach() for k, v in unsup.items()})
-        metrics.update({k: v.detach() for k, v in dom.items()})
-        metrics.update({k: v.detach() for k, v in cd.items()})
-        metrics["total_loss"] = total.detach()
         return metrics, centers
 
     if with_cross_domain:

@@ -20,6 +20,15 @@ from its start, not from where the saved run stopped.
 The device work of a batch is the model's (``engine/steps.py``,
 ``MaskRCNN.forward_inference``) and the mask paste (``ops/mask_paste.py``),
 on the model's device; this module is host-side orchestration.
+
+Data parallel (``parallel/mesh.py``; JAX ``_put_batch``): every rank runs
+the same seeded loader, so each holds the global batch bit for bit as a
+single process loads it, and steps on its own shard of it; the weights are
+replicated and stay so, since every rank applies the same averaged
+gradients.  Each rank draws its sampling uniforms from its own generator,
+seeded with :func:`rank_seed`.  In ``test`` the TTA steps are sharded the
+same way and the evaluation runs whole on every rank, as in the JAX
+package.  Without a process group all of this is the single-process run.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from ttdg_mgm_torch.data.catalog import DatasetCatalog
 from ttdg_mgm_torch.data.loader import build_test_loader, build_train_loader
 from ttdg_mgm_torch.engine.steps import make_source_step, make_tta_step
 from ttdg_mgm_torch.evaluation.build import build_evaluator, flatten_results
+from ttdg_mgm_torch.parallel import mesh
 from ttdg_mgm_torch.ops.mask_paste import paste_masks
 from ttdg_mgm_torch.utils.rle import segmentation_to_mask
 
@@ -68,6 +78,13 @@ def postprocess_detections(det: dict, meta: dict, b: int, *, mask_threshold: flo
     masks = paste_masks(probs, boxes, oh, ow, threshold=mask_threshold)
     return {"boxes": boxes.cpu().numpy(), "scores": scores.cpu().numpy(),
             "classes": classes.cpu().numpy(), "masks": masks.cpu().numpy()}
+
+
+def rank_seed(seed: int) -> int:
+    """The seed of this rank's sampling generator: ``seed + rank * 2**32``,
+    so rank 0 (and a single process) draws as before, and the ranks draw
+    apart (the JAX steps fold the shard index into the step's key)."""
+    return seed + (mesh.rank() << 32)
 
 
 def _sync(device: torch.device) -> None:
@@ -227,7 +244,8 @@ class BaselineTrainer:
         """The reference trainers' hooks: the finite-loss guard, periodic
         full-state checkpoints (with ``checkpointer`` and a positive
         ``checkpoint_period``), and the ``metrics.json`` and terminal writers
-        (with ``output_dir``), every ``log_every`` iterations."""
+        (with ``output_dir``, on the main process only), every
+        ``log_every`` iterations."""
         from ttdg_mgm_torch.engine.hooks import (AnomalyDetectionHook, PeriodicCheckpointHook,
                                                  WriterHook)
         from ttdg_mgm_torch.utils.events import EventStorage, JSONWriter, TerminalWriter
@@ -235,7 +253,7 @@ class BaselineTrainer:
         hooks = [AnomalyDetectionHook(period=log_every)]
         if checkpointer is not None and checkpoint_period > 0:
             hooks.append(PeriodicCheckpointHook(checkpointer, self, checkpoint_period))
-        if output_dir is not None:
+        if output_dir is not None and mesh.is_main_process():
             writers = [JSONWriter(os.path.join(output_dir, "metrics.json")), TerminalWriter()]
             hooks.append(WriterHook(EventStorage(self.optimizer.count), writers,
                                     period=log_every))
@@ -245,22 +263,24 @@ class BaselineTrainer:
               log_every: int = 20, hooks=()) -> None:
         """Source training from the optimizer's step count to ``max_iter``:
         one SGD step on the summed supervised losses per batch of
-        ``batch_size`` labelled images of ``dataset_names``.  The loader
-        and the sampling generator (on the model's device) are seeded with
-        ``seed`` on every call.  Each hook is called on every iteration with
-        the step's losses on the device, and a hook's ``after_train(it,
-        metrics)``, if it has one, after the last; every ``log_every``
-        iterations the losses are logged."""
+        ``batch_size`` labelled images of ``dataset_names`` (this rank's
+        shard of it).  The loader and the sampling generator (on the model's
+        device) are seeded with ``seed`` (:func:`rank_seed`) on every call.
+        Each hook is called on every iteration with the step's losses on the
+        device, and a hook's ``after_train(it, metrics)``, if it has one,
+        after the last; every ``log_every`` iterations the losses are
+        logged."""
         dev = next(self.model.parameters()).device
         loader = build_train_loader(
             dataset_names, batch_size=batch_size, canvas=self.canvas, min_size=self.min_size,
             max_size=self.max_size, gt_cap=self.gt_cap, mask_res=self.mask_res, seed=seed,
             min_size_choices=self.train_min_sizes)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = torch.Generator(device=dev).manual_seed(rank_seed(seed))
         it = metrics = None
         try:
             for it in range(self.optimizer.count, max_iter):
-                batch = {k: torch.from_numpy(v).to(dev) for k, v in next(loader).items()}
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in mesh.shard_batch(next(loader)).items()}
                 metrics = self._source_step(batch, gen)
                 for h in hooks:
                     h(it, metrics)
@@ -291,8 +311,9 @@ class BaselineTrainer:
              evaluator_type: str | None = None) -> dict:
         """Eval-only TTA over the test datasets: with ``ttt``, one TTA step
         per batch of ``tta_batch`` images (at most ``min_batch_num``
-        batches), then evaluation at that batch size (1 without ``ttt``).
-        Returns each dataset's metrics and each family's means."""
+        batches; each rank adapts on its shard), then evaluation at that
+        batch size (1 without ``ttt``; whole on every rank).  Returns each
+        dataset's metrics and each family's means."""
         if draw_dir is not None:
             raise NotImplementedError(_NO_DRAW)
         results = {}
@@ -308,9 +329,10 @@ class BaselineTrainer:
                 for idx, (batch, _) in enumerate(loader):
                     if min_batch_num is not None and idx >= min_batch_num:
                         break
-                    loss = self._tta_step({"image": torch.from_numpy(batch["image"]).to(dev),
-                                           "image_sizes": torch.from_numpy(
-                                               batch["image_sizes"]).to(dev)})
+                    shard = mesh.shard_batch({"image": batch["image"],
+                                              "image_sizes": batch["image_sizes"]})
+                    loss = self._tta_step({k: torch.from_numpy(v).to(dev)
+                                           for k, v in shard.items()})
                 if loss is not None:
                     self.last_tta_loss = float(loss)
                     logger.info("TTA on %s: final loss %.5f", name, self.last_tta_loss)

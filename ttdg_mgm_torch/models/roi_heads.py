@@ -19,7 +19,7 @@ from torch import nn
 
 from ttdg_mgm_torch.models.layers import Conv2d, ConvTranspose2d, Linear
 from ttdg_mgm_torch.ops.boxes import clip_boxes, decode_boxes, encode_boxes, pairwise_iou
-from ttdg_mgm_torch.ops.nms import batched_nms_mask, stable_topk
+from ttdg_mgm_torch.ops.nms import compact_batched_nms_mask, compact_rows, stable_topk
 from ttdg_mgm_torch.ops.roi_align import mask_roi_align
 
 BBOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
@@ -99,8 +99,8 @@ def roi_box_inference(scores, deltas, prop_boxes, prop_valid, image_sizes, *,
     flat_scores = probs.reshape(B, K * nc)
     flat_cls = torch.arange(nc, device=scores.device).repeat(K)[None].expand(B, K * nc)
     flat_valid = prop_valid.repeat_interleave(nc, dim=1) & (flat_scores > score_thresh)
-    keep = batched_nms_mask(flat_boxes, flat_scores, flat_cls, flat_valid,
-                            iou_threshold=nms_thresh)
+    keep = compact_batched_nms_mask(flat_boxes, flat_scores, flat_cls, flat_valid,
+                                    iou_threshold=nms_thresh)
     top_s, idx = stable_topk(torch.where(keep, flat_scores, torch.full_like(flat_scores, -1.0e30)),
                              topk)
     v = top_s > -1.0e29
@@ -110,23 +110,6 @@ def roi_box_inference(scores, deltas, prop_boxes, prop_valid, image_sizes, *,
     return (torch.where(v[..., None], out_boxes, zero), torch.where(v, top_s, zero),
             torch.where(v, out_cls, torch.zeros((), dtype=out_cls.dtype, device=zero.device)),
             v)
-
-
-def compact_rows(sel, cap: int, *values):
-    """Move the rows of each image where ``sel (B, N)`` holds, in order, to
-    the front of ``cap`` slots; slots past them keep each value's fill.
-    ``values`` are ``(x (B, N, ...), fill)`` pairs; returns the compacted
-    tensors ``(B, cap, ...)`` and the count of live slots ``(B,)``."""
-    B = sel.shape[0]
-    order = torch.cumsum(sel.to(torch.int64), dim=1) - 1
-    slot = torch.where(sel & (order < cap), order, torch.full_like(order, cap))
-    bidx = torch.arange(B, device=sel.device)[:, None].expand_as(slot)
-    out = []
-    for x, fill in values:
-        buf = torch.full((B, cap + 1) + tuple(x.shape[2:]), fill, dtype=x.dtype, device=x.device)
-        buf[bidx, slot] = x  # slot ``cap`` collects the rows left out
-        out.append(buf[:, :cap])
-    return out, sel.sum(dim=1).clamp(max=cap)
 
 
 def label_and_sample_proposals(proposals, prop_valid, gt_boxes, gt_classes, gt_valid,

@@ -52,6 +52,64 @@ def batched_nms_mask(boxes, scores, class_ids, valid, *, iou_threshold: float = 
     return nms_mask(boxes + offset, scores, valid, iou_threshold=iou_threshold)
 
 
+def compact_batched_nms_mask(boxes, scores, class_ids, valid, *, iou_threshold: float):
+    """:func:`batched_nms_mask` over ``(B, N)`` candidates, solved apart for
+    each image and class on its valid candidates only (d2's
+    ``fast_rcnn_inference_single_image`` filters by score before NMS).
+
+    The boxes are first offset by class as the dense solve offsets them
+    (``class * max_coord``, ``max_coord`` one above the largest valid
+    coordinate), so boxes of different classes never overlap there and a
+    box is suppressed only within its class.  Each (image, class) row then
+    takes its valid candidates, in index order, into as many slots as the
+    fullest row has; ``nms_mask`` solves the rows together and the
+    keep-mask is scattered back.  The result equals the dense solve's bit
+    for bit: within a class the candidates keep their order (so the stable
+    sort breaks ties alike) and their offset boxes (so every IoU is the
+    same number), and invalid slots neither keep nor suppress.  The dense
+    solve builds ``N x N`` matrices (20,000 x 20,000 per image at 1000
+    proposals and 20 classes); this one ``classes x cap x cap``, ``cap`` at
+    most the proposal count."""
+    B, N = valid.shape
+    keep = torch.zeros((B, N + 1), dtype=torch.bool, device=valid.device)
+    if N == 0 or not bool(valid.any()):
+        return keep[:, :N]
+    max_coord = torch.where(valid[..., None], boxes, boxes.new_zeros(())).amax(
+        dim=(-2, -1), keepdim=True) + 1.0
+    boxes = boxes + class_ids.to(boxes.dtype)[..., None] * max_coord
+    C = int(class_ids.max()) + 1
+    classes = torch.arange(C, device=valid.device)
+    sel = (valid[:, None, :] & (class_ids[:, None, :] == classes[None, :, None])).reshape(B * C, N)
+    cap = int(sel.sum(dim=1).max())
+
+    def rows(x):
+        return x[:, None].expand(B, C, *x.shape[1:]).reshape(B * C, *x.shape[1:])
+
+    pos = torch.arange(N, device=valid.device).expand(B * C, N)
+    (c_boxes, c_scores, c_pos), n = compact_rows(sel, cap, (rows(boxes), 0.0),
+                                                 (rows(scores), 0.0), (pos, N))
+    c_valid = torch.arange(cap, device=valid.device)[None, :] < n[:, None]
+    c_keep = nms_mask(c_boxes, c_scores, c_valid, iou_threshold=iou_threshold)
+    return keep.scatter(1, c_pos.reshape(B, C * cap), c_keep.reshape(B, C * cap))[:, :N]
+
+
+def compact_rows(sel, cap: int, *values):
+    """Move the rows of each image where ``sel (B, N)`` holds, in order, to
+    the front of ``cap`` slots; slots past them keep each value's fill.
+    ``values`` are ``(x (B, N, ...), fill)`` pairs; returns the compacted
+    tensors ``(B, cap, ...)`` and the count of live slots ``(B,)``."""
+    B = sel.shape[0]
+    order = torch.cumsum(sel.to(torch.int64), dim=1) - 1
+    slot = torch.where(sel & (order < cap), order, torch.full_like(order, cap))
+    bidx = torch.arange(B, device=sel.device)[:, None].expand_as(slot)
+    out = []
+    for x, fill in values:
+        buf = torch.full((B, cap + 1) + tuple(x.shape[2:]), fill, dtype=x.dtype, device=x.device)
+        buf[bidx, slot] = x  # slot ``cap`` collects the rows left out
+        out.append(buf[:, :cap])
+    return out, sel.sum(dim=1).clamp(max=cap)
+
+
 def topk_after_nms(boxes, scores, keep, k: int):
     """Compact kept boxes to the top ``k`` by score.  Returns ``(boxes (k, 4),
     scores (k,), indices (k,), valid (k,))``."""
