@@ -88,7 +88,12 @@ Phases, each of which exits non-zero when it fails:
    the 832 x 1216 canvas; kernel counters read around the call; it fails
    unless ``result_ap.txt`` holds the split and its family mean, Dice, E and
    S are finite, a TTA loss is above 0, kernels A and B launched, and
-   neither Pillow, OpenCV nor PyYAML was imported; it logs each TTA step's
+   neither Pillow, OpenCV nor PyYAML was imported; with ``TEST.DRAW True``
+   it holds the visualizer's dumps (one ``visual`` and one
+   ``masks`` PNG per image at its size, read by the port's decoder; the
+   masks the union of the image's pasted masks; the boxes equal to
+   ``draw_detections`` re-run on the same detections) and logs their host
+   seconds per image; it logs each TTA step's
    time, the evaluation's data, inference and evaluation seconds per image
    and the peak device memory; then the same command with no precision
    override (bf16, the config's default) on 2 fundus-like PNG images of
@@ -182,7 +187,23 @@ Phases, each of which exits non-zero when it fails:
    the path's own inputs (A, C and D on the first training step's, A and B
    on the adaptation's and the inference's); then the float32
    trunk's forward and backward timed against the same under autocast bf16,
-   and the legacy test batches' peak memory split by pass.
+   and the legacy test batches' peak memory split by pass;
+14. data parallelism (``phase_dp``): phase 10's command at world size 1
+   over NCCL, and two gloo ranks spawned on the one card taking source,
+   TTA and MT-with-head steps on their shards, every kernel held on rank
+   0's inputs;
+15. the last slice: MGM-Mixture's TTA step (``phase_mixture``: the
+   flagship at full width with ``multi_matching_unsup.num_clusters`` 2, 4
+   images at 800 px, 2 steps in float32 and in bf16; a finite loss, a
+   nonzero backbone gradient, kernel A launched and kernel B twice a step
+   for the two passes' annealed rounds; kernel A held on the first step's
+   box pool; each step's solve against the CPU's on its own inputs by
+   ``hold_mixture``: the annealed rounds as phase 4 holds them, the LAP
+   projections bit for bit, the affinity, the partition), then the long tail on CUDA tensors against the CPU
+   (``phase_long_tail``: ``HyperGraphBlock`` at 248 nodes of 256 channels,
+   spectral clustering on 4 x 4 and 8 x 8 affinities, the matching losses'
+   values and gradients, ``gumbel_sinkhorn`` on given uniforms,
+   ``sinkhorn_auto`` on mixed orientations).
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off), and cuDNN runs its
@@ -193,8 +214,9 @@ outside the tensor cores, 16 transcendentals per clock per SM (4.18e12/s at
 1.98 GHz).  The last lines are the card's name and power
 limit (nvidia-smi), one JSON object with each kernel's numbers (its
 launches on the TTA, source, eval-only command-line, train command-line,
-mean-teacher and cross-domain mean-teacher command-line paths and the VGG
-paths of phase 13 under ``launches_by_path``; the holds on the
+mean-teacher and cross-domain mean-teacher command-line paths, the VGG
+paths of phase 13, the DP paths of phase 14 and the mixture's TTA steps of
+phase 15 under ``launches_by_path``; the holds on the
 command-line paths' own inputs under ``held_on_paths``), and the
 device line ``{"ok": true, "device":
 {...}}``.
@@ -1205,23 +1227,82 @@ def pin_two_graphs(torch, U, ms):
     return torch.stack([((r == c) & (r < ms[0])).to(U.dtype), U[1]])
 
 
+def hold_annealed(torch, A, W, U0, ms, nu, kw, what: str, plain_dev=None) -> dict:
+    """Kernel B's annealed rounds alone (``lap_iter_cap`` 0) from ``U0``
+    against the plain version's, run on ``plain_dev`` (the kernel's device
+    when None): soft assignments in [0, 1]; the products' float32 summation
+    order differs, and V / tau at tau = 0.0125 amplifies it 80 times per
+    step over ~10 steps.  An annealed round that runs to its cap
+    (``mgm_iter`` steps) without converging is as chaotic as the finale:
+    there float32 round-off alone moves U by O(1) (the plain version in
+    float32 against itself in float64), so it holds instead the rounds
+    before it, and one annealed step at the last round's temperature from
+    the kernel's own annealed U.  Returns the kernel's U and steps, the
+    plain version's steps, the largest error held, whether a round ran to
+    its cap, and a description of what was held."""
+    from ttdg_mgm_torch.graph.solvers import anneal_taus, ga_gm
+    from ttdg_mgm_torch.ops.gagm import ga_gm_fused
+
+    kw = {k: v for k, v in kw.items() if k != "lap_iter_cap"}
+    plain_dev = plain_dev or A.device
+
+    def plain(U, **over):
+        Up, st = ga_gm(A.to(plain_dev), W.to(plain_dev), U.to(plain_dev), ms.to(plain_dev), nu,
+                       return_steps=True, **{**kw, **over, "hung_iter_cap": 0})
+        return Up.to(A.device), st
+
+    Ua, st_k = ga_gm_fused(A, W, U0, ms, nu, return_steps=True, **{**kw, "lap_iter_cap": 0})
+    Up, st_p = plain(U0)
+    err_a = (Ua - Up).abs().max().item()
+    check(bool(torch.isfinite(Ua).all()), f"{what}: non-finite annealed U")
+    capped = [r for r, n in enumerate(st_k[:-1]) if n >= kw["mgm_iter"]]
+    if not capped:
+        check(err_a <= GAGM_ANNEAL_ATOL, f"{what}: annealed rounds differ from the plain "
+              f"version by {err_a} (steps {st_k} vs {st_p})")
+        return dict(U=Ua, steps=st_k, plain_steps=st_p, max_abs_err=err_a, chaotic=False,
+                    held=f"max |U diff| {err_a:.3e} (atol {GAGM_ANNEAL_ATOL})")
+    taus = anneal_taus(kw["sk_tau0"], kw["sk_gamma"], kw["min_tau"])
+    parts, worst = [], 0.0
+    if capped[0] > 0:
+        cut = {"min_tau": taus[capped[0] - 1]}
+        Uc, sc_k = ga_gm_fused(A, W, U0, ms, nu, return_steps=True,
+                               **{**kw, **cut, "lap_iter_cap": 0})
+        Ucp, sc_p = plain(U0, **cut)
+        err_c = (Uc - Ucp).abs().max().item()
+        worst = max(worst, err_c)
+        check(err_c <= GAGM_ANNEAL_ATOL and sc_k == sc_p,
+              f"{what}: the {capped[0]} converged annealed rounds differ from the plain version "
+              f"by {err_c} (steps {sc_k} vs {sc_p})")
+        parts.append(f"the {capped[0]} rounds before it steps {sc_k[:-1]}, max |U diff| "
+                     f"{err_c:.3e}")
+    one = {"sk_tau0": taus[-1], "min_tau": taus[-1], "mgm_iter": 1}
+    U1, s1 = ga_gm_fused(A, W, Ua, ms, nu, return_steps=True, **{**kw, **one, "lap_iter_cap": 0})
+    U1p, s1p = plain(Ua, **one)
+    err_1 = (U1 - U1p).abs().max().item()
+    worst = max(worst, err_1)
+    check(err_1 <= GAGM_ANNEAL_ATOL and s1 == s1p == [1, 0],
+          f"{what}: one annealed step from the kernel's U differs from the plain version's by "
+          f"{err_1} (steps {s1} vs {s1p})")
+    parts.append(f"one step at tau {taus[-1]:g} from the kernel's U, max |U diff| {err_1:.3e}")
+    return dict(U=Ua, steps=st_k, plain_steps=st_p, max_abs_err=worst, chaotic=True,
+                held=(f"round {capped[0] + 1} ran to its cap of {kw['mgm_iter']} steps "
+                      f"(chaotic: max |U diff| {err_a:.3e}, not held); held instead: "
+                      + "; ".join(parts) + f" (atol {GAGM_ANNEAL_ATOL})"))
+
+
 def phase_gagm_main(torch, dev, record, dump_dir=None):
     """Kernel B on the inputs the TTA steps gave it (``record``, from
     :func:`capture_gagm`).  On the first: its time by CUDA events, its steps
     per round, its bound from those steps, and the in-kernel clock split of
     an annealed and of a finale step.  On every input, the two parts of the
     solve that are well-posed although the unconverged finale is chaotic:
-    (a) the annealed rounds alone against the plain version; (b) one finale
+    (a) the annealed rounds alone against the plain version
+    (:func:`hold_annealed`); (b) one finale
     step from that U: the kernel's power step V against the plain one, and
     the kernel's 0/1 output against the host LAP of the kernel's own V (in
     the 2-graph case graph 0 against its pin to the identity, as both
-    versions pin it).  An annealed round that runs to its cap (``mgm_iter``
-    steps) without converging is as chaotic as the finale: there float32
-    round-off alone moves U by O(1) (the plain version in float32 against
-    itself in float64), so (a) holds instead the rounds before it, and one
-    annealed step at the last round's temperature from the kernel's own
-    annealed U."""
-    from ttdg_mgm_torch.graph.solvers import _project_blocks, anneal_taus, ga_gm
+    versions pin it)."""
+    from ttdg_mgm_torch.graph.solvers import _project_blocks, ga_gm
     from ttdg_mgm_torch.ops.gagm import ga_gm_fused
     from ttdg_mgm_torch.ops.lap import lap_slots_to_nodes
 
@@ -1256,51 +1337,11 @@ def phase_gagm_main(torch, dev, record, dump_dir=None):
         G, T = ms.shape[0], A.shape[0]
         M = T // G
         graphs += G
-        pkw = {("hung_iter_cap" if k == "lap_iter_cap" else k): v for k, v in kw.items()}
-        # (a) the annealed rounds: soft assignments in [0, 1]; the products'
-        # float32 summation order differs, V / tau at tau = 0.0125 amplifies
-        # it 80 times per step over ~10 steps
-        Ua, st_k = ga_gm_fused(A, W, U0, ms, nu, return_steps=True, **{**kw, "lap_iter_cap": 0})
-        Up, st_p = ga_gm(A, W, U0, ms, nu, return_steps=True, **{**pkw, "hung_iter_cap": 0})
-        err_a = (Ua - Up).abs().max().item()
-        check(bool(torch.isfinite(Ua).all()), f"gagm main path {i}: non-finite annealed U")
-        capped = [r for r, n in enumerate(st_k[:-1]) if n >= kw["mgm_iter"]]
-        if not capped:
-            worst_a = max(worst_a, err_a)
-            check(err_a <= GAGM_ANNEAL_ATOL, f"gagm main path {i}: annealed rounds differ from "
-                  f"the plain version by {err_a} (steps {st_k} vs {st_p})")
-            held_a = f"max |U diff| {err_a:.3e} (atol {GAGM_ANNEAL_ATOL})"
-        else:
-            chaotic += 1
-            taus = anneal_taus(kw["sk_tau0"], kw["sk_gamma"], kw["min_tau"])
-            parts = []
-            if capped[0] > 0:
-                cut = {"min_tau": taus[capped[0] - 1], "lap_iter_cap": 0}
-                Uc, sc_k = ga_gm_fused(A, W, U0, ms, nu, return_steps=True, **{**kw, **cut})
-                Ucp, sc_p = ga_gm(A, W, U0, ms, nu, return_steps=True,
-                                  **{**pkw, "min_tau": cut["min_tau"], "hung_iter_cap": 0})
-                err_c = (Uc - Ucp).abs().max().item()
-                worst_a = max(worst_a, err_c)
-                check(err_c <= GAGM_ANNEAL_ATOL and sc_k == sc_p,
-                      f"gagm main path {i}: the {capped[0]} converged annealed rounds differ "
-                      f"from the plain version by {err_c} (steps {sc_k} vs {sc_p})")
-                parts.append(f"the {capped[0]} rounds before it steps {sc_k[:-1]}, max |U diff| "
-                             f"{err_c:.3e}")
-            one = {"sk_tau0": taus[-1], "min_tau": taus[-1], "mgm_iter": 1}
-            U1, s1 = ga_gm_fused(A, W, Ua, ms, nu, return_steps=True,
-                                 **{**kw, **one, "lap_iter_cap": 0})
-            U1p, s1p = ga_gm(A, W, Ua, ms, nu, return_steps=True,
-                             **{**pkw, **one, "hung_iter_cap": 0})
-            err_1 = (U1 - U1p).abs().max().item()
-            worst_a = max(worst_a, err_1)
-            check(err_1 <= GAGM_ANNEAL_ATOL and s1 == s1p == [1, 0],
-                  f"gagm main path {i}: one annealed step from the kernel's U differs from the "
-                  f"plain version's by {err_1} (steps {s1} vs {s1p})")
-            parts.append(f"one step at tau {taus[-1]:g} from the kernel's U, max |U diff| "
-                         f"{err_1:.3e}")
-            held_a = (f"round {capped[0] + 1} ran to its cap of {kw['mgm_iter']} steps "
-                      f"(chaotic: max |U diff| {err_a:.3e}, not held); held instead: "
-                      + "; ".join(parts) + f" (atol {GAGM_ANNEAL_ATOL})")
+        # (a) the annealed rounds
+        held = hold_annealed(torch, A, W, U0, ms, nu, kw, f"gagm main path {i}")
+        Ua, st_k, st_p, held_a = held["U"], held["steps"], held["plain_steps"], held["held"]
+        worst_a = max(worst_a, held["max_abs_err"])
+        chaotic += held["chaotic"]
         # (b) one finale step from the kernel's annealed U
         out, st, V = ga_gm_fused(A, W, Ua, ms, nu, return_steps=True, return_power_step=True,
                                  **{**kw, "mgm_iter": 0, "lap_iter_cap": 1})
@@ -1720,14 +1761,18 @@ def write_fundus_split(root: str, n: int, hw, seed: int = 0, polygons: bool = Fa
 
 def capture_cli(torch):
     """Wraps the trainer's TTA step (timed, its loss kept) and its
-    evaluation (the s/iter log line after every batch), and listens to the
-    package's log.  Returns the record and the function that undoes it."""
+    evaluation (the s/iter log line after every batch; each image's
+    postprocessed boxes and the union of its masks), and listens to the
+    package's log.  Returns the record and
+    the function that undoes it."""
     import logging
 
     import ttdg_mgm_torch.engine.trainer as trainer
 
+    import numpy as np
+
     record = {"tta_ms": [], "tta_loss": [], "eval": None, "total": None, "post_s": 0.0,
-              "evals": [], "post_by_dataset": []}
+              "evals": [], "post_by_dataset": [], "detections": {}, "draw_s": None}
     real_step, real_eval = trainer.make_tta_step, trainer.evaluate_dataset
     real_post = trainer.postprocess_detections
 
@@ -1756,6 +1801,12 @@ def capture_cli(torch):
         out = real_post(det, meta, b, **k)
         record["post_s"] += time.perf_counter() - t0
         record["post_by_dataset"][-1] += time.perf_counter() - t0
+        # what the visualizer draws: the boxes and the union of the masks
+        union = (np.any(out["masks"], axis=0) if len(out["masks"])
+                 else np.zeros((meta["orig_height"], meta["orig_width"]), bool))
+        record["detections"][meta["image_id"]] = dict(
+            boxes=out["boxes"].copy(), scores=out["scores"].copy(),
+            classes=out["classes"].copy(), union=union)
         return out
 
     class Listen(logging.Handler):
@@ -1765,6 +1816,8 @@ def capture_cli(torch):
             elif rec.msg.startswith("Total inference time"):
                 record["evals"].append(record["eval"])
                 record["total"] = rec.args
+            elif rec.msg.startswith("Visualization dumps"):
+                record["draw_s"] = rec.args[2]
 
     lg = logging.getLogger("ttdg_mgm_torch")
     handler, level = Listen(), lg.level
@@ -1782,6 +1835,37 @@ def capture_cli(torch):
     return record, undo
 
 
+def check_dumps(out_dir: str, img_dir: str, detections: dict, hw) -> None:
+    """The visualizer's dumps of a ``TEST.DRAW`` call: one ``visual`` and
+    one ``masks`` PNG per evaluated image (``detections``, by image id),
+    read by the port's ``decode_png`` at the image's size; the mask dump
+    255 on the union of the image's pasted masks and 0 elsewhere; the
+    ``visual`` dump equal to ``draw_detections`` re-run here on the image
+    and the same detections."""
+    import numpy as np
+
+    from ttdg_mgm_torch.data.loader import load_image
+    from ttdg_mgm_torch.data.png import decode_png
+    from ttdg_mgm_torch.utils.visualize import draw_detections
+
+    for kind in ("visual", "masks"):
+        names = sorted(os.listdir(os.path.join(out_dir, kind)))
+        want = sorted(f"{i}.png" for i in detections)
+        check(names == want, f"TEST.DRAW: {kind}/ holds {names}, not {want}")
+    for i, det in detections.items():
+        with open(os.path.join(out_dir, "masks", f"{i}.png"), "rb") as f:
+            m = decode_png(f.read())
+        with open(os.path.join(out_dir, "visual", f"{i}.png"), "rb") as f:
+            v = decode_png(f.read())
+        check(m.shape == v.shape == (*hw, 3), f"TEST.DRAW image {i}: dumps {m.shape}, {v.shape}")
+        check(np.array_equal(m, np.repeat(det["union"][..., None], 3, -1).astype(np.uint8) * 255),
+              f"TEST.DRAW image {i}: the mask dump is not the union of its pasted masks")
+        image = load_image(os.path.join(img_dir, f"d{i}.png"))
+        again = draw_detections(image, det["boxes"], det["scores"], det["classes"])
+        check(np.array_equal(v, again), f"TEST.DRAW image {i}: the box dump differs from "
+                                        f"draw_detections on the same detections")
+
+
 def phase_cli(torch, dev, card: str = "", hw=(800, 1192), opts=(), model_kw=None):
     """``train_net_torch.main`` in process, as a user runs the paper's
     method: ``--eval-only --config configs/test_segment.yaml`` on a
@@ -1789,7 +1873,9 @@ def phase_cli(torch, dev, card: str = "", hw=(800, 1192), opts=(), model_kw=None
     (800 x 1192: a Drishti-GS image after ``ResizeShortestEdge(800, 1333)``,
     so no resize; batches pad onto the 832 x 1216 canvas) with RLE ground
     truth, the flagship's seeded random weights saved as a d2 checkpoint,
-    float32, Dice over every detection (``TEST.DICE_THRES 0.0``).  Kernel
+    float32, Dice over every detection (``TEST.DICE_THRES 0.0``) and
+    ``TEST.DRAW True`` (the dumps held by :func:`check_dumps`, their host
+    seconds per image read from the evaluation's log).  Kernel
     counters are read around the call; the TTA steps are timed, the
     evaluation loop's data, inference and evaluation seconds per image read
     from its log."""
@@ -1810,7 +1896,7 @@ def phase_cli(torch, dev, card: str = "", hw=(800, 1192), opts=(), model_kw=None
                 "--config", os.path.join(HERE, "configs", "test_segment.yaml"),
                 "--datasets-root", tmp, "DATASETS.TEST", '["Drishti_GS_test"]',
                 "MODEL.WEIGHTS", weights, "TPU.PRECISION", "float32", "TEST.DICE_THRES", "0.0",
-                "OUTPUT_DIR", out_dir, *opts]
+                "OUTPUT_DIR", out_dir, "TEST.DRAW", "True", *opts]
         log(f"cli: {CLI_IMAGES} images of {hw[0]}x{hw[1]} and the weights written in "
             f"{time.perf_counter() - t0:.1f} s; train_net_torch.main({' '.join(argv[:6])} ...)")
         record, undo = capture_cli(torch)
@@ -1828,6 +1914,14 @@ def phase_cli(torch, dev, card: str = "", hw=(800, 1192), opts=(), model_kw=None
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
         with open(os.path.join(out_dir, "result_ap.txt")) as f:
             line = json.loads(f.read().strip().splitlines()[-1])
+        t0 = time.perf_counter()
+        check_dumps(out_dir, os.path.join(tmp, "Fundus", "Drishti_GS", "test", "image"),
+                    record["detections"], hw)
+        log(f"cli: TEST.DRAW dumps of {len(record['detections'])} images held in "
+            f"{time.perf_counter() - t0:.1f} s: one visual and one masks PNG each at "
+            f"{hw[0]}x{hw[1]}, the masks the union of the pasted masks, the boxes "
+            f"draw_detections' on the same detections; the dumps took "
+            f"{record['draw_s']:.4f} s per image on the host")
     check(set(line["results"]) >= {"Drishti_GS_test", "Drishti_mean"},
           f"result_ap.txt holds {sorted(line['results'])}")
     metrics = results["Drishti_GS_test"]
@@ -1853,7 +1947,8 @@ def phase_cli(torch, dev, card: str = "", hw=(800, 1192), opts=(), model_kw=None
                 data_s_per_image=data_s, inference_s_per_image=infer_s,
                 eval_s_per_image=eval_s, paste_s_per_image=post_s, eval_total_s=total_s,
                 main_s=wall, peak_gib=peak_gb,
-                launches=launches, metrics=metrics)
+                launches=launches, metrics=metrics,
+                draw_s_per_image=record["draw_s"])
 
 
 # -- determinism --------------------------------------------------------------------
@@ -3942,6 +4037,288 @@ def phase_dp(torch, dev, card: str = "", phase10_losses=None, opts=(), size: int
 
 # -- main ---------------------------------------------------------------------------
 
+# -- phase 15: the last slice ----------------------------------------------------
+
+MIX_CLUSTERS = 2
+MIX_STEPS = 2
+#: the long tail on CUDA tensors against the CPU: float32 values and
+#: gradients, relative to each result's largest entry (other summation
+#: orders, TF32 off)
+LONG_TAIL_RTOL = 1e-5
+#: ``HyperGraphBlock`` at the cross-domain head's size: 248 nodes (2 x 124
+#: per MT step) of 256 channels
+HG_NODES, HG_DIM = 248, 256
+
+
+def capture_mixture():
+    """Wraps ``ga_gm_mixture`` as ``graph/mgm.py`` calls it to keep each
+    call's inputs (copies) and outputs.  Returns the record and the function
+    that undoes it."""
+    import ttdg_mgm_torch.graph.mgm as mgm
+
+    record, real = [], mgm.ga_gm_mixture
+
+    def solve(A, W, U0, ms, n_univ, num_clusters, **kw):
+        inputs = (A.detach().clone(), W.detach().clone(), U0.detach().clone(), ms.clone())
+        out = real(A, W, U0, ms, n_univ, num_clusters, **kw)
+        record.append(dict(inputs=inputs, n_univ=n_univ, num_clusters=num_clusters,
+                           kw=dict(kw), out=out))
+        return out
+
+    def undo():
+        mgm.ga_gm_mixture = real
+
+    mgm.ga_gm_mixture = solve
+    return record, undo
+
+
+def _same_partition(a, b) -> bool:
+    a, b = list(a), list(b)
+    return all((a[i] == a[j]) == (b[i] == b[j]) for i in range(len(a)) for j in range(len(a)))
+
+
+def mixture_solver_kw(kw: dict) -> dict:
+    """The GA-GM settings ``ga_gm_mixture`` runs its rounds with: its own
+    defaults, then the caller's."""
+    import inspect
+
+    from ttdg_mgm_torch.graph.solvers import ga_gm_mixture
+
+    names = ("quad_weight", "mgm_iter", "sk_iter", "sk_tau0", "sk_gamma", "min_tau", "tol")
+    sig = inspect.signature(ga_gm_mixture).parameters
+    return {n: kw.get(n, sig[n].default) for n in names}
+
+
+def hold_mixture(torch, entry: dict, what: str) -> dict:
+    """The card's ``ga_gm_mixture`` call ``entry`` (from
+    :func:`capture_mixture`) against the CPU's on the same inputs: each
+    pass's annealed rounds (kernel B, finale cap 0) held against the plain
+    rounds on the CPU from the pass's own start (``U0``, then the card's
+    projected U) as :func:`hold_annealed` holds them; each exact LAP
+    projection bit for bit against the host LAP of the card's own annealed
+    U; the graph affinity against the CPU's on the card's projected U; the
+    card's clusters the same partition as the CPU's spectral clustering of
+    the card's affinity.  The whole solve is not run again on the CPU: the
+    annealed rounds of flat blocks leave the LAP to round-off, so its first
+    projection, and all that follows it, may differ; the stages above are
+    each held on the card's own inputs."""
+    from ttdg_mgm_torch.graph.solvers import _cluster_affinity, _project_blocks
+    from ttdg_mgm_torch.graph.spectral import spectral_clustering
+
+    cpu = torch.device("cpu")
+    A, W, U0, ms = entry["inputs"]
+    nu, k, kw = entry["n_univ"], entry["num_clusters"], entry["kw"]
+    _, c_card, trace = entry["out"]
+    G, T = ms.shape[0], A.shape[0]
+    M = T // G
+    gkw = mixture_solver_kw(kw)
+    starts = (U0, trace["projected"][0])
+    passes, worst, chaotic = [], 0.0, []
+    for p in range(2):
+        held = hold_annealed(torch, A, W, starts[p], ms, nu, gkw, f"{what} pass {p + 1}",
+                             plain_dev=cpu)
+        check(torch.equal(held["U"], trace["annealed"][p]),
+              f"{what} pass {p + 1}: the kernel's annealed U differs from its own earlier run")
+        proj = _project_blocks(trace["annealed"][p].cpu().reshape(G, M, nu), ms.cpu().long(), nu,
+                               tau=1.0, sk_iter=0, exact_hungarian=True).reshape(T, nu)
+        check(torch.equal(proj, trace["projected"][p].cpu()),
+              f"{what} pass {p + 1}: the projection differs from the host LAP of the card's U")
+        worst = max(worst, held["max_abs_err"])
+        chaotic.append(held["chaotic"])
+        passes.append(f"pass {p + 1}: steps kernel {held['steps'][:-1]} CPU "
+                      f"{held['plain_steps'][:-1]}, {held['held']}, LAP projection bit for bit")
+    alpha_cpu = _cluster_affinity(A.cpu(), W.cpu(), trace["projected"][0].cpu(), ms.cpu(), G, M,
+                                  quad_weight=kw.get("cluster_quad_weight", 1.0))
+    alpha = trace["alpha"].cpu()
+    err_alpha = ((alpha - alpha_cpu).abs().max() / alpha_cpu.abs().max().clamp(min=1e-30)).item()
+    check(err_alpha <= LONG_TAIL_RTOL, f"{what}: the affinity differs from the CPU's by "
+                                       f"{err_alpha} of its largest entry")
+    c_own = spectral_clustering(alpha, k, normalized=True)
+    check(_same_partition(c_own.tolist(), c_card.tolist()),
+          f"{what}: clusters {c_card.tolist()} against the CPU's {c_own.tolist()} on the same "
+          f"affinity")
+    log(f"{what} (ms {ms.tolist()}): clusters {c_card.tolist()}, the CPU's on the same affinity "
+        f"{c_own.tolist()}; " + "; ".join(passes) + f"; affinity {err_alpha:.3e} of its largest "
+        f"entry")
+    return dict(clusters=c_card.tolist(), anneal_max_abs_err=worst, affinity_rel_err=err_alpha,
+                chaotic_passes=sum(chaotic))
+
+
+def phase_mixture(torch, dev, prec: str = "float32", size: int = 800, steps: int = MIX_STEPS,
+                  counters=("roi_pool", "gagm"), **model_kw):
+    """MGM-Mixture's TTA step at full width: the flagship with its
+    ``multi_matching_unsup.num_clusters`` set to ``MIX_CLUSTERS`` (the JAX
+    ``MGM3Unsup.num_clusters``; no config key sets it), ``steps`` TTA steps
+    on 4 synthetic images: a finite loss, a nonzero backbone gradient,
+    kernel A launched and kernel B twice a step (the two passes' annealed
+    rounds), the step's time; then kernel A held on the first step's box
+    pool (its levels and ROIs, copied as the step gave them) and every
+    step's solve held by :func:`hold_mixture`."""
+    import ttdg_mgm_torch.models.rcnn as rcnn
+    from ttdg_mgm_torch.build import build_model
+    from ttdg_mgm_torch.engine.steps import make_tta_step
+    from ttdg_mgm_torch.solver.build import build_optimizer
+    from ttdg_mgm_torch.synth import synth_batch
+
+    model = build_model(device=dev, seed=0, compute_dtype=prec, **model_kw)
+    model.multi_matching_unsup.num_clusters = MIX_CLUSTERS
+    opt = build_optimizer(model, lambda _: TTA_LR)
+    step = make_tta_step(model, opt)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in synth_batch(size, 4, seed=0).items()}
+    _sync(torch, dev)
+    reset_counters()
+    record, undo = capture_mixture()
+    real_pool, pools = rcnn.multilevel_roi_pool, []
+
+    def pool(levels, boxes, **k):
+        if not pools and k.get("output_size", 7) == 7:
+            pools.append(([x.detach().clone() for x in levels], boxes.detach().clone(), k))
+        return real_pool(levels, boxes, **k)
+
+    rcnn.multilevel_roi_pool = pool
+    step_ms, losses, grads = [], [], []
+    try:
+        for i in range(steps):
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            loss = float(step(batch))
+            _sync(torch, dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            g = sum(float(p.grad.abs().sum()) for n, p in model.named_parameters()
+                    if n.startswith("backbone.") and p.grad is not None)
+            mgm = model.multi_matching_unsup
+            losses.append(loss)
+            grads.append(g)
+            log(f"mixture {prec} TTA step {i}: loss {loss:.6f}, backbone |grad|_1 {g:.4e}, "
+                f"clusters {mgm.last_clusters}, valid nodes {mgm.last_node_counts}, GA-GM steps "
+                f"per pass {mgm.last_solver_steps}, {step_ms[-1]:.1f} ms")
+            check(math.isfinite(loss) and loss > 0.0, f"mixture {prec} step {i}: loss {loss}")
+            check(g > 0.0 and math.isfinite(g), f"mixture {prec} step {i}: backbone gradient {g}")
+            check_f32_params(torch, model, f"mixture {prec} TTA step {i}")
+    finally:
+        rcnn.multilevel_roi_pool = real_pool
+        undo()
+    launches = read_counters()
+    check(len(record) == steps, f"mixture {prec}: {len(record)} solves in {steps} steps")
+    for name in counters:
+        key = pool_counter(name, prec) if name == "roi_pool" else name
+        want_n = 2 * steps if name == "gagm" else 1
+        check(launches[key] >= want_n if name == "roi_pool" else launches[key] == want_n,
+              f"mixture {prec}: kernel {key} launched {launches[key]} times in {steps} steps")
+    check(len(pools) == 1, f"mixture {prec}: no box pool call in {steps} steps")
+    levels, rois, _ = pools[0]
+    B, K = rois.shape[:2]
+    held_pools = {"tta box": hold_pool(
+        torch, levels, rois, 7, f"mixture {prec} roi_pool tta box",
+        f"levels {tuple(levels[0].shape)}..{tuple(levels[-1].shape)}, {B} x {K} ROIs of the "
+        "first step")}
+    del pools, levels, rois
+    held = [hold_mixture(torch, e, f"mixture {prec} step {i}") for i, e in enumerate(record)]
+    del model, opt, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return dict(step_ms=step_ms, losses=losses, backbone_grad_l1=grads, launches=launches,
+                held=held, held_pools=held_pools)
+
+
+def _rel_err(torch, got, want) -> float:
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+
+
+def phase_long_tail(torch, dev, hg_nodes: int = HG_NODES, hg_dim: int = HG_DIM) -> dict:
+    """The long tail on CUDA tensors against the CPU on the same inputs:
+    ``HyperGraphBlock`` at the cross-domain head's node count and width
+    (its time), ``spectral_clustering`` on a 4 x 4 and an 8 x 8 affinity
+    (the same partition), each matching loss's value and gradient,
+    ``gumbel_sinkhorn`` on given uniforms and ``sinkhorn_auto`` on mixed
+    orientations, within ``LONG_TAIL_RTOL`` of each result's largest
+    entry."""
+    import copy
+
+    from ttdg_mgm_torch.graph import losses as L
+    from ttdg_mgm_torch.graph.hypergraph import HyperGraphBlock, knn_hypergraph_laplacian
+    from ttdg_mgm_torch.graph.spectral import spectral_clustering
+    from ttdg_mgm_torch.ops.sinkhorn import gumbel_sinkhorn, sinkhorn_auto
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    errs = {}
+
+    def hold(name, fn, *args, grad=True):
+        outs = []
+        for d in (cpu, dev):
+            xs = [a.detach().clone().to(d).requires_grad_(grad and a.is_floating_point())
+                  if torch.is_tensor(a) else a for a in args]
+            y = fn(*xs)
+            gs = []
+            if grad:
+                # a weighted sum: the plain sum of a doubly-stochastic
+                # matrix is constant, its gradient round-off alone
+                wts = torch.rand(y.shape, generator=torch.Generator().manual_seed(1))
+                (y * wts.to(d)).sum().backward()
+                gs = [x.grad for x in xs if torch.is_tensor(x) and x.grad is not None]
+            outs.append((y, gs))
+        (yc, gc), (yd, gd) = outs
+        errs[name] = max([_rel_err(torch, yd, yc)] + [_rel_err(torch, b, a)
+                                                      for a, b in zip(gc, gd)])
+        check(errs[name] <= LONG_TAIL_RTOL and len(gc) == len(gd),
+              f"long tail {name}: CUDA against the CPU {errs[name]:.3e}")
+
+    x = torch.randn(hg_nodes, hg_dim, generator=gen)
+    torch.manual_seed(0)
+    blk = HyperGraphBlock(hg_dim)
+    blk_d = copy.deepcopy(blk).to(dev)
+    hold("knn_hypergraph_laplacian", lambda t: knn_hypergraph_laplacian(t, 10), x, grad=False)
+    out_c = blk(x)
+    out_d = blk_d(x.to(dev))
+    errs["HyperGraphBlock"] = _rel_err(torch, out_d, out_c)
+    check(errs["HyperGraphBlock"] <= LONG_TAIL_RTOL,
+          f"long tail HyperGraphBlock: {errs['HyperGraphBlock']:.3e}")
+    hg_ms = event_ms(torch, lambda: blk_d(x.to(dev)), 5) if dev.type == "cuda" else None
+    parts = {}
+    for n in (4, 8):
+        lab = torch.arange(n) % 2
+        sim = torch.rand(n, n, generator=gen) + 2.0 * (lab[:, None] == lab[None, :])
+        sim = (sim + sim.T) / 2 * (1 - torch.eye(n))
+        for k in (2, 3):
+            a = spectral_clustering(sim, k, normalized=True).tolist()
+            b = spectral_clustering(sim.to(dev), k, normalized=True).tolist()
+            check(_same_partition(a, b), f"long tail spectral {n}x{n} k={k}: {b} vs {a}")
+            parts[f"{n}x{n}_k{k}"] = b
+    p = torch.rand(3, 6, 7, generator=gen) * 0.96 + 0.02
+    t = torch.zeros(3, 6, 7)
+    t[:, torch.arange(6), torch.arange(6)] = 1.0
+    m = torch.ones(3, 6, 7, dtype=torch.bool)
+    m[1, 4:] = False
+    hold("permutation_loss", lambda a, b, c: L.permutation_loss(a, b, c), p, t, m)
+    hold("cross_entropy_perm_loss", lambda a, b, c: L.cross_entropy_perm_loss(a, b, c.any(-1)),
+         p, t, m)
+    hold("hamming_loss", L.hamming_loss, p, t, m)
+    hold("inner_product_loss", L.inner_product_loss, p, t, m)
+    hold("focal_perm_loss", lambda a, b, c: L.focal_perm_loss(a, b, c, gamma=2.0), p, t, m)
+    hold("ilp_attention_loss", lambda a, b: L.ilp_attention_loss(a, b), p, t)
+    pts_s, pts_t = torch.rand(3, 6, 2, generator=gen) * 50, torch.rand(3, 7, 2, generator=gen) * 50
+    hold("displacement_offset_loss", lambda s, a, b: L.offset_loss(
+        L.displacement(s, a, b, torch.tensor([6, 4, 5], device=s.device))[0],
+        torch.zeros(3, 6, 2, device=s.device), norm=7.0), p, pts_s, pts_t)
+    hold("concat_matrix", lambda a: L.concat_matrix(a, [(1, 0), (2, 0), (2, 1)], 3),
+         p[:, :6, :6].contiguous())
+    s = torch.randn(2, 9, 9, generator=gen)
+    u = torch.rand(4, 2, 9, 9, generator=gen)
+    hold("gumbel_sinkhorn", lambda a, b: gumbel_sinkhorn(a, b, tau=0.3, max_iter=12,
+                                                         sample_num=4), s, u)
+    nr, nc = torch.tensor([9, 4]), torch.tensor([5, 9])
+    hold("sinkhorn_auto", lambda a: sinkhorn_auto(a, nr.to(a.device), nc.to(a.device), tau=0.2,
+                                                  max_iter=15), s)
+    log(f"long tail on {dev} against the CPU (largest error relative to each result's largest "
+        f"entry, values and gradients; tolerance {LONG_TAIL_RTOL}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; spectral partitions {parts}; HyperGraphBlock ({hg_nodes} x {hg_dim}) "
+        + (f"{hg_ms:.4f} ms" if hg_ms is not None else "not timed"))
+    return dict(rel_err=errs, hypergraph_ms=hg_ms, spectral=parts)
+
+
 def main() -> int:
     import torch
 
@@ -4021,6 +4398,10 @@ def main() -> int:
         done(13)
     dp = phase_dp(torch, dev, card, phase10_losses=train["step_losses"])
     done(14)
+    mix = phase_mixture(torch, dev, "float32")
+    mix16 = phase_mixture(torch, dev, "bfloat16")
+    tail = phase_long_tail(torch, dev)
+    done(15)
     if "--warm" in argv:
         phase_warm(torch, dev)
 
@@ -4029,7 +4410,8 @@ def main() -> int:
              "cli_bf16": cli16, "train_cli": train, "mt_cli": mtc, "mt_cd_cli": mtcd,
              "vgg_train_cli": vgg["source"], "vgg_eval_cli": {"launches": vgg["source"][
                  "eval_launches"]}, "vgg_mt_cli": vgg["mt"], "vgg_cityscapes": vgg["cityscapes"],
-             "vgg_clipart": vgg["clipart"], "dp_nccl": dp["nccl"], "dp_gloo": dp["gloo"]}
+             "vgg_clipart": vgg["clipart"], "dp_nccl": dp["nccl"], "dp_gloo": dp["gloo"],
+             "mixture_tta": mix, "mixture_tta_bf16": mix16}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items()} for k in e2e["launches"]}
     pick = ("ms", "kernel_only_ms", "args_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "shape")
@@ -4039,7 +4421,8 @@ def main() -> int:
             "mt_cd_cli": mtcd.pop("held"), "vgg_train_cli": vgg["source"].pop("held"),
             "vgg_mt_cli": vgg["mt"].pop("held"), "vgg_cityscapes": vgg["cityscapes"].pop("held"),
             "vgg_clipart": vgg["clipart"].pop("held"),
-            **{f"dp_gloo_{kind}": h for kind, h in dp.pop("held").items()}}
+            **{f"dp_gloo_{kind}": h for kind, h in dp.pop("held").items()},
+            "mixture_tta_bf16": {"pools": mix16.pop("held_pools")}}
 
     def held_by_path(part):
         return {p: h[part] for p, h in held.items() if part in h}
@@ -4082,7 +4465,7 @@ def main() -> int:
 
     sk_held = held_by_path("sinkhorn")
     kernels = [
-        pool_kernel("roi_pool", roi, roi_train, e2e),
+        pool_kernel("roi_pool", roi, roi_train, e2e, {"mixture_tta": mix.pop("held_pools")}),
         pool_kernel("roi_pool_bf16", roi16, roi_train16, e2e16, held_by_path("pools")),
         dict(name="gagm", route="cuda", source="ttdg_mgm_torch/csrc/gagm.cu",
              replaces="ttdg_mgm_tpu/ops/pallas/gagm_pallas.py:53",
@@ -4093,7 +4476,11 @@ def main() -> int:
              steps=g4["steps"], input_dtypes_bf16_path=e2e16["kernel_b_dtypes"], **gagm_main,
              other_cases={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms", "steps")}
                           for k, v in gagm.items() if k != "G4_M60"},
-             held_on_paths=held_by_path("gagm")),
+             held_on_paths=held_by_path("gagm"),
+             mixture_rounds={p: dict(steps=len(r["held"]), anneal_max_abs_err=max(
+                 h["anneal_max_abs_err"] for h in r["held"]), chaotic_passes=sum(
+                 h["chaotic_passes"] for h in r["held"])) for p, r in (("float32", mix),
+                                                                       ("bfloat16", mix16))}),
         backward_kernel("roi_pool_backward", roi_bwd, bwd_main, src),
         backward_kernel("roi_pool_backward_bf16", roi_bwd16, bwd_main16, src16,
                         held_by_path("backward")),
@@ -4119,7 +4506,7 @@ def main() -> int:
     cli_line = {k: cli[k] for k in ("tta_ms", "tta_loss", "data_s_per_image",
                                     "inference_s_per_image", "eval_s_per_image",
                                     "paste_s_per_image", "eval_total_s",
-                                    "main_s", "peak_gib", "metrics")}
+                                    "main_s", "peak_gib", "metrics", "draw_s_per_image")}
     log(f"cli summary ({card}): {json.dumps(cli_line)}")
     log(f"cli bf16 summary ({card}): {json.dumps(cli16)}")
     log(f"train cli summary ({card}): {json.dumps(train)}")
@@ -4127,6 +4514,8 @@ def main() -> int:
     log(f"mt cd cli summary ({card}): {json.dumps(mtcd)}")
     log(f"vgg summary ({card}): {json.dumps(vgg)}")
     log(f"dp summary ({card}): {json.dumps(dp)}")
+    log(f"mixture summary ({card}): {json.dumps({p: r for p, r in zip(PRECISIONS, (mix, mix16))})}")
+    log(f"long tail summary ({card}): {json.dumps(tail)}")
     log(f"chip_smoke ran in {time.perf_counter() - t_run:.1f} s after the kernel build")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -129,11 +129,16 @@ def test_model_fields_match_jax_build_model(path):
 def test_unported_options_are_refused():
     """The VGG backbone is ported: ``MODEL.BACKBONE.NAME build_vgg_backbone``
     maps to ``backbone_name="vgg16"`` as ``ttdg_mgm_tpu/build.py`` maps it,
-    and the R50 name to ``"resnet50"``.  What is still refused is drawing
-    (``TEST.DRAW``, the visualizer), with a message naming the way out.
-    bf16 compute, the mean-teacher trainer and its cross-domain head are
-    ported (their mapping and dispatch are held in tests/test_torch_bf16.py,
-    tests/test_torch_ateacher.py and tests/test_torch_mt_cross_domain.py)."""
+    and the R50 name to ``"resnet50"``.  Drawing (``TEST.DRAW``, the
+    visualizer) is ported too and no longer refused (held in
+    tests/test_torch_visualize.py): ``evaluate_dataset`` with a
+    ``draw_dir`` goes on to the model.  bf16 compute, the mean-teacher
+    trainer and its cross-domain head are ported (their mapping and
+    dispatch are held in tests/test_torch_bf16.py,
+    tests/test_torch_ateacher.py and tests/test_torch_mt_cross_domain.py).
+    What the port still refuses are the JPEG variants its decoder does not
+    read (tests/test_torch_decoders.py)."""
+    from ttdg_mgm_torch.engine import trainer
     from ttdg_mgm_torch.engine.trainer import evaluate_dataset
 
     seg = os.path.join(REPO, "configs", "test_segment.yaml")
@@ -143,7 +148,8 @@ def test_unported_options_are_refused():
         opts = FLOAT32 + ["MODEL.BACKBONE.NAME", name]
         got = tbuild.model_kwargs(tconfig.setup_cfg(seg, opts))["backbone_name"]
         assert got == jbuild.build_model(jconfig.setup_cfg(seg, opts)).backbone_name == want
-    with pytest.raises(NotImplementedError, match="TEST.DRAW"):
+    assert not hasattr(trainer, "_NO_DRAW")
+    with pytest.raises(AttributeError, match="parameters"):
         evaluate_dataset(None, "Drishti_GS_test", draw_dir="out")
     mt = os.path.join(REPO, "configs", "test_segment_MT.yaml")
     cfg = tconfig.setup_cfg(mt, FLOAT32 + ["SEMISUPNET.CROSS_DOMAIN_MATCHING", "True"])

@@ -61,21 +61,29 @@ def test_fresh_import_loads_no_jax(tmp_path):
             "ttdg_mgm_torch.data.datasets.cityscapes_foggy",
             "ttdg_mgm_torch.data.datasets.pascal_voc",
             "ttdg_mgm_torch.data.datasets.fetus"} <= set(mods)
+    assert {"ttdg_mgm_torch.utils.visualize", "ttdg_mgm_torch.utils.draw",
+            "ttdg_mgm_torch.utils.profiling", "ttdg_mgm_torch.graph.spectral",
+            "ttdg_mgm_torch.graph.hypergraph", "ttdg_mgm_torch.graph.ilp",
+            "ttdg_mgm_torch.data.node_sampling"} <= set(mods)
 
 
 def test_cli_imports_no_pillow_opencv_or_yaml(tmp_path):
     """``train_net_torch.main`` on the CPU over PNG images with RLE ground
-    truth (tests/test_cli.py's miniature split, its masks RLE-encoded)
-    leaves no PIL, cv2 or yaml module in sys.modules."""
+    truth (tests/test_cli.py's miniature split, its masks RLE-encoded),
+    with ``TEST.DRAW True`` (the visualizer's dumps written), leaves no
+    PIL, cv2 or yaml module in sys.modules."""
     from torch_port_fixture import cli_args, write_mini_split
 
     write_mini_split(tmp_path, rle=True)
     out_dir = tmp_path / "out"
-    code = ("import sys\n"
+    args = cli_args(str(tmp_path), out_dir) + ["TEST.DRAW", "True"]
+    code = ("import os, sys\n"
             f"sys.path.insert(0, {REPO!r})\n"
             "import train_net_torch\n"
-            f"res = train_net_torch.main({cli_args(str(tmp_path), out_dir)!r})\n"
+            f"res = train_net_torch.main({args!r})\n"
             "assert 'Drishti_mean' in res, res\n"
+            f"for kind in ('visual', 'masks'):\n"
+            f"    assert len(os.listdir(os.path.join({str(out_dir)!r}, kind))) == 3\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('PIL', 'cv2', 'yaml'))\n"
             "print('FOREIGN', len(bad), bad[:5])\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -91,8 +91,8 @@ def test_detection_config_raises_as_jax(tmp_path):
     ``fetus_head_c1_test``, which neither package registers (the
     fetal-ultrasound loader is a library function in both): the port's
     command line raises ``KeyError`` naming it, as the JAX package's test
-    loader does.  As shipped the file also sets ``TEST.DRAW True``, which
-    the port refuses first, naming the visualizer."""
+    loader does, with the file's ``TEST.DRAW True`` as shipped (the
+    visualizer is ported) and without it."""
     from ttdg_mgm_tpu.data import loader as jloader
     from ttdg_mgm_tpu.data.builtin import register_all_medical
 
@@ -100,7 +100,7 @@ def test_detection_config_raises_as_jax(tmp_path):
             os.path.join(REPO, "configs", "test_detection.yaml"),
             "--datasets-root", str(tmp_path), "OUTPUT_DIR", str(tmp_path / "out"),
             "MODEL.RESNETS.DEPTH", "14", *NARROW]
-    with pytest.raises(NotImplementedError, match="TEST.DRAW"):
+    with pytest.raises(KeyError, match="fetus_head_c1_test"):
         train_net_torch.main(args)
     with pytest.raises(KeyError, match="fetus_head_c1_test"):
         train_net_torch.main(args + ["TEST.DRAW", "False"])

@@ -117,3 +117,21 @@ def shard_average(inputs: dict, kind: str) -> dict:
     return dict(metrics={k: (metrics[0][k] + metrics[1][k]) / w for k in metrics[0]},
                 params={k: v.detach().clone() for k, v in model.state_dict().items()},
                 centers=None if centers[0] is None else (centers[0] + centers[1]) / w)
+
+
+def draw_rank_main(argv: list, marks: str) -> None:
+    """A rank of the process group running ``train_net_torch.py``'s command
+    ``argv`` (an eval-only run with ``TEST.DRAW True``); each call of the
+    trainer's ``dump_visualization`` on this rank leaves a file
+    ``<marks>/rank<r>_<image_id>``."""
+    import train_net_torch
+    from ttdg_mgm_torch.engine import trainer
+
+    real = trainer.dump_visualization
+
+    def marked(output_dir, image_id, image, detections, class_names=None):
+        open(os.path.join(marks, f"rank{mesh.rank()}_{image_id}"), "w").close()
+        return real(output_dir, image_id, image, detections, class_names)
+
+    trainer.dump_visualization = marked
+    train_net_torch.run(train_net_torch.parse_args(argv))

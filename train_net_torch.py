@@ -164,7 +164,8 @@ def run(args) -> dict:
         # keeps each dataset's own
         evaluator_type=(cfg.TEST.EVALUATOR if cfg.TEST.EVALUATOR in
                         ("coco", "dice", "pascal_voc", "pascal_voc_water") else None),
-        draw_dir=cfg.OUTPUT_DIR if cfg.TEST.DRAW else None,
+        # the dumps are the main process's, as in train_net.py
+        draw_dir=cfg.OUTPUT_DIR if cfg.TEST.DRAW and is_main_process() else None,
     )
     if is_main_process():
         with open(os.path.join(cfg.OUTPUT_DIR, "result_ap.txt"), "a") as f:

@@ -34,6 +34,9 @@ modules by name, with d2's leniency (``build.py:init_params``).  A reference che
 ``cross_domain.*`` names (the reference never wired its ``GModule``): the
 merge reports them missing and they keep their initial values.
 
+:func:`hypergraph_to_torch` maps a flax ``HyperGraphBlock`` tree
+(``graph/hypergraph.py``) into that module's state dict.
+
 :func:`vgg16bn_to_d2` is the counterpart of
 ``ttdg_mgm_tpu/checkpoint/converter.py:vgg16bn_to_flax``: torchvision
 ``vgg16_bn`` weights (``features.N.*``) as the port's trunk tensors.
@@ -185,6 +188,18 @@ def flax_params_to_d2(params: dict, *, box_head_channels: int = 256) -> dict:
     if "cross_domain" in p:
         _cross_domain_block(p["cross_domain"], sd)
     return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def hypergraph_to_torch(params: dict) -> dict:
+    """A flax ``HyperGraphBlock`` parameter tree (nested dicts of arrays:
+    ``hgc1/theta/{kernel,bias}``, ``hgc2/...``) as ``graph/hypergraph.py``'s
+    state dict of tensors: ``hgc{1,2}.theta.{weight,bias}``, the kernel
+    transposed."""
+    out = {}
+    for n in ("hgc1", "hgc2"):
+        _dense_block(params[n]["theta"], f"{n}.theta", out)
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in out.items()}
 
 
 def vgg16bn_to_d2(sd: dict, prefix: str = "features.") -> dict:

@@ -6,8 +6,8 @@ defaults (the ``TPU.*`` keys too, so that one YAML file means the same in
 both packages), the same merge rules and the same decoding of override
 strings.  It reads YAML with :mod:`ttdg_mgm_torch.utils.yaml_lite`, which
 needs no PyYAML and returns what ``yaml.safe_load`` returns on the files in
-``configs/``; nothing here imports PyYAML (the JAX package's ``dump`` is not
-ported).
+``configs/``, and :meth:`CfgNode.dump` writes with its ``safe_dump``;
+nothing here imports PyYAML.
 
 ``TPU.PRECISION`` defaults to ``"bfloat16"`` as in the JAX package, and
 ``ttdg_mgm_torch.build`` maps it (or ``SOLVER.AMP.ENABLED``) onto the bf16
@@ -22,7 +22,7 @@ import copy
 import os
 from typing import Any
 
-from ttdg_mgm_torch.utils.yaml_lite import YAMLError, safe_load
+from ttdg_mgm_torch.utils.yaml_lite import YAMLError, safe_dump, safe_load
 
 
 class CfgNode(dict):
@@ -109,6 +109,12 @@ class CfgNode(dict):
                 return default
             node = node[p]
         return node
+
+    def dump(self) -> str:
+        """The tree as block-style YAML with sorted keys (tuples as lists),
+        which ``yaml.safe_load`` reads back as it reads the JAX package's
+        ``yaml.safe_dump`` of the same tree."""
+        return safe_dump(to_plain(self))
 
 
 def to_plain(node: Any) -> Any:

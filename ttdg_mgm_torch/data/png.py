@@ -17,6 +17,11 @@ with Pillow's own rules, which are not all scalings:
 PNG is lossless, so the two agree bit for bit.  A file that is not a valid
 PNG of those kinds raises :class:`UnsupportedPNG` or ``ValueError``; there
 is no other decoder behind it.
+
+:func:`encode_png` writes 8-bit gray or RGB images (the visualizer's dumps,
+``utils/visualize.py``): one ``IDAT`` chunk, every scanline with the Up
+filter, deflated by zlib.  :func:`decode_png` and OpenCV's ``imread`` read
+its files back bit for bit.
 """
 
 from __future__ import annotations
@@ -179,3 +184,33 @@ def decode_png(data: bytes) -> np.ndarray:
             samples[y0::dy, x0::dx] = sub
             pos += used
     return _to_rgb(samples, depth, ctype, palette)
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body)))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """PNG bytes of ``img``: ``(H, W)`` or ``(H, W, 1)`` uint8 gray, or
+    ``(H, W, 3)`` uint8 RGB.  Each scanline carries the Up filter (its
+    difference to the line above, modulo 256), the whole deflated by zlib."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"encode_png takes uint8 images, got {img.dtype}")
+    if img.ndim == 3 and img.shape[2] == 1:
+        img = img[..., 0]
+    if img.ndim == 2:
+        ctype = 0
+    elif img.ndim == 3 and img.shape[2] == 3:
+        ctype = 2
+    else:
+        raise ValueError(f"encode_png takes (H, W) or (H, W, 3) images, got {img.shape}")
+    h, w = img.shape[:2]
+    rows = np.ascontiguousarray(img).reshape(h, -1)
+    up = rows.copy()
+    up[1:] -= rows[:-1]  # uint8 arithmetic wraps modulo 256
+    raw = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes())) + _chunk(b"IEND", b""))

@@ -43,18 +43,15 @@ import numpy as np
 import torch
 
 from ttdg_mgm_torch.data.catalog import DatasetCatalog
-from ttdg_mgm_torch.data.loader import build_test_loader, build_train_loader
+from ttdg_mgm_torch.data.loader import build_test_loader, build_train_loader, load_image
 from ttdg_mgm_torch.engine.steps import make_source_step, make_tta_step
 from ttdg_mgm_torch.evaluation.build import build_evaluator, flatten_results
 from ttdg_mgm_torch.parallel import mesh
 from ttdg_mgm_torch.ops.mask_paste import paste_masks
 from ttdg_mgm_torch.utils.rle import segmentation_to_mask
+from ttdg_mgm_torch.utils.visualize import dump_visualization
 
 logger = logging.getLogger("ttdg_mgm_torch")
-
-#: the visualizer (``TEST.DRAW``) is a later slice's
-_NO_DRAW = ("drawing detections (TEST.DRAW) needs utils/visualize.py, which is not ported "
-            "to ttdg_mgm_torch yet (ROADMAP.md, Queue 1: the visualizer)")
 
 
 def postprocess_detections(det: dict, meta: dict, b: int, *, mask_threshold: float = 0.5,
@@ -105,9 +102,13 @@ def evaluate_dataset(model, dataset_name: str, *, canvas: int | str = "auto",
 
     The mask AP needs a mask for every GT: a dataset with an annotation
     whose ``segmentation`` is None raises ``ValueError`` before inference
-    (the JAX package raises ``TypeError`` in the middle of the loop)."""
-    if draw_dir is not None:
-        raise NotImplementedError(_NO_DRAW)
+    (the JAX package raises ``TypeError`` in the middle of the loop).
+
+    ``draw_dir`` (``TEST.DRAW``): each evaluated image's original is loaded
+    and its postprocessed detections dumped under ``<draw_dir>/visual`` and
+    ``<draw_dir>/masks`` (``utils/visualize.py:dump_visualization``) before
+    they are scored.  The dumps' seconds are kept out of the ``Eval`` figure
+    of the s/iter lines and logged on a line of their own."""
     device = next(model.parameters()).device
     evaluator, etype = build_evaluator(dataset_name, dice_threshold=dice_threshold,
                                        evaluator_type=evaluator_type,
@@ -126,7 +127,7 @@ def evaluate_dataset(model, dataset_name: str, *, canvas: int | str = "auto",
                                min_size=min_size, max_size=max_size)
 
     n_img = 0
-    t_data = t_compute = t_eval = 0.0
+    t_data = t_compute = t_eval = t_draw = 0.0
     t0 = time.perf_counter()
     for batch, metas in loader:
         t_data += time.perf_counter() - t0
@@ -136,9 +137,15 @@ def evaluate_dataset(model, dataset_name: str, *, canvas: int | str = "auto",
         _sync(device)
         t_compute += time.perf_counter() - t1
         t2 = time.perf_counter()
+        drawn = 0.0
         for b, meta in enumerate(metas[:metas[0]["n_real"]]):
             out = postprocess_detections(det, meta, b)
             record = records_by_id[meta["image_id"]]
+            if draw_dir is not None:
+                t3 = time.perf_counter()
+                dump_visualization(draw_dir, meta["image_id"], load_image(record["file_name"]),
+                                   out)
+                drawn += time.perf_counter() - t3
             anns = record["annotations"]
             gt_classes = [a["category_id"] for a in anns]
             gt_masks = ([segmentation_to_mask(a["segmentation"], record["height"],
@@ -159,7 +166,8 @@ def evaluate_dataset(model, dataset_name: str, *, canvas: int | str = "auto",
                                   gt_classes,
                                   gt_difficult=[a.get("difficult", 0) for a in anns])
             n_img += 1
-        t_eval += time.perf_counter() - t2
+        t_eval += time.perf_counter() - t2 - drawn
+        t_draw += drawn
         if n_img % log_every < batch_size:
             tot = max(n_img, 1)
             logger.info("Inference done %d img. Dataloading: %.4f s/iter. Inference: "
@@ -168,6 +176,9 @@ def evaluate_dataset(model, dataset_name: str, *, canvas: int | str = "auto",
         t0 = time.perf_counter()
     logger.info("Total inference time: %.4fs (%.6f s / iter per device)",
                 t_data + t_compute + t_eval, t_compute / max(n_img, 1))
+    if draw_dir is not None:
+        logger.info("Visualization dumps of %d img under %s: %.4f s/iter.", n_img, draw_dir,
+                    t_draw / max(n_img, 1))
     return flatten_results(evaluator.evaluate())
 
 
@@ -312,10 +323,10 @@ class BaselineTrainer:
         """Eval-only TTA over the test datasets: with ``ttt``, one TTA step
         per batch of ``tta_batch`` images (at most ``min_batch_num``
         batches; each rank adapts on its shard), then evaluation at that
-        batch size (1 without ``ttt``; whole on every rank).  Returns each
-        dataset's metrics and each family's means."""
-        if draw_dir is not None:
-            raise NotImplementedError(_NO_DRAW)
+        batch size (1 without ``ttt``; whole on every rank), dumping the
+        detections under ``draw_dir`` when it is given (the caller passes it
+        on the main process only).  Returns each dataset's metrics and each
+        family's means."""
         results = {}
         source = self._snapshot() if reset_between_datasets else None
         dev = next(self.model.parameters()).device
@@ -339,6 +350,6 @@ class BaselineTrainer:
             results[name] = evaluate_dataset(
                 self.model, name, canvas=self.test_canvas, min_size=self.min_size,
                 max_size=self.max_size, batch_size=tta_batch if ttt else 1,
-                dice_threshold=dice_threshold, evaluator_type=evaluator_type)
+                dice_threshold=dice_threshold, evaluator_type=evaluator_type, draw_dir=draw_dir)
             logger.info("Results %s: %s", name, results[name])
         return aggregate_family_means(results)

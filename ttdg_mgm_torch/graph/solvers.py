@@ -2,7 +2,8 @@
 multi-graph matching (GA-GM) in plain PyTorch, the plain version of the
 fused CUDA solver (``ops/gagm.py``, ``csrc/gagm.cu``).
 
-Counterpart of ``ttdg_mgm_tpu/graph/solvers.py`` (single-cluster path).
+Counterpart of ``ttdg_mgm_tpu/graph/solvers.py``: HiPPI, GA-GM and the
+multi-cluster GA-GM (MGM-Mixture, :func:`ga_gm_mixture`).
 Joint matrices over ``G`` graphs of at most ``M`` nodes are ``(G*M, G*M)`` /
 ``(G*M, U)`` with each graph's valid nodes first in its block; the solvers
 run without gradients.  Loops and stop tests run on the host, as Python
@@ -22,6 +23,21 @@ from ttdg_mgm_torch.ops.sinkhorn import sinkhorn, sinkhorn_batched, sinkhorn_pro
 
 def _fro(x):
     return torch.sqrt(torch.sum(torch.square(x)))
+
+
+def _mutual_argmax(X, ms=None, n_univ=None):
+    """Round each ``(M, U)`` block of ``X (G, M, U)`` to a hard partial
+    permutation: ``(i, j)`` is kept when ``j`` is row ``i``'s argmax, ``i``
+    is column ``j``'s, and row ``i`` has a positive entry (first index on
+    ties).  ``ms`` and ``n_univ`` are unused, as in the JAX package."""
+    G, M, U = X.shape
+    row_best = torch.argmax(X, dim=-1)
+    col_best = torch.argmax(X, dim=-2)
+    cols = torch.arange(U, device=X.device)[None, None, :]
+    rows = torch.arange(M, device=X.device)[None, :, None]
+    one = (cols == row_best[..., None]) & (rows == col_best[:, None, :])
+    nonzero = X.amax(dim=-1, keepdim=True) > 0
+    return (one & nonzero).to(X.dtype)
 
 
 def anneal_taus(sk_tau0: float, sk_gamma: float, min_tau: float):
@@ -164,3 +180,75 @@ def final_hungarian_round(A, W, U, ms, n_univ: int, *, quad_weight: float = 1.0,
                        n_univ, tau=tau, sk_iter=sk_iter, max_iter=mgm_iter, tol=tol,
                        quad_weight=quad_weight, num_graphs=G, M=M, exact_hungarian=True)
     return U
+
+
+def _cluster_affinity(A, W, U, ms, G: int, M: int, *, quad_weight: float = 1.0,
+                      scale: float = 1.0):
+    """The graphs' pairwise affinity ``Alpha (G, G)``, zero on the diagonal:
+    ``sum(W_ij * X_ij) + exp(-||X_ij^T A_i X_ij - A_j|| / scale) * qw`` with
+    ``X_ij = U_i U_j^T``."""
+    Ug = U.reshape(G, M, -1)
+    X = torch.einsum("imu,jnu->ijmn", Ug, Ug)
+    Wb = W.reshape(G, M, G, M).permute(0, 2, 1, 3)
+    term1 = (Wb * X).sum(dim=(-2, -1))
+    Ab = torch.stack([A[g * M:(g + 1) * M, g * M:(g + 1) * M] for g in range(G)])
+    XtA = torch.einsum("ijmn,imk->ijnk", X, Ab)
+    quad = torch.einsum("ijnk,ijkl->ijnl", XtA, X)
+    diff = quad - Ab[None, :]
+    term2 = torch.exp(-torch.sqrt(torch.square(diff).sum(dim=(-2, -1)) + 1e-20)
+                      / scale) * quad_weight
+    eye = torch.eye(G, dtype=torch.bool, device=A.device)
+    return torch.where(eye, torch.zeros((), device=A.device), term1 + term2)
+
+
+@torch.no_grad()
+def ga_gm_mixture(A, W, U0, ms, n_univ: int, num_clusters: int, *, quad_weight: float = 1.0,
+                  cluster_quad_weight: float = 1.0, mgm_iter: int = 200, sk_iter: int = 20,
+                  sk_tau0: float = 0.1, sk_gamma: float = 0.5, min_tau: float = 1e-2,
+                  tol: float = 1e-3):
+    """MGM-Mixture: GA-GM with one spectral-clustering outer step, as the
+    JAX package runs it (the reference's one-stage schedule with all-ones
+    cluster weights):
+
+    1. the annealed Sinkhorn rounds of :func:`ga_gm` from ``U0``;
+    2. the exact LAP projection of each graph's block of that ``U``;
+    3. the graph affinity :func:`_cluster_affinity` (``cluster_quad_weight``);
+    4. :func:`graph.spectral.spectral_clustering` (``normalized``) into
+       ``num_clusters`` clusters;
+    5. steps 1 and 2 again from the projected ``U``.
+
+    The annealed rounds run through ``ops/gagm.py:ga_gm_fused`` with a
+    finale cap of 0: on CUDA tensors the fused GA-GM kernel (``csrc/gagm.cu``,
+    whose rounds with that cap leave the annealed ``U`` as its output),
+    on CPU tensors the plain :func:`ga_gm`.  The projections are the host's
+    exact LAP (``ops/lap.py:hungarian_auto``).  Returns ``(U (G*M, U)
+    float32, clusters (G,) int32, trace)``, ``trace`` a dict of the two
+    passes' annealed ``U``, projected ``U`` and steps per round, and
+    ``alpha``."""
+    from ttdg_mgm_torch.graph.spectral import spectral_clustering
+    from ttdg_mgm_torch.ops.gagm import ga_gm_fused
+
+    A = A.detach().to(torch.float32)
+    W = W.detach().to(torch.float32)
+    U = U0.detach().to(torch.float32)
+    G = ms.shape[0]
+    M = A.shape[0] // G
+    trace = {"annealed": [], "projected": [], "steps": []}
+
+    def run_rounds(U):
+        U, steps = ga_gm_fused(A, W, U, ms, n_univ, quad_weight=quad_weight,
+                               mgm_iter=mgm_iter, sk_iter=sk_iter, sk_tau0=sk_tau0,
+                               sk_gamma=sk_gamma, min_tau=min_tau, tol=tol, lap_iter_cap=0,
+                               return_steps=True)
+        P = _project_blocks(U.reshape(G, M, n_univ), ms.to(torch.int64), n_univ, tau=min_tau,
+                            sk_iter=sk_iter, exact_hungarian=True).reshape(G * M, n_univ)
+        trace["annealed"].append(U)
+        trace["projected"].append(P)
+        trace["steps"].append(steps)
+        return P
+
+    U = run_rounds(U)
+    alpha = _cluster_affinity(A, W, U, ms, G, M, quad_weight=cluster_quad_weight)
+    clusters = spectral_clustering(alpha, num_clusters, normalized=True)
+    U = run_rounds(U)
+    return U, clusters, {**trace, "alpha": alpha}

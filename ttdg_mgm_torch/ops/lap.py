@@ -153,3 +153,23 @@ def _batched(s, n1, n2, *, orient_auto: bool):
         else:
             out[k] = _assign(host[k], r, c)
     return torch.from_numpy(out).reshape(s.shape).to(s.device)
+
+
+def hungarian_scipy(s, n1=None, n2=None) -> np.ndarray:
+    """The exact assignment by SciPy (``linear_sum_assignment`` on ``-s``),
+    maximising ``sum(s * X)`` over each ``(n1, n2)`` corner of ``s (B, N1,
+    N2)`` or ``(N1, N2)``; returns the 0/1 float32 NumPy matrix."""
+    import scipy.optimize as opt
+
+    s = np.asarray(s)
+    squeeze = s.ndim == 2
+    if squeeze:
+        s = s[None]
+    b, nr, nc = s.shape
+    n1 = [nr] * b if n1 is None else np.asarray(n1).reshape(-1)
+    n2 = [nc] * b if n2 is None else np.asarray(n2).reshape(-1)
+    out = np.zeros_like(s, dtype=np.float32)
+    for i in range(b):
+        r, c = opt.linear_sum_assignment(-s[i, :n1[i], :n2[i]])
+        out[i, r, c] = 1.0
+    return out[0] if squeeze else out

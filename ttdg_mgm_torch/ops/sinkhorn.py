@@ -11,7 +11,11 @@ invalid entries exactly 0.
   (replacing ``ttdg_mgm_tpu/ops/pallas/sinkhorn_pallas.py:sinkhorn_pallas``)
   on CUDA tensors without gradient, :func:`sinkhorn` on CPU tensors;
 * :func:`sinkhorn_project`: the orientation-robust projection; its caller
-  picks the solve (HiPPI's projection passes :func:`sinkhorn_batched`).
+  picks the solve (HiPPI's projection passes :func:`sinkhorn_batched`);
+* :func:`sinkhorn_auto`: the orientation-robust projection of square
+  matrices, both orientations solved and selected per instance;
+* :func:`gumbel_sinkhorn`: Sinkhorn samples of Gumbel-perturbed scores, the
+  uniforms given or drawn from a given generator.
 """
 
 from __future__ import annotations
@@ -163,3 +167,41 @@ def sinkhorn_project(s, nrows=None, ncols=None, *, tau=1.0, max_iter: int = 10,
     out = torch.where((nrows <= ncols)[..., None, None], solved[0],
                       solved[1].transpose(-1, -2))
     return out[..., :n1, :n2]
+
+
+def sinkhorn_auto(s, nrows=None, ncols=None, *, tau: float = 1.0, max_iter: int = 10):
+    """Sinkhorn with dummy rows on square ``s (..., n, n)`` whatever the
+    orientation: instances with ``nrows <= ncols`` are solved as they are,
+    the others transposed (both solved, selected per instance)."""
+    if s.shape[-1] != s.shape[-2]:
+        raise ValueError(f"sinkhorn_auto takes square matrices, got {tuple(s.shape)}")
+    batch_shape = s.shape[:-2]
+    n = s.shape[-1]
+    nrows = _counts(nrows, batch_shape, n, s.device)
+    ncols = _counts(ncols, batch_shape, n, s.device)
+    fwd = sinkhorn(s, nrows, ncols, tau=tau, max_iter=max_iter, dummy_row=True)
+    bwd = sinkhorn(s.transpose(-1, -2), ncols, nrows, tau=tau, max_iter=max_iter,
+                   dummy_row=True).transpose(-1, -2)
+    return torch.where((nrows <= ncols)[..., None, None], fwd, bwd)
+
+
+def gumbel_sinkhorn(s, uniforms=None, nrows=None, ncols=None, *, generator=None,
+                    tau: float = 1.0, max_iter: int = 10, sample_num: int = 5,
+                    dummy_row: bool = False):
+    """``sample_num`` Sinkhorn projections of ``s + g`` stacked on a new
+    leading axis, ``g = -log(-log(u + 1e-20) + 1e-20)`` Gumbel noise from
+    uniforms ``u``: the given ``uniforms (sample_num, *s.shape)``, or drawn
+    on ``s``'s device from ``generator`` (random draws are inputs: the
+    JAX package draws them from its key, ``jax.random.split(key,
+    sample_num)``)."""
+    if uniforms is None:
+        if generator is None:
+            raise ValueError("gumbel_sinkhorn needs its uniforms or a generator to draw them")
+        uniforms = torch.rand((sample_num, *s.shape), generator=generator, device=s.device,
+                              dtype=torch.float32)
+    if uniforms.shape[1:] != s.shape:
+        raise ValueError(f"uniforms {tuple(uniforms.shape)} do not match scores "
+                         f"{tuple(s.shape)}")
+    g = -torch.log(-torch.log(uniforms + 1e-20) + 1e-20)
+    return torch.stack([sinkhorn(s + g[k], nrows, ncols, tau=tau, max_iter=max_iter,
+                                 dummy_row=dummy_row) for k in range(uniforms.shape[0])])

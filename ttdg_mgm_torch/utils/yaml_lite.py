@@ -1,4 +1,5 @@
-"""A reader for the YAML subset the configuration files use, with no PyYAML.
+"""A reader and a writer for the YAML subset the configuration files use,
+with no PyYAML.
 
 ``safe_load(text)`` returns what ``yaml.safe_load`` returns on:
 
@@ -16,6 +17,14 @@ resolvers' regular expressions and constructors below are PyYAML's
 scalar are ``None``, ``0x1f`` and ``0o``-less ``017`` are integers, and
 ``2024-01-31`` is a date.  Anchors, aliases, tags, block scalars (``|``,
 ``>``) and multi-document streams raise :class:`YAMLError`.
+
+``safe_dump(data)`` writes nested dicts, lists, strings, numbers, booleans
+and None as block mappings with sorted keys, lists as block sequences of
+scalars or flow collections, each scalar as ``yaml.safe_dump`` would
+resolve it back: a string plain only where it reads back as itself, else
+double-quoted with escapes; a float in PyYAML's form (``1.0e-05``,
+``.inf``, ``.nan``).  ``safe_load`` and ``yaml.safe_load`` read its text
+back to ``data``.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ from __future__ import annotations
 import datetime
 import re
 
-__all__ = ["YAMLError", "safe_load"]
+__all__ = ["YAMLError", "safe_dump", "safe_load"]
 
 
 class YAMLError(ValueError):
@@ -388,3 +397,75 @@ def safe_load(text: str):
     if i != len(lines):
         raise YAMLError(f"unexpected line {lines[i][1]!r}")
     return value
+
+
+# -- writer ------------------------------------------------------------------------
+
+_SAFE_PLAIN = re.compile(r"^[A-Za-z_./][A-Za-z0-9_./-]*$")
+
+
+def _quoted(s: str) -> str:
+    out = []
+    for c in s:
+        o = ord(c)
+        if c in '"\\':
+            out.append("\\" + c)
+        elif 0x20 <= o < 0x7f:
+            out.append(c)
+        elif o <= 0xFFFF:
+            out.append(f"\\u{o:04x}")
+        else:
+            out.append(f"\\U{o:08x}")
+    return '"' + "".join(out) + '"'
+
+
+def _scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v).lower()
+        # a YAML 1.1 float needs a dot before its exponent
+        return text.replace("e", ".0e", 1) if "." not in text and "e" in text else text
+    if isinstance(v, str):
+        return v if _SAFE_PLAIN.match(v) and resolve_plain(v) == v else _quoted(v)
+    raise YAMLError(f"cannot write a {type(v).__name__}")
+
+
+def _flow(v) -> str:
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{_scalar(k)}: {_flow(v[k])}" for k in sorted(v)) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_flow(x) for x in v) + "]"
+    return _scalar(v)
+
+
+def _dump_mapping(node: dict, indent: int, lines: list) -> None:
+    pad = " " * indent
+    for k in sorted(node):
+        v = node[k]
+        key = _scalar(k)
+        if isinstance(v, dict) and v:
+            lines.append(f"{pad}{key}:")
+            _dump_mapping(v, indent + 2, lines)
+        elif isinstance(v, (list, tuple)) and v:
+            lines.append(f"{pad}{key}:")
+            lines.extend(f"{pad}- {_flow(x)}" for x in v)
+        else:
+            lines.append(f"{pad}{key}: {_flow(v)}")
+
+
+def safe_dump(data) -> str:
+    """``data`` as block-style YAML text with sorted keys."""
+    if isinstance(data, dict) and data:
+        lines = []
+        _dump_mapping(data, 0, lines)
+        return "\n".join(lines) + "\n"
+    return _flow(data) + "\n"
