@@ -114,7 +114,9 @@ Phases, each of which exits non-zero when it fails:
    it stands (R50-FPN, batch 8, bf16 by ``SOLVER.AMP.ENABLED``, the square
    800 canvas) and random weights, on synthetic splits of its
    ``DATASETS.TRAIN`` with polygon ground truth (the 3 committed JPEGs, 4
-   PNG frames of 384 x 288, 3 of 1225 x 966) and a ``BKAI_test`` split for
+   uncompressed TIFF frames of 384 x 288, 3 LZW TIFF frames of 1225 x 966
+   with the horizontal predictor, as the datasets ship them; the pixels
+   are the PNG frames' of earlier versions) and a ``BKAI_test`` split for
    the validation loss: 4 steps (checkpoints and validation every 2), the
    same command to 6 steps resumed at step 4 bit for bit, the same again
    from a copy holding only the step-4 checkpoint whose final checkpoint
@@ -203,7 +205,17 @@ Phases, each of which exits non-zero when it fails:
    (``phase_long_tail``: ``HyperGraphBlock`` at 248 nodes of 256 channels,
    spectral clustering on 4 x 4 and 8 x 8 affinities, the matching losses'
    values and gradients, ``gumbel_sinkhorn`` on given uniforms,
-   ``sinkhorn_auto`` on mixed orientations).
+   ``sinkhorn_auto`` on mixed orientations);
+16. the image formats the datasets ship (``phase_formats``):
+   ``train_net_torch.main(["--eval-only", "--config",
+   "configs/test_segment.yaml", ...])`` as shipped (bf16, batch 4) with
+   ``TEST.DICE_THRES 0.0`` on ``ETIS_LaribPolypDB_test`` (2 LZW TIFF frames
+   of 1225 x 966, written here) and ``Kvasir_SEG_test`` (2 committed
+   progressive JPEGs of 720 x 576), finite Dice, E and S, kernels A (bf16)
+   and B launched and held on the call's own inputs; every file of the
+   splits, an uncompressed TIFF and a BMP of the first frame and the
+   committed CMYK and 4:1:1 JPEGs decoded against the committed digests of
+   Pillow's decode, each format's decode seconds per image logged.
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off), and cuDNN runs its
@@ -215,8 +227,8 @@ outside the tensor cores, 16 transcendentals per clock per SM (4.18e12/s at
 limit (nvidia-smi), one JSON object with each kernel's numbers (its
 launches on the TTA, source, eval-only command-line, train command-line,
 mean-teacher and cross-domain mean-teacher command-line paths, the VGG
-paths of phase 13, the DP paths of phase 14 and the mixture's TTA steps of
-phase 15 under ``launches_by_path``; the holds on the
+paths of phase 13, the DP paths of phase 14, the mixture's TTA steps of
+phase 15 and the eval-only call of phase 16 under ``launches_by_path``; the holds on the
 command-line paths' own inputs under ``held_on_paths``), and the
 device line ``{"ok": true, "device":
 {...}}``.
@@ -247,6 +259,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
@@ -2198,21 +2211,246 @@ def phase_cli_bf16(torch, dev, card: str = "", hw=DRISHTI_HW, opts=(), model_kw=
 # -- phase 10: source training through the command line --------------------------
 
 #: the synthetic splits of configs/seg_res50fpn_source.yaml's DATASETS.TRAIN
-#: other than BKAI (the committed JPEGs): (split, images, (h, w))
-POLYP_PNG_SPLITS = (("CVC_ClinicDB_train", 4, (288, 384)),
-                    ("ETIS_LaribPolypDB_train", 3, (966, 1225)))
+#: other than BKAI (the committed JPEGs): (split, images, (h, w), LZW), as
+#: the datasets ship them: TIFF frames, uncompressed or LZW-coded after the
+#: horizontal predictor
+POLYP_SPLITS = (("CVC_ClinicDB_train", 4, (288, 384), False),
+                ("ETIS_LaribPolypDB_train", 3, (966, 1225), True))
 #: the kernels each train step must launch under the bf16 policy
 TRAIN_COUNTERS = ("roi_pool_bf16", "roi_pool_backward_bf16", "sinkhorn")
 #: batches the train loader's host time is measured on
 LOADER_BATCHES = 6
 
 
-def write_polyp_split(root: str, split: str, n: int, hw, seed: int = 0) -> None:
+#: the code width of the k-th code after a Clear code in TIFF LZW (9 bits
+#: up to the table's entry 510, then 10, 11 and 12; libtiff's early change)
+def _lzw_width(k: int) -> int:
+    return 9 if k < 254 else 10 if k < 766 else 11 if k < 1790 else 12
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW of ``data`` (libtiff's ``LZWEncode``): greedy matches, a Clear
+    code first and whenever the table fills at 4094 entries, MSB-first codes
+    at libtiff's widths, EOI last."""
+    import numpy as np
+
+    codes, ks = [256], [0]
+    table, nxt, k = {}, 258, 0
+    if data:
+        get = table.get
+        w = data[0]
+        for c in data[1:]:
+            key = (w << 8) | c
+            v = get(key)
+            if v is not None:
+                w = v
+                continue
+            codes.append(w)
+            ks.append(k)
+            k += 1
+            table[key] = nxt
+            nxt += 1
+            w = c
+            if nxt == 4094:
+                codes.append(256)
+                ks.append(k)
+                table.clear()
+                nxt, k = 258, 0
+        codes.append(w)
+        ks.append(k)
+        k += 1
+    codes.append(257)
+    ks.append(k)
+    widths = np.array([_lzw_width(x) for x in range(max(ks) + 1)], np.int64)[np.array(ks)]
+    start = np.concatenate([[0], np.cumsum(widths)[:-1]])
+    j = np.arange(int(widths.sum())) - np.repeat(start, widths)
+    bits = (np.repeat(np.array(codes, np.int64), widths) >> (np.repeat(widths, widths) - 1 - j)) & 1
+    return np.packbits(bits.astype(np.uint8)).tobytes()
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits (TIFF compression 32773): runs of 3 to 128 equal bytes as a
+    repeat, the rest in literal runs of up to 128."""
+    out, i, n = bytearray(), 0, len(data)
+    lit = bytearray()
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            if lit:
+                out += bytes([len(lit) - 1]) + lit
+                lit = bytearray()
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+        else:
+            lit.append(data[i])
+            i += 1
+            if len(lit) == 128:
+                out += bytes([127]) + lit
+                lit = bytearray()
+    if lit:
+        out += bytes([len(lit) - 1]) + lit
+    return bytes(out)
+
+
+#: the coders of the TIFF compressions :func:`tiff_bytes` writes, by code:
+#: none, LZW, Deflate (8 and Adobe's 32946) and PackBits
+TIFF_CODERS = {1: bytes, 5: lzw_encode, 8: zlib.compress, 32946: zlib.compress,
+               32773: packbits_encode}
+
+
+def pack_samples(samples, bits: int, order: str = "<") -> bytes:
+    """Rows of samples ``(h, w, n)`` as bytes at ``bits`` bits each (16-bit
+    samples in byte order ``order``), each row starting on a byte."""
+    import numpy as np
+
+    h = samples.shape[0]
+    flat = samples.reshape(h, -1).astype(np.int64)
+    if bits == 16:
+        return flat.astype(order + "u2").tobytes()
+    if bits == 8:
+        return flat.astype(np.uint8).tobytes()
+    b = ((flat[..., None] >> np.arange(bits - 1, -1, -1)) & 1).reshape(h, -1)
+    b = np.concatenate([b, np.zeros((h, -b.shape[1] % 8), np.int64)], 1)
+    return np.packbits(b.astype(np.uint8), axis=1).tobytes()
+
+
+def tiff_bytes(samples, photo: int = 2, bits: int = 8, order: str = "<", comp: int = 1,
+               pred: int = 1, planar: int = 1, tile=None, rps: int = 16, extra=(),
+               colormap=None, orientation=None) -> bytes:
+    """A classic TIFF of ``samples (H, W, spp)`` with photometric
+    interpretation ``photo`` at ``bits`` bits per sample, in byte order
+    ``order`` (``"<"`` or ``">"``): strips of ``rps`` rows or tiles ``(tw,
+    th)``, chunky or planar (``planar`` 2), each chunk coded by compression
+    ``comp`` (:data:`TIFF_CODERS`) after the horizontal predictor with
+    ``pred`` 2 (each sample less its left neighbour); ``extra`` samples,
+    a ``colormap`` and an ``orientation`` as their fields give them.  A
+    field's values stand in its entry when they fit in 4 bytes, as TIFF
+    has it, and out of line otherwise."""
+    import struct
+
+    import numpy as np
+
+    H, W, spp = samples.shape
+    planes = [samples[..., p:p + 1] for p in range(spp)] if planar == 2 else [samples]
+    chunks = []
+    for plane in planes:
+        if tile:
+            tw, th = tile
+            for y in range(0, H, th):
+                for x in range(0, W, tw):
+                    t = np.zeros((th, tw, plane.shape[2]), np.int64)
+                    part = plane[y:y + th, x:x + tw]
+                    t[:part.shape[0], :part.shape[1]] = part
+                    chunks.append(t)
+        else:
+            chunks += [plane[y:y + rps].astype(np.int64) for y in range(0, H, rps)]
+    data = []
+    for c in chunks:
+        if pred == 2:
+            c = c.copy()
+            c[:, 1:] = (c[:, 1:] - c[:, :-1]) % (1 << bits)
+        data.append(TIFF_CODERS[comp](pack_samples(c, bits, order)))
+    body = bytearray(b"II*\x00" if order == "<" else b"MM\x00*") + bytearray(4)
+    offsets = []
+    for d in data:
+        offsets.append(len(body))
+        body += d
+    entries = [(256, 4, [W]), (257, 4, [H]), (258, 3, [bits] * spp), (259, 3, [comp]),
+               (262, 3, [photo]), (277, 3, [spp]), (284, 3, [planar])]
+    if tile:
+        entries += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, 4, offsets),
+                    (325, 4, [len(d) for d in data])]
+    else:
+        entries += [(273, 4, offsets), (278, 3, [rps]), (279, 4, [len(d) for d in data])]
+    if pred != 1:
+        entries.append((317, 3, [pred]))
+    if extra:
+        entries.append((338, 3, list(extra)))
+    if colormap is not None:
+        entries.append((320, 3, list(colormap)))
+    if orientation is not None:
+        entries.append((274, 3, [orientation]))
+    entries.sort()
+    fields = []
+    for tag, typ, values in entries:
+        code = {3: "H", 4: "I"}[typ]
+        raw = struct.pack(f"{order}{len(values)}{code}", *values)
+        if len(raw) > 4:
+            body += bytes(len(body) % 2)
+            fields.append((tag, typ, len(values), struct.pack(order + "I", len(body))))
+            body += raw
+        else:
+            fields.append((tag, typ, len(values), raw + bytes(4 - len(raw))))
+    body += bytes(len(body) % 2)
+    struct.pack_into(order + "I", body, 4, len(body))
+    body += struct.pack(order + "H", len(fields))
+    for tag, typ, n, value in fields:
+        body += struct.pack(order + "HHI", tag, typ, n) + value
+    return bytes(body + bytes(4))
+
+
+def bmp_rows(values, bits: int) -> bytes:
+    """Rows ``(h, w)`` of ``bits``-bit values (or ``(h, w, n)`` bytes) as a
+    BMP stores them: bottom-up, each padded to 4 bytes."""
+    import numpy as np
+
+    h, w = values.shape[:2]
+    if values.ndim == 3:
+        raw = values.astype(np.uint8).reshape(h, -1)
+    elif bits == 16:
+        raw = values.astype("<u2").view(np.uint8).reshape(h, -1)
+    else:
+        raw = np.frombuffer(pack_samples(values[..., None], bits), np.uint8).reshape(h, -1)
+    stride = ((w * bits + 31) >> 3) & ~3
+    out = np.zeros((h, stride), np.uint8)
+    out[:, :raw.shape[1]] = raw
+    return out[::-1].tobytes()
+
+
+def bmp_bytes(w: int, h: int, bits: int, pixels: bytes, comp: int = 0, masks=None,
+              header: int = 40, palette: bytes = b"", colors: int = 0,
+              top_down: bool = False) -> bytes:
+    """A BMP of ``w x h`` at ``bits`` bits per pixel with the pixel data
+    ``pixels`` (:func:`bmp_rows`, or RLE with ``comp`` 1 or 2) under an
+    info header of ``header`` bytes; ``masks`` go after a 40-byte header or
+    inside a longer one."""
+    import struct
+
+    after = b""
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits, comp,
+                           len(pixels), 2835, 2835, colors, 0)
+        if masks is not None and header == 40:
+            after = struct.pack("<3I", *masks[:3])
+        elif masks is not None:
+            info += struct.pack(f"<{len(masks)}I", *masks)
+        info += bytes(header - len(info))
+    off = 14 + len(info) + len(after) + len(palette)
+    return (b"BM" + struct.pack("<IHHI", off + len(pixels), 0, 0, off) + info + after
+            + palette + pixels)
+
+
+def _polyp_record(i: int, fname: str, hw, ring, area: int) -> tuple[dict, dict]:
+    x0, y0 = ring.min(0)
+    x1, y1 = ring.max(0)
+    return ({"id": i, "file_name": fname, "height": hw[0], "width": hw[1]},
+            {"id": i + 1, "image_id": i, "category_id": 1, "iscrowd": 0,
+             "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
+             "area": float(area), "segmentation": [[round(float(v), 2) for v in ring.reshape(-1)]]})
+
+
+def write_polyp_split(root: str, split: str, n: int, hw, seed: int, lzw: bool) -> None:
     """``n`` colonoscopy-like frames of ``hw`` in the reference's layout of
-    ``split`` (its entry of ``ttdg_mgm_torch/data/builtin.py:SPLITS``), PNG:
-    a lit pink mucosa with darker folds and one polyp per frame, a raised
-    red ellipse with a highlight; its 64-vertex polygon ring is the ground
-    truth (class 1, "polyp"), the datasets' own annotation form."""
+    ``split`` (its entry of ``ttdg_mgm_torch/data/builtin.py:SPLITS``) as
+    RGB TIFFs, uncompressed or (``lzw``) LZW-coded after the horizontal
+    predictor: a lit pink mucosa with darker folds and one polyp per frame,
+    a raised red ellipse with a highlight; its 64-vertex polygon ring is the
+    ground truth (class 1, "polyp"), the datasets' own annotation form.
+    The pixels do not depend on the coding."""
     import numpy as np
 
     from ttdg_mgm_torch.data.builtin import SPLITS
@@ -2236,18 +2474,47 @@ def write_polyp_split(root: str, split: str, n: int, hw, seed: int = 0) -> None:
         img[polyp] = img[polyp] * [0.9, 0.55, 0.5] + [20, 0, 0]
         spot = ((yy - cy + 0.4 * ry) / (0.15 * ry)) ** 2 + ((xx - cx) / (0.2 * rx)) ** 2 <= 1
         img[spot] = 245
-        write_png(os.path.join(img_dir, f"p{i}.png"), np.clip(img, 0, 255).astype(np.uint8))
+        fname = f"p{i}.tif"
+        img = np.clip(img, 0, 255).astype(np.uint8)
+        with open(os.path.join(img_dir, fname), "wb") as f:
+            f.write(tiff_bytes(img, comp=5, pred=2) if lzw else tiff_bytes(img))
         ring = np.stack([cx + rx * np.cos(t), cy + ry * np.sin(t)], 1)
-        x0, y0 = ring.min(0)
-        x1, y1 = ring.max(0)
-        images.append({"id": i, "file_name": f"p{i}.png", "height": h, "width": w})
-        anns.append({"id": i + 1, "image_id": i, "category_id": 1, "iscrowd": 0,
-                     "bbox": [float(x0), float(y0), float(x1 - x0), float(y1 - y0)],
-                     "area": float(polyp.sum()),
-                     "segmentation": [[round(float(v), 2) for v in ring.reshape(-1)]]})
+        im, ann = _polyp_record(i, fname, hw, ring, int(polyp.sum()))
+        images.append(im)
+        anns.append(ann)
     with open(os.path.join(root, json_rel), "w") as f:
         json.dump({"images": images, "annotations": anns,
                    "categories": [{"id": 1, "name": "polyp"}]}, f)
+
+
+def polyp_frame_int(hw, seed: int):
+    """A colonoscopy-like frame of ``hw`` made with integer arithmetic only,
+    so its bytes are the same on every host (the committed digests of its
+    decode hold on any machine): a lit mucosa with folds (a triangle wave),
+    uniform integer noise, one polyp (an integer ellipse) with a highlight.
+    Returns the ``(H, W, 3)`` uint8 frame and the polyp's ``(cy, cx, ry,
+    rx)``."""
+    import numpy as np
+
+    h, w = hw
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:h, :w]
+    yy, xx = yy.astype(np.int64), xx.astype(np.int64)
+    light = 1000 - 550 * ((2 * yy - h) ** 2 * w * w + (2 * xx - w) ** 2 * h * h) // (
+        4 * h * h * w * w)
+    period = max(w // 12, 2)
+    tri = np.abs((xx + int(rng.randint(period))) % period * 2 - period)
+    shade = light * (700 + 300 * tri // period)                  # in millionths
+    img = np.stack([225 * shade, 120 * shade, 110 * shade], -1) // 1000000
+    img += rng.randint(-6, 7, (h, w, 3))
+    cy, cx = int(rng.randint(3 * h // 10, 7 * h // 10)), int(rng.randint(3 * w // 10, 7 * w // 10))
+    ry, rx = int(rng.randint(h // 10, h // 5)), int(rng.randint(w // 10, w // 5))
+    polyp = ((yy - cy) * rx) ** 2 + ((xx - cx) * ry) ** 2 <= (rx * ry) ** 2
+    img[polyp] = img[polyp] * np.array([9, 11, 10]) // np.array([10, 20, 20]) + [20, 0, 0]
+    sy, sx = max(ry * 15 // 100, 1), max(rx * 20 // 100, 1)
+    spot = ((yy - cy + 4 * ry // 10) * sx) ** 2 + ((xx - cx) * sy) ** 2 <= (sx * sy) ** 2
+    img[spot] = 245
+    return np.clip(img, 0, 255).astype(np.uint8), (cy, cx, ry, rx)
 
 
 def copy_jpeg_split(root: str, split: str) -> None:
@@ -2272,8 +2539,8 @@ def write_train_data(data: str) -> None:
     every call)."""
     copy_jpeg_split(data, "BKAI_train")
     copy_jpeg_split(data, "BKAI_test")
-    for i, (split, n, hw) in enumerate(POLYP_PNG_SPLITS):
-        write_polyp_split(data, split, n, hw, seed=i)
+    for i, (split, n, hw, lzw) in enumerate(POLYP_SPLITS):
+        write_polyp_split(data, split, n, hw, i, lzw)
 
 
 def _sync(torch, dev) -> None:
@@ -2661,24 +2928,40 @@ def _check_train(record, what: str, kinds, ckdir: str, want_ckpts, counters, val
               f"{what}: validation loss {val}, expected at {list(val_iters)}")
 
 
-def loader_host_s(record, batches: int) -> list:
+def loader_host_s(record, batches: int) -> tuple[list, list]:
     """The host seconds per batch of the call's train loader (same records,
     geometry and seed) on the calling thread, with no step or hook to hide
-    them."""
+    them, and the seconds of each batch spent decoding files (in
+    ``data/loader.py:load_image``)."""
+    from ttdg_mgm_torch.data import loader as loader_mod
+
     build_loader, a, k = record["loader_call"]
     loader = build_loader(*a, **{**k, "prefetch": 0})
-    out = []
+    load, spent = loader_mod.load_image, [0.0]
+
+    def timed_load(path):
+        t0 = time.perf_counter()
+        try:
+            return load(path)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    out, decode = [], []
+    loader_mod.load_image = timed_load
     try:
         for _ in range(batches):
+            spent[0] = 0.0
             t0 = time.perf_counter()
             next(loader)
             out.append(time.perf_counter() - t0)
+            decode.append(spent[0])
     finally:
+        loader_mod.load_image = load
         loader.close()
-    return out
+    return out, decode
 
 
-def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
+def phase_train_cli(torch, dev, data: str, card: str = "", opts=(), eval_opts=(),
                     counters=TRAIN_COUNTERS, what: str = "train cli"):
     """Source training as a user runs it: ``train_net_torch.main(["--config",
     "configs/seg_res50fpn_source.yaml", ...])`` at full width with the
@@ -2686,10 +2969,12 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
     ``SOLVER.AMP.ENABLED``, ``BASE_LR`` 0.0025 with its warm-up,
     ``MIN_SIZE_TRAIN`` choice, the square 800 canvas, 32 GT slots), random
     weights (``MODEL.WEIGHTS ""``), on synthetic splits of its
-    ``DATASETS.TRAIN`` in the reference's layout with polygon ground truth:
+    ``DATASETS.TRAIN`` in the reference's layout with polygon ground truth
+    under ``data`` (:func:`write_train_data`):
     ``BKAI_train`` the 3 committed 1280 x 959 JPEGs, ``CVC_ClinicDB_train``
-    4 PNG frames of 384 x 288, ``ETIS_LaribPolypDB_train`` 3 PNG frames of
-    1225 x 966 (10 records), and ``BKAI_test`` the JPEGs again for the
+    4 uncompressed TIFF frames of 384 x 288, ``ETIS_LaribPolypDB_train`` 3
+    LZW TIFF frames of 1225 x 966 with the horizontal predictor (10
+    records; :data:`POLYP_SPLITS`), and ``BKAI_test`` the JPEGs again for the
     validation loss.  Call 1 trains 4 steps (checkpoints every 2, the
     validation loss every 2), its first step also copying its kernels'
     inputs; call 2 the same command to 6 steps, resumed at step 4 bit for
@@ -2711,9 +2996,6 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        data = os.path.join(tmp, "data")
-        write_train_data(data)
         cfg = os.path.join(HERE, "configs", "seg_res50fpn_source.yaml")
         out = os.path.join(tmp, "out")
 
@@ -2722,9 +3004,8 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
                     "MODEL.WEIGHTS", "", "OUTPUT_DIR", out_dir, "SOLVER.MAX_ITER", str(max_iter),
                     "SOLVER.CHECKPOINT_PERIOD", "2", "TEST.EVAL_PERIOD", "2", *opts]
 
-        log(f"{what}: 10 training records (3 JPEG 1280x959, 4 PNG 384x288, 3 PNG 1225x966) "
-            f"and BKAI_test written in {time.perf_counter() - t0:.1f} s; "
-            f"train_net_torch.main({' '.join(argv(out, 4)[2:4])} ...)")
+        log(f"{what}: 10 training records (3 JPEG 1280x959, 4 TIFF 384x288, 3 LZW TIFF "
+            f"1225x966) and BKAI_test; train_net_torch.main({' '.join(argv(out, 4)[2:4])} ...)")
         ckdir = os.path.join(out, "checkpoints")
         calls = {}
         calls[1] = _train_call(torch, dev, argv(out, 4), f"{what} call 1", kernel_inputs=True)
@@ -2767,7 +3048,7 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
         check([s["losses"]["total_loss"] for s in calls[3]["steps"]]
               == [s["losses"]["total_loss"] for s in calls[2]["steps"]],
               f"{what} call 3: losses differ from call 2's")
-        host_s = loader_host_s(calls[1], LOADER_BATCHES)
+        host_s, decode_s = loader_host_s(calls[1], LOADER_BATCHES)
 
         # after 6 steps from random weights every polyp score is below the
         # config's SCORE_THRESH_TEST 0.05: no detection, and Dice, E and S of
@@ -2807,13 +3088,14 @@ def phase_train_cli(torch, dev, card: str = "", opts=(), eval_opts=(),
     steps = [s["ms"] for c in trained for s in calls[c]["steps"][1:]]
     ratio = statistics.median(host_s) * 1e3 / statistics.median(steps)
     log(f"{what} ({card}): the loader's host time per batch of 8 on one thread "
-        f"{[round(x, 3) for x in host_s]} s, median {statistics.median(host_s):.3f} s, against "
-        f"the median step after the first {statistics.median(steps):.1f} ms: loader / step "
-        f"{ratio:.1f}")
+        f"{[round(x, 3) for x in host_s]} s, median {statistics.median(host_s):.3f} s, of it "
+        f"decoding files {[round(x, 3) for x in decode_s]} s, against the median step after "
+        f"the first {statistics.median(steps):.1f} ms: loader / step {ratio:.1f}")
     held["pools"].update(held_eval.pop("pools"))
     return dict(summary=summary, launches=calls[1]["launches"], checkpoint_mib=ck_mib,
                 step_losses=[s["losses"] for s in calls[1]["steps"]],
-                loader_host_s=host_s, loader_over_step=ratio, eval_metrics=metrics,
+                loader_host_s=host_s, loader_decode_s=decode_s, loader_over_step=ratio,
+                eval_metrics=metrics,
                 eval_main_s=calls[4]["main_s"], eval_launches=calls[4]["launches"],
                 peak_gib=calls[1]["peak_gib"], held={**held, **held_eval})
 
@@ -3215,14 +3497,15 @@ def phase_mt_cli(torch, dev, card: str = "", opts=(), eval_opts=(), counters=TRA
             eval_counters, split_reps, (("modelTeacher", ["TEST.EVAL_STU", "False"]),
                                         ("modelStudent", [])),
             on_call1=copy_and_ema, snapshots=True)
-        host_s = loader_host_s(calls[1], MT_LOADER_BATCHES)
+        host_s, decode_s = loader_host_s(calls[1], MT_LOADER_BATCHES)
 
     med = res["mt_step_median_ms"]
     ratio = statistics.median(host_s) * 1e3 / med
     log(f"mt cli ({card}): the two-crop loader's host time per batch (4 + 4 records, 16 views, "
         f"one thread) {[round(x, 3) for x in host_s]} s, median {statistics.median(host_s):.3f} "
-        f"s, against the median MT step {med:.1f} ms: loader / step {ratio:.1f}")
-    return dict(res, loader_host_s=host_s, loader_over_step=ratio)
+        f"s, of it decoding files {[round(x, 3) for x in decode_s]} s, against the median MT "
+        f"step {med:.1f} ms: loader / step {ratio:.1f}")
+    return dict(res, loader_host_s=host_s, loader_decode_s=decode_s, loader_over_step=ratio)
 
 
 # -- phase 12: the mean-teacher trainer with its cross-domain head ------------------------
@@ -3549,8 +3832,8 @@ def vgg_costs(torch, dev, trunk_shape=VGG_TRUNK_SHAPE, test_shapes=VGG_TEST_SHAP
     return out
 
 
-def phase_vgg(torch, dev, card: str = "", mt_data: str | None = None, opts=(), eval_opts=(),
-              counters=TRAIN_COUNTERS, legacy_opts=(), split_reps: int = 1):
+def phase_vgg(torch, dev, train_data: str, card: str = "", mt_data: str | None = None, opts=(),
+              eval_opts=(), counters=TRAIN_COUNTERS, legacy_opts=(), split_reps: int = 1):
     """The VGG16-BN family at full width (FPN 256, box head 1024, mask head
     256, 1000 proposals, universe 32, 60 nodes per graph; the trunk float32
     under each config's bf16 policy, as the JAX model's), with
@@ -3561,8 +3844,8 @@ def phase_vgg(torch, dev, card: str = "", mt_data: str | None = None, opts=(), e
     1. source training through the command line, phase 10's calls
        (:func:`phase_train_cli`) with the override: 4 steps of
        ``configs/seg_res50fpn_source.yaml`` (batch 8, square 800 canvas) on
-       phase 10's synthetic splits, resumed to 6 bit for bit, the same from
-       a copy of the step-4 file, then ``--eval-only --config
+       phase 10's synthetic splits (``train_data``), resumed to 6 bit for
+       bit, the same from a copy of the step-4 file, then ``--eval-only --config
        configs/test_segment.yaml`` on the final file (every tensor loaded,
        finite Dice, E and S); kernels A (bf16), C (bf16) and D launched on
        every step;
@@ -3599,7 +3882,7 @@ def phase_vgg(torch, dev, card: str = "", mt_data: str | None = None, opts=(), e
     key, value, why = VGG_OVERRIDE
     log(f"vgg: override {key} {value}: {why}")
     vgg = [key, value]
-    src = phase_train_cli(torch, dev, card, opts=[*vgg, *opts], eval_opts=[*vgg, *eval_opts],
+    src = phase_train_cli(torch, dev, train_data, card, opts=[*vgg, *opts], eval_opts=[*vgg, *eval_opts],
                           counters=counters, what="vgg train cli")
     log(f"vgg train cli ({card}): checkpoint {src['checkpoint_mib']:.1f} MiB, peak "
         f"{src['peak_gib']:.2f} GiB, eval-only {src['eval_main_s']:.1f} s "
@@ -3912,14 +4195,14 @@ def dp_shard_average(torch, dev, kind: str, size: int, k: dict, metrics, centers
     return {"differs": diff[:8], "n_differs": len(diff)}
 
 
-def phase_dp(torch, dev, card: str = "", phase10_losses=None, opts=(), size: int = 800,
+def phase_dp(torch, dev, data: str, card: str = "", phase10_losses=None, opts=(), size: int = 800,
              hold: bool = True, counters=TRAIN_COUNTERS, dp_counters=DP_COUNTERS,
              model_kw=None) -> dict:
     """Data parallelism (``ttdg_mgm_torch/parallel/``) on the one card:
 
     (a) NCCL at world size 1: ``train_net_torch.main`` with phase 10's
-    command (``configs/seg_res50fpn_source.yaml`` as shipped, its splits
-    written again, the same files) and ``--dist-url tcp://127.0.0.1:<free
+    command (``configs/seg_res50fpn_source.yaml`` as shipped, on its splits
+    under ``data``) and ``--dist-url tcp://127.0.0.1:<free
     port> --num-machines 1``, 2 steps: a process group exists, so the
     reduction runs (its calls, backend and world checked, timed); the
     logged losses of both steps must equal phase 10's first two
@@ -3959,8 +4242,6 @@ def phase_dp(torch, dev, card: str = "", phase10_losses=None, opts=(), size: int
         return res
 
     with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
-        write_train_data(data)
         argv = ["--dist-url", f"tcp://127.0.0.1:{multihost.free_port()}", "--num-machines", "1",
                 "--device", str(dev), "--config",
                 os.path.join(HERE, "configs", "seg_res50fpn_source.yaml"), "--datasets-root",
@@ -4319,6 +4600,188 @@ def phase_long_tail(torch, dev, hg_nodes: int = HG_NODES, hg_dim: int = HG_DIM) 
     return dict(rel_err=errs, hypergraph_ms=hg_ms, spectral=parts)
 
 
+# -- phase 16: eval-only TTA on TIFF and progressive-JPEG polyp splits ----------
+
+FORMATS_DIR = os.path.join(HERE, "tests", "fixtures", "torch_formats")
+#: phase 16's TIFF split: (split, frames, (h, w)), ETIS-LaribPolypDB's size,
+#: and the seed of its first frame (:func:`polyp_frame_int`)
+FORMATS_TIFF = ("ETIS_LaribPolypDB_test", 2, (966, 1225))
+FORMATS_SEED = 200
+#: phase 16's JPEG split: the committed progressive JPEGs of 720 x 576
+FORMATS_JPEG = ("Kvasir_SEG_test", ("k0.jpg", "k1.jpg"))
+#: committed files decoded only for their time and digest: CMYK and 4:1:1
+FORMATS_TIMED = ("cmyk.jpg", "h4v1.jpg")
+
+
+def write_formats_data(root: str) -> dict:
+    """Phase 16's splits under ``root`` in the reference's layout:
+    ``ETIS_LaribPolypDB_test``, ``FORMATS_TIFF``'s frames of
+    :func:`polyp_frame_int` as LZW TIFFs with the horizontal predictor, each
+    with its polyp's 64-vertex polygon ring (class 1), and
+    ``Kvasir_SEG_test``, the committed progressive JPEGs with their polygon
+    ground truth.  Returns each file's path by its key in
+    ``tests/fixtures/torch_formats/digests.json``."""
+    import shutil
+
+    import numpy as np
+
+    from ttdg_mgm_torch.data.builtin import SPLITS
+
+    files = {}
+    split, n, hw = FORMATS_TIFF
+    json_rel, img_rel = SPLITS[split]
+    os.makedirs(os.path.join(root, img_rel), exist_ok=True)
+    images, anns = [], []
+    t = np.linspace(0.0, 2 * np.pi, 64, endpoint=False)
+    for i in range(n):
+        img, (cy, cx, ry, rx) = polyp_frame_int(hw, FORMATS_SEED + i)
+        fname = f"p{i}.tif"
+        files[f"{split}/{fname}"] = path = os.path.join(root, img_rel, fname)
+        with open(path, "wb") as f:
+            f.write(tiff_bytes(img, comp=5, pred=2))
+        ring = np.stack([cx + rx * np.cos(t), cy + ry * np.sin(t)], 1)
+        im, ann = _polyp_record(i, fname, hw, ring, int(np.pi * rx * ry))
+        images.append(im)
+        anns.append(ann)
+    with open(os.path.join(root, json_rel), "w") as f:
+        json.dump({"images": images, "annotations": anns,
+                   "categories": [{"id": 1, "name": "polyp"}]}, f)
+    split, names = FORMATS_JPEG
+    json_rel, img_rel = SPLITS[split]
+    os.makedirs(os.path.join(root, img_rel), exist_ok=True)
+    for fname in names:
+        files[fname] = os.path.join(root, img_rel, fname)
+        shutil.copy(os.path.join(FORMATS_DIR, fname), files[fname])
+    shutil.copy(os.path.join(FORMATS_DIR, "annotations.json"), os.path.join(root, json_rel))
+    return files
+
+
+def image_digest(img) -> str:
+    """SHA-256 of a decoded ``(H, W, 3)`` uint8 image's bytes, with its shape."""
+    import hashlib
+
+    return f"{img.shape[0]}x{img.shape[1]}x{img.shape[2]}:" + hashlib.sha256(
+        img.tobytes()).hexdigest()
+
+
+def decode_timed(paths: dict, digests: dict) -> dict:
+    """Each file of ``paths`` decoded by ``load_image`` (the best of 2 runs,
+    in seconds) and held against its committed digest of Pillow's decode
+    (``digests``, by the same key)."""
+    from ttdg_mgm_torch.data.loader import load_image
+
+    out = {}
+    for key, path in paths.items():
+        best = math.inf
+        for _ in range(2):
+            t0 = time.perf_counter()
+            img = load_image(path)
+            best = min(best, time.perf_counter() - t0)
+        got = image_digest(img)
+        check(got == digests[key], f"formats: {key} decodes to {got}, Pillow's digest is "
+                                   f"{digests[key]}")
+        out[key] = best
+    return out
+
+
+def phase_formats(torch, dev, card: str = "", opts=(), model_kw=None,
+                  counters=("roi_pool_bf16", "gagm"), hold: bool = True) -> dict:
+    """Eval-only TTA on the image formats the datasets ship, as a user runs
+    it: ``train_net_torch.main(["--eval-only", "--config",
+    "configs/test_segment.yaml", ...])`` with no precision override (bf16),
+    the flagship's seeded random weights and ``TEST.DICE_THRES 0.0`` (as in
+    phase 8), ``TEST.BATCH`` 4, on ``ETIS_LaribPolypDB_test`` (2 LZW TIFF
+    frames of 1225 x 966 with the horizontal predictor) and
+    ``Kvasir_SEG_test`` (2 committed progressive JPEGs of 720 x 576), each
+    with polygon ground truth (:func:`write_formats_data`).  Before the call
+    every file of the splits, an uncompressed TIFF and a 24-bit BMP of the
+    first TIFF frame's pixels, and the committed CMYK and 4:1:1 JPEGs are
+    decoded by ``load_image`` and held against the committed SHA-256
+    digests of Pillow's decode (``tests/fixtures/torch_formats/
+    digests.json``, made where Pillow is), each format's decode seconds per
+    image logged.  Passes only if both splits give finite Dice, E and S,
+    the kernels of ``counters`` launched and the float32 pool did not, no
+    Pillow, OpenCV or PyYAML was imported, and (with ``hold``) kernels A and
+    B equal their plain versions on the call's own inputs
+    (:func:`hold_call_kernels`).  Logs the evaluation's data, inference
+    and evaluation seconds per image by split and the peak memory."""
+    import tempfile
+
+    from ttdg_mgm_torch.build import build_model
+
+    with open(os.path.join(FORMATS_DIR, "digests.json")) as f:
+        digests = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = write_formats_data(tmp)
+        write_s = time.perf_counter() - t0
+        tiff0 = files[f"{FORMATS_TIFF[0]}/p0.tif"]
+        from ttdg_mgm_torch.data.loader import load_image
+
+        frame = load_image(tiff0)
+        extra = {"tiff_none": os.path.join(tmp, "p0_none.tif"),
+                 "bmp24": os.path.join(tmp, "p0.bmp")}
+        with open(extra["tiff_none"], "wb") as f:
+            f.write(tiff_bytes(frame))
+        with open(extra["bmp24"], "wb") as f:
+            f.write(bmp_bytes(frame.shape[1], frame.shape[0], 24, bmp_rows(frame[..., ::-1], 24)))
+        want = {**digests, "tiff_none": digests[f"{FORMATS_TIFF[0]}/p0.tif"],
+                "bmp24": digests[f"{FORMATS_TIFF[0]}/p0.tif"]}
+        timed = decode_timed({**files, **extra, **{k: os.path.join(FORMATS_DIR, k)
+                                                   for k in FORMATS_TIMED}}, want)
+        tiff_keys = [k for k in files if k.endswith(".tif")]
+        decode_s = {
+            "tiff_lzw_predictor_1225x966": statistics.mean(timed[k] for k in tiff_keys),
+            "tiff_none_1225x966": timed["tiff_none"], "bmp24_1225x966": timed["bmp24"],
+            "jpeg_progressive_720x576": statistics.mean(timed[k] for k in FORMATS_JPEG[1]),
+            "jpeg_cmyk_720x576": timed["cmyk.jpg"], "jpeg_411_720x576": timed["h4v1.jpg"]}
+        log(f"formats: {len(files)} files written in {write_s:.1f} s; every decode equals its "
+            f"Pillow digest; decode s per image {json.dumps(decode_s)}")
+        weights = os.path.join(tmp, "model_final.pth")
+        model = build_model(device="cpu", seed=0, **(model_kw or {}))
+        torch.save({"model": model.state_dict()}, weights)
+        del model
+        splits = [FORMATS_TIFF[0], FORMATS_JPEG[0]]
+        argv = ["--eval-only", "--device", str(dev),
+                "--config", os.path.join(HERE, "configs", "test_segment.yaml"),
+                "--datasets-root", tmp, "DATASETS.TEST", json.dumps(splits),
+                "MODEL.WEIGHTS", weights, "OUTPUT_DIR", os.path.join(tmp, "out"),
+                "TEST.DICE_THRES", "0.0", *opts]
+        log(f"formats: train_net_torch.main({' '.join(argv[:6])} ...) on {splits}, no "
+            "precision override")
+        cli, undo = capture_cli(torch)
+        try:
+            rec = _train_call(torch, dev, argv, "formats cli", kernel_inputs=hold)
+        finally:
+            undo()
+        results, launches = rec["result"], rec["launches"]
+        for name in splits:
+            m = results.get(name, {})
+            check(len(m) == 3 and all(math.isfinite(v) for v in m.values()),
+                  f"formats: {name} Dice, E and S not all finite: {m}")
+        missing = [k for k in counters if launches.get(k, 0) < 1]
+        check(not missing and launches.get("roi_pool", 0) == 0,
+              f"formats: kernel launches {launches}: {list(counters)} must run, the float32 "
+              "pool must not")
+        check(len(cli["evals"]) == 2, f"formats: {len(cli['evals'])} evaluation logs")
+        held = (hold_call_kernels(torch, dev, rec, "formats cli", test_pools=TEST_POOLS)
+                if hold else {})
+    per = {}
+    for name, ev, post in zip(splits, cli["evals"], cli["post_by_dataset"]):
+        n_img, data_s, infer_s, eval_s = ev
+        per[name] = dict(images=n_img, data_s_per_image=data_s, inference_s_per_image=infer_s,
+                         eval_s_per_image=eval_s, paste_s_per_image=post / n_img)
+    log(f"formats cli ({card}): TTA step ms {[round(t, 1) for t in cli['tta_ms']]}, losses "
+        f"{[round(v, 6) for v in cli['tta_loss']]}; per split {json.dumps(per)}; main() "
+        f"{rec['main_s']:.1f} s; peak memory {rec['peak_gib']:.2f} GiB; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; no PIL, cv2 or yaml imported")
+    log(f"formats cli: results {json.dumps({k: results[k] for k in splits})}")
+    return dict(decode_s_per_image=decode_s, write_s=write_s, tta_ms=cli["tta_ms"],
+                tta_loss=cli["tta_loss"], splits=per, main_s=rec["main_s"],
+                peak_gib=rec["peak_gib"], launches=launches,
+                metrics={k: results[k] for k in splits}, held=held)
+
+
 def main() -> int:
     import torch
 
@@ -4384,24 +4847,30 @@ def main() -> int:
     cli = phase_cli(torch, dev, card)
     cli16 = phase_cli_bf16(torch, dev, card)
     done(8)
-    train = phase_train_cli(torch, dev, card)
-    done(10)
     import tempfile
 
-    with tempfile.TemporaryDirectory() as mt_data:
+    with tempfile.TemporaryDirectory() as train_data, tempfile.TemporaryDirectory() as mt_data:
+        t0 = time.perf_counter()
+        write_train_data(train_data)
+        log(f"train data: phase 10's splits written in {time.perf_counter() - t0:.1f} s, read "
+            "again by phases 13 and 14")
+        train = phase_train_cli(torch, dev, train_data, card)
+        done(10)
         write_mt_splits(mt_data)
         mtc = phase_mt_cli(torch, dev, card, data=mt_data)
         done(11)
         mtcd = phase_mt_cd_cli(torch, dev, card, data=mt_data)
         done(12)
-        vgg = phase_vgg(torch, dev, card, mt_data=mt_data)
+        vgg = phase_vgg(torch, dev, train_data, card, mt_data=mt_data)
         done(13)
-    dp = phase_dp(torch, dev, card, phase10_losses=train["step_losses"])
-    done(14)
+        dp = phase_dp(torch, dev, train_data, card, phase10_losses=train["step_losses"])
+        done(14)
     mix = phase_mixture(torch, dev, "float32")
     mix16 = phase_mixture(torch, dev, "bfloat16")
     tail = phase_long_tail(torch, dev)
     done(15)
+    fmts = phase_formats(torch, dev, card)
+    done(16)
     if "--warm" in argv:
         phase_warm(torch, dev)
 
@@ -4411,7 +4880,7 @@ def main() -> int:
              "vgg_train_cli": vgg["source"], "vgg_eval_cli": {"launches": vgg["source"][
                  "eval_launches"]}, "vgg_mt_cli": vgg["mt"], "vgg_cityscapes": vgg["cityscapes"],
              "vgg_clipart": vgg["clipart"], "dp_nccl": dp["nccl"], "dp_gloo": dp["gloo"],
-             "mixture_tta": mix, "mixture_tta_bf16": mix16}
+             "mixture_tta": mix, "mixture_tta_bf16": mix16, "formats_cli": fmts}
     by_path = {k: {p: r["launches"][k] for p, r in paths.items()} for k in e2e["launches"]}
     pick = ("ms", "kernel_only_ms", "args_ms", "plain_ms", "bound_ms", "bound_by",
             "max_abs_err", "shape")
@@ -4422,7 +4891,8 @@ def main() -> int:
             "vgg_mt_cli": vgg["mt"].pop("held"), "vgg_cityscapes": vgg["cityscapes"].pop("held"),
             "vgg_clipart": vgg["clipart"].pop("held"),
             **{f"dp_gloo_{kind}": h for kind, h in dp.pop("held").items()},
-            "mixture_tta_bf16": {"pools": mix16.pop("held_pools")}}
+            "mixture_tta_bf16": {"pools": mix16.pop("held_pools")},
+            "formats_cli": fmts.pop("held")}
 
     def held_by_path(part):
         return {p: h[part] for p, h in held.items() if part in h}
@@ -4516,6 +4986,7 @@ def main() -> int:
     log(f"dp summary ({card}): {json.dumps(dp)}")
     log(f"mixture summary ({card}): {json.dumps({p: r for p, r in zip(PRECISIONS, (mix, mix16))})}")
     log(f"long tail summary ({card}): {json.dumps(tail)}")
+    log(f"formats summary ({card}): {json.dumps(fmts)}")
     log(f"chip_smoke ran in {time.perf_counter() - t_run:.1f} s after the kernel build")
     log(card)
     log(json.dumps({"kernels": kernels}))

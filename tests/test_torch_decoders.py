@@ -1,10 +1,10 @@
 """The port's host decoders against Pillow and OpenCV, bit for bit: the
 bilinear resize (``data/resample.py``), the polygon fill
 (``utils/polyfill.py``), every PNG variant (``data/png.py``) and the
-baseline JPEG decoder (``data/jpeg.py``), on files Pillow (or OpenCV, for
-restart markers and progressive files) writes here, and on the committed
-JPEG fixtures.  Only the tests import Pillow and OpenCV; the port imports
-neither."""
+JPEG decoder (``data/jpeg.py``), on files Pillow (or OpenCV, for restart
+markers) writes here, and on the committed JPEG fixtures; the other formats
+and variants are in ``tests/test_torch_formats.py``.  Only the tests import
+Pillow and OpenCV; the port imports neither."""
 
 import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
 
@@ -258,14 +258,15 @@ def test_jpeg_restart_markers_equal_pillow(interval, gray):
                                   np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
 
 
-def test_progressive_jpeg_raises_with_the_file_name(tmp_path):
-    """A progressive file raises ``UnsupportedJPEG`` naming the file; there
-    is no other decoder behind it."""
+def test_progressive_jpeg_equals_pillow(tmp_path):
+    """A progressive file (the one that raised before the progressive
+    decoder) read by ``load_image`` equals Pillow's decode; the variants are
+    held in ``tests/test_torch_formats.py``."""
     path = tmp_path / "prog.jpg"
     Image.fromarray(_smooth(np.random.default_rng(0), 20, 20)).save(
         path, format="JPEG", progressive=True)
-    with pytest.raises(UnsupportedJPEG, match="prog.jpg: progressive"):
-        load_image(str(path))
+    np.testing.assert_array_equal(load_image(str(path)),
+                                  np.asarray(Image.open(path).convert("RGB")))
 
 
 @pytest.mark.parametrize("name", ["p0.jpg", "p1.jpg", "p2.jpg"])
@@ -279,8 +280,31 @@ def test_committed_jpeg_fixtures_equal_pillow(name):
 
 
 @pytest.mark.parametrize("fmt", ["TIFF", "BMP"])
-def test_load_image_names_other_formats(tmp_path, fmt):
+def test_load_image_reads_tiff_and_bmp(tmp_path, fmt):
+    """The files that raised before the TIFF and BMP decoders equal
+    Pillow's decode."""
     path = tmp_path / f"x.{fmt.lower()}"
     Image.fromarray(np.zeros((4, 4, 3), np.uint8)).save(path, format=fmt)
-    with pytest.raises(ValueError, match=f"{fmt} image format"):
+    np.testing.assert_array_equal(load_image(str(path)),
+                                  np.asarray(Image.open(path).convert("RGB")))
+
+
+@pytest.mark.parametrize("kind", ["sof9", "jpeg_in_tiff", "gif"])
+def test_load_image_names_what_stays_refused(tmp_path, kind):
+    """An arithmetic-coded JPEG header, a JPEG-in-TIFF file and a GIF raise
+    ``ValueError`` naming the file and the variant."""
+    img = Image.fromarray(_smooth(np.random.default_rng(1), 8, 8))
+    path = tmp_path / f"x.{kind}"
+    if kind == "sof9":
+        buf = io.BytesIO()
+        img.save(buf, format="JPEG")
+        path.write_bytes(buf.getvalue().replace(b"\xff\xc0", b"\xff\xc9", 1))
+        err, what = UnsupportedJPEG, "arithmetic-coded sequential JPEG"
+    elif kind == "jpeg_in_tiff":
+        img.save(path, format="TIFF", compression="jpeg")
+        err, what = ValueError, "JPEG-in-TIFF"
+    else:
+        img.save(path, format="GIF")
+        err, what = ValueError, "GIF image format"
+    with pytest.raises(err, match=f"x.{kind}: .*{what}"):
         load_image(str(path))

@@ -1,7 +1,9 @@
 """The test path on image files as the datasets ship them, against the JAX
 package's own loader and evaluator: a split of baseline JPEGs (4:2:0 and
-4:4:4, odd sizes) and of PNG images that need a resize, with polygon ground
-truth.  ``build_test_loader`` gives the same batches and metas, and
+4:4:4, odd sizes) and of PNG images that need a resize, a split of TIFF
+frames (LZW with the horizontal predictor, uncompressed, Deflate, PackBits)
+and a split of progressive JPEGs (4:2:0, 4:4:4, gray, CMYK), with polygon
+ground truth.  ``build_test_loader`` gives the same batches and metas, and
 ``evaluate_dataset`` the same Dice, E and S (to 1e-9) as the JAX
 ``build_test_loader`` and ``evaluate_dataset`` fed the same detections (a
 fixed detector, the same arithmetic in both packages)."""
@@ -32,29 +34,42 @@ MIN_SIZE, MAX_SIZE = 96, 160
 FILES = [("a.jpg", 111, 150, dict(quality=85, subsampling=2)),
          ("b.jpg", 97, 131, dict(quality=60, subsampling=0)),
          ("c.png", 290, 193, {}), ("d.png", 64, 200, {})]
+#: the splits of the formats the datasets ship besides PNG and baseline JPEG
+FORMAT_FILES = {
+    "tiff": [("e.tif", 288, 384, dict(compression="tiff_lzw", tiffinfo={317: 2})),
+             ("f.tif", 97, 131, dict(compression="raw")),
+             ("g.tif", 230, 171, dict(compression="tiff_adobe_deflate", tiffinfo={317: 2})),
+             ("h.tif", 64, 200, dict(compression="packbits"))],
+    "progressive": [("i.jpg", 111, 150, dict(quality=85, subsampling=2, progressive=True)),
+                    ("j.jpg", 290, 193, dict(quality=75, subsampling=0, progressive=True)),
+                    ("k.jpg", 97, 131, dict(quality=90, progressive=True, mode="L")),
+                    ("l.jpg", 64, 200, dict(quality=90, progressive=True, mode="CMYK"))],
+}
 
 
-def _write_split(root):
+def _write_split(root, files=FILES, name="split.json"):
     rng = np.random.RandomState(0)
     images, anns = [], []
-    for i, (name, h, w, kw) in enumerate(FILES):
+    for i, (name_i, h, w, kw) in enumerate(files):
+        kw = dict(kw)
+        mode = kw.pop("mode", "RGB")
         yy, xx = np.mgrid[:h, :w]
         img = np.stack([120 + 60 * np.sin(xx / 9.0 + c) + 40 * np.cos(yy / 13.0)
                         for c in range(3)], -1) + rng.normal(0, 8, (h, w, 3))
         cy, cx, ry, rx = 0.47 * h, 0.53 * w, 0.23 * h, 0.31 * w
         img[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1] *= 0.6
-        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(os.path.join(root, name),
-                                                                    **kw)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).convert(mode).save(
+            os.path.join(root, name_i), **kw)
         t = np.linspace(0, 2 * np.pi, 40, endpoint=False)
         disc = np.stack([cx + rx * np.cos(t), cy + ry * np.sin(t)], 1).reshape(-1)
         cup = np.stack([cx + 0.4 * rx * np.cos(t), cy + 0.5 * ry * np.sin(t)], 1).reshape(-1)
-        images.append({"id": i, "file_name": name, "height": h, "width": w})
+        images.append({"id": i, "file_name": name_i, "height": h, "width": w})
         for cat, ring in ((1, disc), (2, cup)):
             anns.append({"id": len(anns) + 1, "image_id": i, "category_id": cat, "iscrowd": 0,
                          "bbox": [float(ring[0::2].min()), float(ring[1::2].min()),
                                   float(np.ptp(ring[0::2])), float(np.ptp(ring[1::2]))],
                          "segmentation": [[round(float(v), 3) for v in ring]]})
-    path = os.path.join(root, "split.json")
+    path = os.path.join(root, name)
     with open(path, "w") as f:
         json.dump({"images": images, "annotations": anns,
                    "categories": [{"id": 1, "name": "disc"}, {"id": 2, "name": "cup"}]}, f)
@@ -74,6 +89,25 @@ def split(tmp_path):
     JCatalog.remove(name)
 
 
+@pytest.fixture()
+def format_splits(tmp_path):
+    """The TIFF and progressive-JPEG splits of ``FORMAT_FILES``, registered
+    in both packages."""
+    names = []
+    for kind, files in FORMAT_FILES.items():
+        name = f"_real_images_{kind}"
+        path = _write_split(str(tmp_path), files, f"{kind}.json")
+        for cat, reg in ((TCatalog, tcoco.register_coco_instances),
+                         (JCatalog, jcoco.register_coco_instances)):
+            cat.remove(name)
+            reg(name, path, str(tmp_path), evaluator_type="dice")
+        names.append(name)
+    yield names
+    for name in names:
+        TCatalog.remove(name)
+        JCatalog.remove(name)
+
+
 def _same(a, b):
     assert a.keys() == b.keys()
     for k in a:
@@ -83,18 +117,20 @@ def _same(a, b):
             assert a[k] == b[k], k
 
 
-def test_loader_on_jpeg_and_resized_png_matches_jax(split):
-    """Decode (JPEG without Pillow, PNG), resize and pad: the same batches
-    and metas as the JAX loader, which runs Pillow."""
+def test_loader_on_jpeg_and_resized_png_matches_jax(split, format_splits):
+    """Decode (JPEG without Pillow, PNG, TIFF, progressive JPEG), resize and
+    pad: the same batches and metas as the JAX loader, which runs Pillow,
+    on each split."""
     kw = dict(batch_size=2, canvas="auto", min_size=MIN_SIZE, max_size=MAX_SIZE)
-    tl = list(tloader.build_test_loader(split, **kw))
-    jl = list(jloader.build_test_loader(split, **kw))
-    assert len(tl) == len(jl) == 2
-    for (tb, tm), (jb, jm) in zip(tl, jl):
-        _same(tb, jb)
-        for a, b in zip(tm, jm):
-            _same(a, b)
-    assert any(m["scale"] != (1.0, 1.0) for _, ms in tl for m in ms)
+    for name in (split, *format_splits):
+        tl = list(tloader.build_test_loader(name, **kw))
+        jl = list(jloader.build_test_loader(name, **kw))
+        assert len(tl) == len(jl) == 2, name
+        for (tb, tm), (jb, jm) in zip(tl, jl):
+            _same(tb, jb)
+            for a, b in zip(tm, jm):
+                _same(a, b)
+        assert any(m["scale"] != (1.0, 1.0) for _, ms in tl for m in ms), name
 
 
 # a fixed detector: three detections per image from its valid size, the
@@ -146,20 +182,21 @@ class _JaxDetector:
                 "valid": rep(VALID), "mask_probs": rep(_mask_probs())}
 
 
-def test_evaluate_dataset_on_real_files_matches_jax(split):
-    """Dice, E and S over the split, every detection scored: the port's
+def test_evaluate_dataset_on_real_files_matches_jax(split, format_splits):
+    """Dice, E and S over each split, every detection scored: the port's
     ``evaluate_dataset`` (NumPy decoders, its paste, its polygon fill)
     against the JAX package's (Pillow, its paste, OpenCV) on the same
     detections, to 1e-9."""
     kw = dict(batch_size=2, canvas="auto", min_size=MIN_SIZE, max_size=MAX_SIZE,
               dice_threshold=0.0)
-    got = ttrainer.evaluate_dataset(_PortDetector(), split, **kw)
-    with jax.default_device(jax.devices("cpu")[0]):
-        want = jtrainer.evaluate_dataset(_JaxDetector(), {}, split, **kw)
-    assert got.keys() == want.keys() and len(got) == 3
-    for k in want:
-        assert np.isfinite(want[k])
-        assert got[k] == pytest.approx(want[k], abs=1e-9), k
+    for name in (split, *format_splits):
+        got = ttrainer.evaluate_dataset(_PortDetector(), name, **kw)
+        with jax.default_device(jax.devices("cpu")[0]):
+            want = jtrainer.evaluate_dataset(_JaxDetector(), {}, name, **kw)
+        assert got.keys() == want.keys() and len(got) == 3, name
+        for k in want:
+            assert np.isfinite(want[k])
+            assert got[k] == pytest.approx(want[k], abs=1e-9), (name, k)
 
 
 def test_pack_batch_rle_mask_resize_equals_pillow(split):

@@ -14,7 +14,7 @@ has at least one organ of the slice's vocabulary; the kept images are split
 0.7 / 0.1 / 0.2 into train, valid and test by a seeded
 ``numpy.random.Generator``, and organ names become labels through per-slice
 vocabularies (``label_maps``).  Images are decoded by the port's own
-``data/loader.py:load_image`` (PNG and baseline JPEG), not Pillow.
+``data/loader.py:load_image`` (PNG, JPEG, TIFF and BMP), not Pillow.
 
 No ``fetus_*`` split is registered, in this package or in the JAX one, so a
 config that names one (``configs/test_detection.yaml``) raises ``KeyError``

@@ -1,26 +1,36 @@
-"""A baseline JPEG decoder in Python and NumPy, equal to Pillow's.
+"""A JPEG decoder in Python and NumPy, equal to Pillow's.
 
 :func:`decode_jpeg` returns the ``(H, W, 3)`` uint8 RGB array that
-``PIL.Image.open(path).convert("RGB")`` gives, bit for bit, on the JPEG
-files of the medical datasets' splits: sequential Huffman-coded (SOF0, or
-SOF1 at 8 bits), 8-bit samples, one component (gray) or three (YCbCr, or
-RGB when an Adobe marker or the component ids say so), chroma sampled
-4:4:4, 4:2:2 or 4:2:0, with or without restart markers.  It follows
-libjpeg-turbo, which Pillow links, at its defaults:
+``PIL.Image.open(path).convert("RGB")`` (Pillow 12.1.0) gives, bit for bit,
+on sequential (SOF0, or SOF1 at 8 bits) and progressive (SOF2) Huffman-coded
+JPEG files with 8-bit samples: one component (gray), three (YCbCr, or RGB
+when an Adobe marker or the component ids say so) or four (CMYK: Adobe
+transform 0, or no Adobe marker), chroma sampled 4:4:4, 4:2:2, 4:2:0,
+4:4:0 or 4:1:1, with or without restart markers.  It follows libjpeg-turbo,
+which Pillow links, at its defaults:
 
+* progressive scans as ``jdphuff.c`` decodes them (DC first and
+  refinement, AC first and refinement with end-of-band runs and successive
+  approximation), each adding to the component's coefficient array;
 * the integer "islow" inverse DCT of ``jidctint.c`` (13-bit constants, two
   passes with 2 extra bits between them) and its output range-limit table,
   which wraps as libjpeg's does;
-* "fancy" chroma upsampling (``jdsample.c``: ``h2v1_fancy_upsample`` and
-  ``h2v2_fancy_upsample``, triangle weights 3/4 and 1/4 per axis, edges
-  replicated; plain replication when a chroma row is at most 2 samples);
-* the fixed-point YCbCr -> RGB tables of ``jdcolor.c`` (16 fraction bits).
+* "fancy" chroma upsampling (``jdsample.c``: ``h2v1_fancy_upsample``,
+  ``h2v2_fancy_upsample`` and ``h1v2_fancy_upsample``, triangle weights 3/4
+  and 1/4 per axis, edges replicated; plain replication when a chroma row
+  is at most 2 samples, and ``int_upsample``'s replication for 4:1:1);
+* the fixed-point YCbCr -> RGB tables of ``jdcolor.c`` (16 fraction bits);
+  CMYK samples inverted (Pillow's ``CMYK;I``, the Adobe convention) and
+  converted by Pillow's ``cmyk2rgb``.
 
-Progressive, arithmetic-coded, lossless, 12-bit and CMYK/YCCK files raise
-:class:`UnsupportedJPEG` naming the file and the variant; nothing falls
-back to another decoder.  The Huffman decoding runs in Python over a table
-of 16-bit prefixes, one symbol at a time; dequantisation, the inverse DCT
-(all blocks at once), the upsampling and the colour conversion are NumPy.
+Arithmetic-coded, lossless, hierarchical and 12-bit files, YCCK (Adobe
+transform 2), other chroma samplings, and progressive files whose scans
+leave low coefficient bits unrefined (where libjpeg smooths the blocks,
+``jdcoefct.c``, not ported) raise :class:`UnsupportedJPEG` naming the file
+and the variant; nothing falls back to another decoder.  The Huffman
+decoding runs in Python over a table of 16-bit prefixes, one symbol at a
+time; dequantisation, the inverse DCT (all blocks at once), the upsampling
+and the colour conversion are NumPy.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ ZIGZAG = np.array([
     27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44,
     51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
 
-_SOF_NAMES = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "differential sequential",
+_SOF_NAMES = {0xC3: "lossless", 0xC5: "differential sequential",
               0xC6: "differential progressive", 0xC7: "differential lossless",
               0xC9: "arithmetic-coded sequential", 0xCA: "arithmetic-coded progressive",
               0xCB: "arithmetic-coded lossless", 0xCD: "arithmetic-coded differential",
@@ -156,6 +166,144 @@ def _decode_scan(segments, comps, mcus, blocks_of, restart: int):
             raise ValueError("corrupt JPEG data: scan runs past its segment")
 
 
+def _decode_progressive_scan(segments, comps, mcus, blocks_of, restart: int, ss: int, se: int,
+                             ah: int, al: int):
+    """Huffman-decode one scan of a progressive file into the coefficient
+    arrays, as ``jdphuff.c`` does: a DC first scan (the DC difference
+    shifted left by ``al``), a DC refinement scan (one bit per block), an
+    AC first scan of the band ``ss..se`` with end-of-band runs, or an AC
+    refinement scan (a new coefficient of value +-2**al per coded symbol,
+    and a correction bit for each coefficient already nonzero that the
+    symbol's zero run or the end-of-band run passes).  ``blocks_of`` and
+    ``mcus`` as in :func:`_decode_scan`; the DC predictors and the
+    end-of-band run restart at each restart marker."""
+    per_seg = restart if restart else mcus
+    p1, m1 = 1 << al, -1 << al
+    mcu = 0
+    for seg in segments:
+        if mcu >= mcus:
+            break
+        W = _windows(seg)
+        nbits = 8 * len(seg)
+        pos = 0
+        preds = [0] * len(comps)
+        eobrun = 0
+        for _ in range(min(per_seg, mcus - mcu)):
+            for ci, blk in blocks_of(mcu):
+                c = comps[ci]
+                coef = c["coef"]
+                base = blk * 64
+                if ss == 0 and ah == 0:          # DC first
+                    w = W[pos >> 3]
+                    e = c["dc_lut"][(w >> (48 - (pos & 7))) & 0xFFFF]
+                    if not e:
+                        raise ValueError("corrupt JPEG data: bad Huffman code")
+                    pos += e >> 8
+                    s = e & 0xFF
+                    diff = 0
+                    if s:
+                        w = W[pos >> 3]
+                        v = (w >> (64 - s - (pos & 7))) & ((1 << s) - 1)
+                        pos += s
+                        diff = v if v >> (s - 1) else v - (1 << s) + 1
+                    preds[ci] += diff
+                    coef[base] = preds[ci] << al
+                elif ss == 0:                    # DC refinement
+                    if (W[pos >> 3] >> (63 - (pos & 7))) & 1:
+                        coef[base] |= p1
+                    pos += 1
+                elif ah == 0:                    # AC first
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    ac_lut = c["ac_lut"]
+                    k = ss
+                    while k <= se:
+                        w = W[pos >> 3]
+                        e = ac_lut[(w >> (48 - (pos & 7))) & 0xFFFF]
+                        if not e:
+                            raise ValueError("corrupt JPEG data: bad Huffman code")
+                        pos += e >> 8
+                        r, s = (e & 0xFF) >> 4, e & 15
+                        if s:
+                            k += r
+                            w = W[pos >> 3]
+                            v = (w >> (64 - s - (pos & 7))) & ((1 << s) - 1)
+                            pos += s
+                            if k < 64:
+                                coef[base + k] = (v if v >> (s - 1) else v - (1 << s) + 1) << al
+                            k += 1
+                        elif r == 15:
+                            k += 16
+                        else:
+                            eobrun = 1 << r
+                            if r:
+                                w = W[pos >> 3]
+                                eobrun += (w >> (64 - r - (pos & 7))) & ((1 << r) - 1)
+                                pos += r
+                            eobrun -= 1
+                            break
+                else:                            # AC refinement
+                    ac_lut = c["ac_lut"]
+                    k = ss
+                    if not eobrun:
+                        while k <= se:
+                            w = W[pos >> 3]
+                            e = ac_lut[(w >> (48 - (pos & 7))) & 0xFFFF]
+                            if not e:
+                                raise ValueError("corrupt JPEG data: bad Huffman code")
+                            pos += e >> 8
+                            r, s = (e & 0xFF) >> 4, e & 15
+                            if s:
+                                s = p1 if (W[pos >> 3] >> (63 - (pos & 7))) & 1 else m1
+                                pos += 1
+                            elif r != 15:
+                                eobrun = 1 << r
+                                if r:
+                                    w = W[pos >> 3]
+                                    eobrun += (w >> (64 - r - (pos & 7))) & ((1 << r) - 1)
+                                    pos += r
+                                break
+                            # pass the nonzero coefficients (a correction bit
+                            # each) and r zero ones
+                            while k <= se:
+                                v = coef[base + k]
+                                if v:
+                                    if (W[pos >> 3] >> (63 - (pos & 7))) & 1 and not v & p1:
+                                        coef[base + k] = v + (p1 if v >= 0 else m1)
+                                    pos += 1
+                                else:
+                                    if r == 0:
+                                        break
+                                    r -= 1
+                                k += 1
+                            if s and k < 64:
+                                coef[base + k] = s
+                            k += 1
+                    if eobrun:
+                        # the rest of the band: a correction bit per nonzero
+                        # coefficient, consecutive bits
+                        nz = [i for i, v in enumerate(coef[base + k:base + se + 1]) if v]
+                        n = len(nz)
+                        if n:
+                            if n <= 56:
+                                bits = (W[pos >> 3] >> (64 - n - (pos & 7))) & ((1 << n) - 1)
+                            else:  # two reads: a window holds 57 bits from any bit
+                                h, q = n - 32, pos + 32
+                                bits = ((W[pos >> 3] >> (32 - (pos & 7))) & 0xFFFFFFFF) << h \
+                                    | (W[q >> 3] >> (64 - h - (q & 7))) & ((1 << h) - 1)
+                            for j, i in enumerate(nz):
+                                if bits >> (n - 1 - j) & 1:
+                                    v = coef[base + k + i]
+                                    if not v & p1:
+                                        coef[base + k + i] = v + (p1 if v >= 0 else m1)
+                            pos += n
+                        eobrun -= 1
+            mcu += 1
+        if pos > nbits + 64:
+            raise ValueError("corrupt JPEG data: scan runs past its segment")
+
+
 # -- inverse DCT (jidctint.c) ------------------------------------------------------
 
 _F = dict(c0_298631336=2446, c0_390180644=3196, c0_541196100=4433, c0_765366865=6270,
@@ -246,11 +394,29 @@ def _fancy_h2v2(p):
     return out
 
 
+def _fancy_v2(p):
+    """``h1v2_fancy_upsample``: ``(3 * nearer row + further row + 1 or 2)
+    >> 2``, edge rows replicated."""
+    up = np.concatenate([p[:1], p[:-1]], axis=0)
+    down = np.concatenate([p[1:], p[-1:]], axis=0)
+    out = np.empty((2 * p.shape[0], p.shape[1]), np.int64)
+    out[0::2] = (3 * p + up + 1) >> 2
+    out[1::2] = (3 * p + down + 2) >> 2
+    return out
+
+
+#: the upsampling factors read: (1, 1), the fancy (2, 1), (2, 2) and (1, 2)
+#: (4:4:0), and (4, 1) (4:1:1), which libjpeg's ``int_upsample`` replicates
+_UPSAMPLED = ((1, 1), (2, 1), (2, 2), (1, 2), (4, 1))
+
+
 def _upsample(plane: np.ndarray, fh: int, fv: int) -> np.ndarray:
     p = plane.astype(np.int64)
     if (fh, fv) == (1, 1):
         return p
-    if p.shape[1] <= 2:  # libjpeg replicates narrow chroma
+    if (fh, fv) == (1, 2):
+        return _fancy_v2(p)
+    if (fh, fv) == (4, 1) or p.shape[1] <= 2:  # libjpeg replicates narrow chroma
         return np.repeat(np.repeat(p, fv, axis=0), fh, axis=1)
     if (fh, fv) == (2, 1):
         return _fancy_h2(p)
@@ -274,6 +440,18 @@ def ycc_to_rgb(y, cb, cr) -> np.ndarray:
     g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
     b = y + _CB_B[cb]
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def cmyk_to_rgb(c, m, y, k) -> np.ndarray:
+    """Pillow's ``CMYK`` -> ``RGB`` (``cmyk2rgb`` of ``libImaging/Convert.c``):
+    each channel ``255 - k`` less ``MULDIV255(ink, 255 - k)``, clipped."""
+    nk = 255 - k
+
+    def chan(v):
+        t = v * nk + 128
+        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
+
+    return np.stack([chan(c), chan(m), chan(y)], axis=-1).astype(np.uint8)
 
 
 # -- markers -------------------------------------------------------------------------
@@ -302,19 +480,19 @@ def _read_markers(data: bytes, name: str):
         if code in _SOF_NAMES or code == 0xCC:
             kind = _SOF_NAMES.get(code, "arithmetic-coded")
             raise UnsupportedJPEG(f"{name}: {kind} JPEG (SOF marker 0x{code:02X}) is not "
-                                  "supported; only baseline sequential Huffman JPEG is")
-        if code in (0xC0, 0xC1):
+                                  "supported; sequential and progressive Huffman JPEG are")
+        if code in (0xC0, 0xC1, 0xC2):
             prec, H, W, nc = struct.unpack(">BHHB", body[:6])
             if prec != 8:
                 raise UnsupportedJPEG(f"{name}: {prec}-bit JPEG is not supported (8-bit only)")
-            if nc not in (1, 3):
-                raise UnsupportedJPEG(f"{name}: JPEG with {nc} components (CMYK or YCCK) is "
-                                      "not supported; gray and 3-component colour are")
+            if nc not in (1, 3, 4):
+                raise UnsupportedJPEG(f"{name}: JPEG with {nc} components is not supported; "
+                                      "gray, 3-component colour and CMYK are")
             comps = []
             for i in range(nc):
                 cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
                 comps.append(dict(id=cid, h=hv >> 4, v=hv & 15, tq=tq))
-            frame = dict(H=H, W=W, comps=comps)
+            frame = dict(H=H, W=W, comps=comps, progressive=code == 0xC2)
         elif code == 0xDB:
             i = 0
             while i < len(body):
@@ -344,10 +522,14 @@ def _read_markers(data: bytes, name: str):
             sel = []
             for i in range(ns):
                 cid, t = body[1 + 2 * i:3 + 2 * i]
-                ci = next(k for k, c in enumerate(frame["comps"]) if c["id"] == cid)
-                sel.append((ci, dc[t >> 4], ac[t & 15]))
+                ci = next((k for k, c in enumerate(frame["comps"]) if c["id"] == cid), None)
+                if ci is None:
+                    raise ValueError(f"{name}: JPEG scan of an unknown component {cid}")
+                sel.append((ci, dc.get(t >> 4), ac.get(t & 15)))
+            ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
             segs, end = _segments(data, pos)
-            scans.append(dict(comps=sel, segments=segs, restart=restart))
+            scans.append(dict(comps=sel, segments=segs, restart=restart, ss=ss, se=se,
+                              ah=a >> 4, al=a & 15))
             pos = end
     if frame is None or not scans:
         raise ValueError(f"{name}: JPEG without a frame or a scan")
@@ -355,6 +537,10 @@ def _read_markers(data: bytes, name: str):
     # the Adobe transform flag, else RGB for the component ids "R", "G", "B"
     ids = tuple(c["id"] for c in frame["comps"])
     rgb = not jfif and (adobe == 0 if adobe is not None else ids == (82, 71, 66))
+    if len(ids) == 4 and adobe not in (None, 0):
+        # libjpeg reads every other Adobe transform of 4 components as YCCK
+        raise UnsupportedJPEG(f"{name}: YCCK JPEG (Adobe transform {adobe}) is not supported; "
+                              "CMYK (transform 0) is")
     return frame, qts, scans, rgb
 
 
@@ -363,21 +549,32 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     ``Image.open(...).convert("RGB")``.  ``name`` labels the errors."""
     frame, qts, scans, rgb = _read_markers(data, name)
     H, W, comps = frame["H"], frame["W"], frame["comps"]
+    progressive = frame["progressive"]
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
     mx, my = -(-W // (8 * hmax)), -(-H // (8 * vmax))
     for c in comps:
-        if (hmax // c["h"], vmax // c["v"]) not in ((1, 1), (2, 1), (2, 2)) or \
+        if (hmax // c["h"], vmax // c["v"]) not in _UPSAMPLED or \
                 hmax % c["h"] or vmax % c["v"]:
             raise UnsupportedJPEG(f"{name}: chroma sampling {[(d['h'], d['v']) for d in comps]}"
-                                  " is not supported; 4:4:4, 4:2:2 and 4:2:0 are")
+                                  " is not supported; 4:4:4, 4:2:2, 4:2:0, 4:4:0 and 4:1:1 are")
         c["bw"], c["bh"] = mx * c["h"], my * c["v"]
         c["cw"], c["ch"] = -(-W * c["h"] // hmax), -(-H * c["v"] // vmax)
         c["coef"] = array.array("i", bytes(4 * 64 * c["bw"] * c["bh"]))
+        c["coef_bits"] = [-1] * 64        # the last scan's Al of each coefficient
     for scan in scans:
         sel = scan["comps"]
+        ss, se, ah, al = scan["ss"], scan["se"], scan["ah"], scan["al"]
+        if not progressive:
+            ss, se, ah, al = 0, 63, 0, 0
+        elif ss > se or se > 63 or ss == 0 and se != 0 or ss > 0 and len(sel) != 1:
+            raise ValueError(f"{name}: invalid progressive JPEG scan (Ss {ss}, Se {se}, "
+                             f"{len(sel)} components)")
         for ci, dlut, alut in sel:
+            if (ss == 0 and ah == 0 and dlut is None) or (se > 0 and alut is None):
+                raise ValueError(f"{name}: JPEG scan without its Huffman table")
             comps[ci]["dc_lut"], comps[ci]["ac_lut"] = dlut, alut
+            comps[ci]["coef_bits"][ss:se + 1] = [al] * (se + 1 - ss)
         order = [ci for ci, _, _ in sel]
         sub = [comps[ci] for ci in order]
         if len(sel) == 1:
@@ -398,7 +595,18 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
                         for k, dy, dx in layout]
 
             mcus = mx * my
-        _decode_scan(scan["segments"], sub, mcus, blocks_of, scan["restart"])
+        if progressive:
+            _decode_progressive_scan(scan["segments"], sub, mcus, blocks_of, scan["restart"],
+                                     ss, se, ah, al)
+        else:
+            _decode_scan(scan["segments"], sub, mcus, blocks_of, scan["restart"])
+    if progressive and any(b != 0 for c in comps for b in c["coef_bits"][1:10]):
+        # libjpeg then smooths the blocks' low frequencies (jdcoefct.c,
+        # decompress_smooth_data), which is not ported
+        left = {c["id"]: c["coef_bits"][:10] for c in comps if any(c["coef_bits"][1:10])}
+        raise UnsupportedJPEG(f"{name}: progressive JPEG whose scans leave low coefficient bits "
+                              f"unrefined (the last Al of coefficients 0-9 by component: {left}) "
+                              "is not supported: libjpeg's block smoothing would apply")
     planes = []
     for c in comps:
         coef = np.frombuffer(c["coef"], np.int32).reshape(c["bh"], c["bw"], 64)
@@ -409,6 +617,8 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
         planes.append(_upsample(plane, hmax // c["h"], vmax // c["v"])[:H, :W])
     if len(planes) == 1:
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, axis=2)
+    if len(planes) == 4:
+        return cmyk_to_rgb(*(255 - p for p in planes))   # Pillow's "CMYK;I" raw mode
     if rgb:
         return np.stack(planes, axis=-1).astype(np.uint8)
     return ycc_to_rgb(*planes)

@@ -12,8 +12,10 @@ This package's own copy of ``load_image``, ``prepare_sample``,
 * with ``with_gt``, GT padded to ``gt_cap`` slots and masks rasterized on a
   ``(mask_res, mask_res)`` grid over the padded canvas.
 
-:func:`load_image` decodes PNG (:mod:`ttdg_mgm_torch.data.png`) and
-baseline JPEG (:mod:`ttdg_mgm_torch.data.jpeg`) in NumPy, equal to Pillow's
+:func:`load_image` decodes PNG (:mod:`ttdg_mgm_torch.data.png`), JPEG
+(:mod:`ttdg_mgm_torch.data.jpeg`: sequential and progressive Huffman, gray,
+colour and CMYK), TIFF (:mod:`ttdg_mgm_torch.data.tiff`) and BMP
+(:mod:`ttdg_mgm_torch.data.bmp`) in NumPy, equal to Pillow's
 ``convert("RGB")``; the resize (:mod:`ttdg_mgm_torch.data.resample`) and the
 polygon fill (``utils/polyfill.py``) equal Pillow's and OpenCV's, and so
 does the strong augmentation (``data/enhance.py``).  Nothing here imports
@@ -39,7 +41,7 @@ import threading
 import numpy as np
 
 from ttdg_mgm_torch.data.catalog import DatasetCatalog
-from ttdg_mgm_torch.data import jpeg, png
+from ttdg_mgm_torch.data import bmp, jpeg, png, tiff
 from ttdg_mgm_torch.data.resample import resize_bilinear
 from ttdg_mgm_torch.data.transforms import (build_strong_augmentation, hflip,
                                             resize_shortest_edge, scale_annotations)
@@ -48,24 +50,30 @@ from ttdg_mgm_torch.utils.rle import polygons_to_mask, segmentation_to_mask
 logger = logging.getLogger("ttdg_mgm_torch")
 
 
-#: leading bytes of the image formats other than PNG and JPEG, for the error
-_OTHER_FORMATS = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"), (b"BM", "BMP"),
-                  (b"GIF8", "GIF"), (b"RIFF", "WebP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"))
+#: leading bytes of the image formats the loader does not read, for the error
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"RIFF", "WebP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"),
+                  (b"\xff\x4f\xff\x51", "JPEG 2000"), (b"II+\x00", "BigTIFF"),
+                  (b"MM\x00+", "BigTIFF"))
 
 
 def load_image(path: str) -> np.ndarray:
     """``(H, W, 3)`` uint8 RGB, as ``PIL.Image.open(path).convert("RGB")``,
-    for PNG and baseline JPEG files; any other format raises ``ValueError``
-    naming it (a JPEG variant the decoder does not read raises
-    ``data/jpeg.py:UnsupportedJPEG``)."""
+    for PNG, JPEG, TIFF and BMP files, told apart by their leading bytes.
+    A variant a decoder does not read raises ``ValueError`` naming the file
+    and the variant (``UnsupportedJPEG``, ``UnsupportedTIFF``, ...); any
+    other format raises ``ValueError`` naming it."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(png.SIGNATURE):
         return png.decode_png(data)
     if data.startswith(jpeg.SIGNATURE):
         return jpeg.decode_jpeg(data, path)
+    if data.startswith(tiff.SIGNATURES):
+        return tiff.decode_tiff(data, path)
+    if data.startswith(bmp.SIGNATURE):
+        return bmp.decode_bmp(data, path)
     kind = next((k for sig, k in _OTHER_FORMATS if data.startswith(sig)), "unknown")
-    raise ValueError(f"{path}: {kind} image format; the loader reads PNG and baseline JPEG")
+    raise ValueError(f"{path}: {kind} image format; the loader reads PNG, JPEG, TIFF and BMP")
 
 
 class _Prefetcher:
