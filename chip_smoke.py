@@ -1429,7 +1429,7 @@ def phase_e2e(torch, dev, size: int = 800, profile: bool = False, prec: str = "f
             step_ms.append((time.perf_counter() - t0) * 1e3)
             losses.append(loss)
             mgm = model.multi_matching_unsup
-            nodes = mgm.last_node_counts
+            nodes = mgm.last_node_counts.tolist()
             log(f"e2e {prec} TTA step {i}: loss {loss:.6f}, valid nodes per graph {nodes}, "
                 f"solver steps {mgm.last_solver_steps}, {step_ms[-1]:.1f} ms")
             check(math.isfinite(loss) and loss > 0.0,
@@ -1682,7 +1682,8 @@ def phase_warm(torch, dev, warm_steps: int = 120, warm_size: int = 320, tta_step
         torch.cuda.synchronize()
         mgm = model.multi_matching_unsup
         rounds.append(mgm.last_solver_steps)
-        log(f"warm: TTA step {i}: loss {loss:.6f}, valid nodes per graph {mgm.last_node_counts}, "
+        log(f"warm: TTA step {i}: loss {loss:.6f}, "
+            f"valid nodes per graph {mgm.last_node_counts.tolist()}, "
             f"GA-GM power steps per round {mgm.last_solver_steps}, "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     wall, by_kernel = profile_call(
@@ -4471,8 +4472,8 @@ def phase_mixture(torch, dev, prec: str = "float32", size: int = 800, steps: int
             losses.append(loss)
             grads.append(g)
             log(f"mixture {prec} TTA step {i}: loss {loss:.6f}, backbone |grad|_1 {g:.4e}, "
-                f"clusters {mgm.last_clusters}, valid nodes {mgm.last_node_counts}, GA-GM steps "
-                f"per pass {mgm.last_solver_steps}, {step_ms[-1]:.1f} ms")
+                f"clusters {mgm.last_clusters}, valid nodes {mgm.last_node_counts.tolist()}, "
+                f"GA-GM steps per pass {mgm.last_solver_steps}, {step_ms[-1]:.1f} ms")
             check(math.isfinite(loss) and loss > 0.0, f"mixture {prec} step {i}: loss {loss}")
             check(g > 0.0 and math.isfinite(g), f"mixture {prec} step {i}: backbone gradient {g}")
             check_f32_params(torch, model, f"mixture {prec} TTA step {i}")

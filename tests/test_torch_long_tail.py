@@ -5,8 +5,8 @@ tests/test_sinkhorn.py's tolerance), ``hungarian_scipy`` and ``ilp_solver``
 (equal), the KNN hypergraph and ``HyperGraphBlock`` with the flax weights
 carried across (1e-5), the mask samplers (``boundary_points`` point for
 point and in order against OpenCV's contours, which the JAX package
-stacks), ``StepTimer`` on a patched clock, ``torch.profiler`` traces, and
-``CfgNode.dump`` read back by PyYAML as the JAX package's dump."""
+stacks), ``torch.profiler`` traces, and ``CfgNode.dump`` read back by
+PyYAML as the JAX package's dump."""
 
 import torch_test_threads  # noqa: F401  (one intra-op thread per test process)
 
@@ -27,7 +27,6 @@ from ttdg_mgm_tpu.data import node_sampling as jns
 from ttdg_mgm_tpu.graph import hypergraph as jhg
 from ttdg_mgm_tpu.graph import ilp as jilp
 from ttdg_mgm_tpu.graph import losses as jl
-from ttdg_mgm_tpu.utils import profiling as jprof
 from ttdg_mgm_torch import config as tconfig
 from ttdg_mgm_torch.checkpoint.bridge import hypergraph_to_torch
 from ttdg_mgm_torch.data import node_sampling as tns
@@ -277,26 +276,6 @@ def test_sample_polygon_instances_match_jax():
              [[35.0, 2.0, 48.0, 2.0, 48.0, 15.0], [40.0, 20.0, 46.0, 20.0, 43.0, 30.0]]]
     assert (tns.sample_polygon_instances(polys, 40, 50, num_boundary=6, num_centroid=4)
             == jns.sample_polygon_instances(polys, 40, 50, num_boundary=6, num_centroid=4))
-
-
-def test_step_timer_matches_jax(monkeypatch):
-    """Both timers under one patched clock that steps by 0.25 s a read."""
-    import time
-
-    ticks = iter(np.arange(0.0, 1000.0, 0.25))
-    monkeypatch.setattr(time, "perf_counter", lambda: float(next(ticks)))
-    out = []
-    for mod in (jprof, tprof):
-        timer = mod.StepTimer(warmup=2)
-        for i in range(6):
-            with timer.phase("data"):
-                pass
-            if i % 2:
-                with timer.phase("compute"):
-                    next(ticks)
-            timer.step()
-        out.append(timer.averages())
-    assert out[0] == out[1] and set(out[1]) == {"data", "compute"}
 
 
 def test_profiling_trace_writes_chrome_trace(tmp_path):

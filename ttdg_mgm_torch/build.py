@@ -44,6 +44,7 @@ from ttdg_mgm_torch.config import CfgNode
 from ttdg_mgm_torch.models.rcnn import MaskRCNN, init_weights
 from ttdg_mgm_torch.solver.build import (build_optimizer, warmup_cosine_schedule,
                                          warmup_multistep_schedule, warmup_two_stage_schedule)
+from ttdg_mgm_torch.utils.profiling import span
 
 logger = logging.getLogger("ttdg_mgm_torch")
 
@@ -225,29 +226,34 @@ def build_trainer(cfg: CfgNode, *, device=None, seed: int = 0):
     ``CROSS_DOMAIN_MATCHING`` adds the cross-domain head) and, with
     ``DATALOADER.SUP_PERCENT`` below 100, splits its labelled records with
     ``DATALOADER.RANDOM_DATA_SEED``.  In a process group the device is the
-    rank's (:func:`build_mesh`)."""
+    rank's (:func:`build_mesh`).  Spans (``utils/profiling.py``):
+    ``setup.build_trainer`` around it all, over ``setup.init_params`` (the
+    model's construction and its weights, on the host)."""
     from ttdg_mgm_torch.engine.mean_teacher import ATeacherTrainer
     from ttdg_mgm_torch.engine.trainer import BaselineTrainer
 
-    dev = build_mesh(cfg, device)
-    ss = cfg.SEMISUPNET
-    model = init_params(cfg, MaskRCNN(**model_kwargs(cfg)), seed).to(dev)
-    opt = build_optimizer(model, build_schedule(cfg), momentum=cfg.SOLVER.MOMENTUM,
-                          weight_decay=cfg.SOLVER.WEIGHT_DECAY,
-                          freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT, clip=_clip(cfg))
-    train_sizes = list(cfg.INPUT.MIN_SIZE_TRAIN)
-    common = dict(
-        canvas=_canvas_size(cfg), min_size=cfg.INPUT.MIN_SIZE_TEST,
-        max_size=cfg.INPUT.MAX_SIZE_TEST, gt_cap=cfg.TPU.MAX_GT_PER_IMAGE,
-        train_min_sizes=(tuple(train_sizes) if cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING == "choice"
-                         and train_sizes else None))
-    if ss.Trainer == "ateacher":
-        sup = cfg.DATALOADER.SUP_PERCENT
-        return ATeacherTrainer(
-            model, opt, ema_keep_rate=ss.EMA_KEEP_RATE or 0.9996,
-            teacher_update_iter=ss.TEACHER_UPDATE_ITER, burn_up_step=ss.BURN_UP_STEP,
-            unsup_weight=ss.UNSUP_LOSS_WEIGHT, dis_weight=ss.DIS_LOSS_WEIGHT,
-            pseudo_threshold=ss.BBOX_THRESHOLD, cross_domain=ss.CROSS_DOMAIN_MATCHING,
-            sup_percent=sup if sup < 100.0 else None,
-            split_seed=cfg.DATALOADER.RANDOM_DATA_SEED, **common)
-    return BaselineTrainer(model, opt, **common)
+    with span("setup.build_trainer"):
+        dev = build_mesh(cfg, device)
+        ss = cfg.SEMISUPNET
+        with span("setup.init_params"):
+            model = init_params(cfg, MaskRCNN(**model_kwargs(cfg)), seed)
+        model = model.to(dev)
+        opt = build_optimizer(model, build_schedule(cfg), momentum=cfg.SOLVER.MOMENTUM,
+                              weight_decay=cfg.SOLVER.WEIGHT_DECAY,
+                              freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT, clip=_clip(cfg))
+        train_sizes = list(cfg.INPUT.MIN_SIZE_TRAIN)
+        common = dict(
+            canvas=_canvas_size(cfg), min_size=cfg.INPUT.MIN_SIZE_TEST,
+            max_size=cfg.INPUT.MAX_SIZE_TEST, gt_cap=cfg.TPU.MAX_GT_PER_IMAGE,
+            train_min_sizes=(tuple(train_sizes) if cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING == "choice"
+                             and train_sizes else None))
+        if ss.Trainer == "ateacher":
+            sup = cfg.DATALOADER.SUP_PERCENT
+            return ATeacherTrainer(
+                model, opt, ema_keep_rate=ss.EMA_KEEP_RATE or 0.9996,
+                teacher_update_iter=ss.TEACHER_UPDATE_ITER, burn_up_step=ss.BURN_UP_STEP,
+                unsup_weight=ss.UNSUP_LOSS_WEIGHT, dis_weight=ss.DIS_LOSS_WEIGHT,
+                pseudo_threshold=ss.BBOX_THRESHOLD, cross_domain=ss.CROSS_DOMAIN_MATCHING,
+                sup_percent=sup if sup < 100.0 else None,
+                split_seed=cfg.DATALOADER.RANDOM_DATA_SEED, **common)
+        return BaselineTrainer(model, opt, **common)

@@ -30,6 +30,14 @@ Two differences from the JAX package, both where it fails:
   ``ValueError`` when the records are fewer than the batch, where the JAX
   train loader's epoch loop yields nothing and spins forever and its
   two-crop loader yields short batches.
+
+Spans (``utils/profiling.py``), the same in every loader: ``data.sample``
+(keyed by the record's ``image_id``) around :func:`prepare_sample`, over
+``data.decode``, ``data.resize`` (the resizes and the flip) and
+``data.annotations``; ``data.pack`` around :func:`pack_batch`, over
+``data.gt_raster`` (the GT boxes and masks); with a prefetch thread,
+``data.wait`` where the consumer blocks on it and ``data.blocked`` where the
+thread blocks on a full queue.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ from ttdg_mgm_torch.data import bmp, jpeg, png, tiff
 from ttdg_mgm_torch.data.resample import resize_bilinear
 from ttdg_mgm_torch.data.transforms import (build_strong_augmentation, hflip,
                                             resize_shortest_edge, scale_annotations)
+from ttdg_mgm_torch.utils.profiling import span
 from ttdg_mgm_torch.utils.rle import polygons_to_mask, segmentation_to_mask
 
 logger = logging.getLogger("ttdg_mgm_torch")
@@ -90,12 +99,20 @@ class _Prefetcher:
         self._thread.start()
 
     def _put(self, item) -> bool:
-        while not self._stop.is_set():
-            try:
-                self._q.put(item, timeout=0.1)
-                return True
-            except queue.Full:
-                pass
+        if self._stop.is_set():
+            return False
+        try:
+            self._q.put_nowait(item)
+            return True
+        except queue.Full:
+            pass
+        with span("data.blocked"):
+            while not self._stop.is_set():
+                try:
+                    self._q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    pass
         return False
 
     def _drain(self):
@@ -125,7 +142,8 @@ class _Prefetcher:
         return self
 
     def __next__(self):
-        kind, val = self._q.get()
+        with span("data.wait"):
+            kind, val = self._q.get()
         if kind == "item":
             return val
         if kind == "err":
@@ -146,33 +164,41 @@ def prepare_sample(record: dict, *, canvas: int | None = 800, min_size: int = 80
     nothing more (the test path then pads onto a per-batch bucket); an
     integer ``canvas`` also shrinks an image whose long side exceeds it (the
     square canvas)."""
-    img = image if image is not None else load_image(record["file_name"])
-    anns = [a for a in record["annotations"] if not a.get("iscrowd", 0)]
-    boxes = np.asarray([a["bbox"] for a in anns], np.float32).reshape(-1, 4)
-    classes = np.asarray([a["category_id"] for a in anns], np.int32)
-    polys = [a.get("segmentation") for a in anns]
-
-    img, (sy, sx) = resize_shortest_edge(img, min_size, max_size)
-    boxes, polys = scale_annotations(boxes, polys, sy, sx)
-    h, w = img.shape[:2]
-    if canvas is not None and max(h, w) > canvas:
-        s = canvas / max(h, w)
-        img, _ = resize_shortest_edge(img, int(round(min(h, w) * s)), canvas)
-        boxes, polys = scale_annotations(boxes, polys, img.shape[0] / h, img.shape[1] / w)
-    if flip:
-        img, boxes, polys = hflip(img, boxes, polys)
-    return {
-        "image": img,
-        "boxes": boxes,
-        "classes": classes,
-        "polygons": polys,
-        "segmentations": [a.get("segmentation") for a in record["annotations"]],
-        "image_id": record["image_id"],
-        "orig_height": record["height"],
-        "orig_width": record["width"],
-        "scale": (img.shape[0] / record["height"], img.shape[1] / record["width"]),
-        "flipped": flip,
-    }
+    with span("data.sample", record["image_id"]):
+        img = image
+        if img is None:
+            with span("data.decode"):
+                img = load_image(record["file_name"])
+        with span("data.resize"):
+            img, (sy, sx) = resize_shortest_edge(img, min_size, max_size)
+            h, w = img.shape[:2]
+            shrunk = canvas is not None and max(h, w) > canvas
+            if shrunk:
+                s = canvas / max(h, w)
+                img, _ = resize_shortest_edge(img, int(round(min(h, w) * s)), canvas)
+        with span("data.annotations"):
+            anns = [a for a in record["annotations"] if not a.get("iscrowd", 0)]
+            boxes = np.asarray([a["bbox"] for a in anns], np.float32).reshape(-1, 4)
+            classes = np.asarray([a["category_id"] for a in anns], np.int32)
+            polys = [a.get("segmentation") for a in anns]
+            boxes, polys = scale_annotations(boxes, polys, sy, sx)
+            if shrunk:
+                boxes, polys = scale_annotations(boxes, polys, img.shape[0] / h, img.shape[1] / w)
+        if flip:
+            with span("data.resize"):
+                img, boxes, polys = hflip(img, boxes, polys)
+        return {
+            "image": img,
+            "boxes": boxes,
+            "classes": classes,
+            "polygons": polys,
+            "segmentations": [a.get("segmentation") for a in record["annotations"]],
+            "image_id": record["image_id"],
+            "orig_height": record["height"],
+            "orig_width": record["width"],
+            "scale": (img.shape[0] / record["height"], img.shape[1] / record["width"]),
+            "flipped": flip,
+        }
 
 
 #: per-dimension canvas buckets of the test geometry: 832 covers the
@@ -196,48 +222,55 @@ def pack_batch(samples: list[dict], *, canvas: int | tuple[int, int] = 800,
     is a square side or ``(height, width)``; GT masks rasterize on a square
     ``(mask_res, mask_res)`` grid over the padded canvas with per-axis
     scales."""
-    if isinstance(canvas, int):
-        canvas = (canvas, canvas)
-    B = len(samples)
-    image = np.zeros((B, canvas[0], canvas[1], 3), np.float32)
-    sizes = np.zeros((B, 2), np.float32)
-    out = {"image": image, "image_sizes": sizes}
-    if with_gt:
-        gt_boxes = np.zeros((B, gt_cap, 4), np.float32)
-        gt_classes = np.zeros((B, gt_cap), np.int32)
-        gt_valid = np.zeros((B, gt_cap), bool)
-        gt_masks = np.zeros((B, gt_cap, mask_res, mask_res), np.uint8)
-        out.update(gt_boxes=gt_boxes, gt_classes=gt_classes, gt_valid=gt_valid,
-                   gt_masks=gt_masks)
+    with span("data.pack"):
+        if isinstance(canvas, int):
+            canvas = (canvas, canvas)
+        B = len(samples)
+        image = np.zeros((B, canvas[0], canvas[1], 3), np.float32)
+        sizes = np.zeros((B, 2), np.float32)
+        for b, s in enumerate(samples):
+            h, w = s["image"].shape[:2]
+            image[b, :h, :w] = s["image"]
+            sizes[b] = (h, w)
+        out = {"image": image, "image_sizes": sizes}
+        if with_gt:
+            with span("data.gt_raster"):
+                out.update(_raster_gt(samples, gt_cap, mask_res, mask_res / canvas[0],
+                                      mask_res / canvas[1]))
+        return out
 
-    mscale_y = mask_res / canvas[0]
-    mscale_x = mask_res / canvas[1]
+
+def _raster_gt(samples, gt_cap, mask_res, mscale_y, mscale_x) -> dict:
+    """The batch's GT arrays: each sample's first ``gt_cap`` boxes, classes
+    and masks, the masks on the ``(mask_res, mask_res)`` grid."""
+    B = len(samples)
+    out = {"gt_boxes": np.zeros((B, gt_cap, 4), np.float32),
+           "gt_classes": np.zeros((B, gt_cap), np.int32),
+           "gt_valid": np.zeros((B, gt_cap), bool),
+           "gt_masks": np.zeros((B, gt_cap, mask_res, mask_res), np.uint8)}
     for b, s in enumerate(samples):
         h, w = s["image"].shape[:2]
-        image[b, :h, :w] = s["image"]
-        sizes[b] = (h, w)
-        if not with_gt:
-            continue
         n = min(len(s["boxes"]), gt_cap)
-        if n:
-            gt_boxes[b, :n] = s["boxes"][:n]
-            gt_classes[b, :n] = s["classes"][:n]
-            gt_valid[b, :n] = True
-            for k in range(n):
-                segs = s["polygons"][k]
-                if not segs:
-                    continue
-                if isinstance(segs, dict):
-                    full = segmentation_to_mask(segs, s["orig_height"], s["orig_width"])
-                    m = resize_bilinear(full * 255, (int(round(h * mscale_y)),
-                                                     int(round(w * mscale_x)))) > 127
-                    if s.get("flipped"):
-                        m = m[:, ::-1]
-                    gt_masks[b, k, :m.shape[0], :m.shape[1]] = m
-                else:
-                    scaled = [(np.asarray(p, np.float64).reshape(-1, 2)
-                               * (mscale_x, mscale_y)).reshape(-1).tolist() for p in segs]
-                    gt_masks[b, k] = polygons_to_mask(scaled, mask_res, mask_res)
+        if not n:
+            continue
+        out["gt_boxes"][b, :n] = s["boxes"][:n]
+        out["gt_classes"][b, :n] = s["classes"][:n]
+        out["gt_valid"][b, :n] = True
+        for k in range(n):
+            segs = s["polygons"][k]
+            if not segs:
+                continue
+            if isinstance(segs, dict):
+                full = segmentation_to_mask(segs, s["orig_height"], s["orig_width"])
+                m = resize_bilinear(full * 255, (int(round(h * mscale_y)),
+                                                 int(round(w * mscale_x)))) > 127
+                if s.get("flipped"):
+                    m = m[:, ::-1]
+                out["gt_masks"][b, k, :m.shape[0], :m.shape[1]] = m
+            else:
+                scaled = [(np.asarray(p, np.float64).reshape(-1, 2)
+                           * (mscale_x, mscale_y)).reshape(-1).tolist() for p in segs]
+                out["gt_masks"][b, k] = polygons_to_mask(scaled, mask_res, mask_res)
     return out
 
 

@@ -18,6 +18,11 @@ The optimizer's clip then acts on the averaged gradients, as optax's does
 after the ``pmean``.  The steps call the model's loss methods directly, so
 the reduction is explicit (``DistributedDataParallel`` reduces only
 through ``forward()``).  Without a process group it is a no-op.
+
+Spans (``utils/profiling.py``) in the source and TTA steps:
+``step.backward`` around ``backward()`` and ``step.optimizer`` around the
+reduction and the optimizer's step; the forward's own are the model's
+(``models/rcnn.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 
 from ttdg_mgm_torch.parallel import mesh
 from ttdg_mgm_torch.solver.build import Optimizer
+from ttdg_mgm_torch.utils.profiling import span
 
 
 def reduce_step(optimizer: Optimizer, metrics: dict, *extra: torch.Tensor) -> dict:
@@ -67,9 +73,11 @@ def make_source_step(model, optimizer: Optimizer, *,
             batch["image"], batch["image_sizes"], batch["gt_boxes"], batch["gt_classes"],
             batch["gt_masks"], batch["gt_valid"], generator=generator, uniforms=uniforms)
         total = sum(losses.values()) * loss_weight
-        total.backward()
-        metrics = reduce_step(optimizer, {**losses, "total_loss": total})
-        optimizer.step()
+        with span("step.backward"):
+            total.backward()
+        with span("step.optimizer"):
+            metrics = reduce_step(optimizer, {**losses, "total_loss": total})
+            optimizer.step()
         return metrics
 
     return step
@@ -82,9 +90,11 @@ def make_tta_step(model, optimizer: Optimizer) -> Callable[[dict], torch.Tensor]
     def step(batch):
         optimizer.zero_grad()
         loss = model.loss_ttt(batch["image"], batch["image_sizes"])
-        loss.backward()
-        loss = reduce_step(optimizer, {"loss": loss})["loss"]
-        optimizer.step()
+        with span("step.backward"):
+            loss.backward()
+        with span("step.optimizer"):
+            loss = reduce_step(optimizer, {"loss": loss})["loss"]
+            optimizer.step()
         return loss
 
     return step

@@ -48,6 +48,7 @@ from ttdg_mgm_torch.engine.steps import make_source_step, make_tta_step
 from ttdg_mgm_torch.evaluation.build import build_evaluator, flatten_results
 from ttdg_mgm_torch.parallel import mesh
 from ttdg_mgm_torch.ops.mask_paste import paste_masks
+from ttdg_mgm_torch.utils.profiling import span
 from ttdg_mgm_torch.utils.rle import segmentation_to_mask
 from ttdg_mgm_torch.utils.visualize import dump_visualization
 
@@ -60,21 +61,28 @@ def postprocess_detections(det: dict, meta: dict, b: int, *, mask_threshold: flo
     masks pasted there (d2 ``detector_postprocess``).  ``det`` holds
     ``forward_inference``'s tensors; the paste runs on their device.
     Returns NumPy arrays: boxes, scores, classes and ``(n, H, W)`` uint8
-    masks."""
-    sy, sx = meta["scale"]
-    valid = det["valid"][b]
-    keep = det["scores"][b][valid] >= score_floor
-    boxes = det["boxes"][b][valid][keep]
-    scores = det["scores"][b][valid][keep]
-    classes = det["classes"][b][valid][keep]
-    probs = det["mask_probs"][b][valid][keep]
-    oh, ow = meta["orig_height"], meta["orig_width"]
-    boxes = boxes / torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=boxes.device)
-    boxes[:, 0::2] = boxes[:, 0::2].clamp(0, ow)
-    boxes[:, 1::2] = boxes[:, 1::2].clamp(0, oh)
-    masks = paste_masks(probs, boxes, oh, ow, threshold=mask_threshold)
-    return {"boxes": boxes.cpu().numpy(), "scores": scores.cpu().numpy(),
-            "classes": classes.cpu().numpy(), "masks": masks.cpu().numpy()}
+    masks.  Spans (``utils/profiling.py``), keyed by the image's
+    ``image_id`` when ``meta`` has one: ``eval.postprocess`` around it all,
+    ``eval.paste_masks`` around the paste and ``eval.to_host`` around the
+    copies to host memory."""
+    key = meta.get("image_id")
+    with span("eval.postprocess", key):
+        sy, sx = meta["scale"]
+        valid = det["valid"][b]
+        keep = det["scores"][b][valid] >= score_floor
+        boxes = det["boxes"][b][valid][keep]
+        scores = det["scores"][b][valid][keep]
+        classes = det["classes"][b][valid][keep]
+        probs = det["mask_probs"][b][valid][keep]
+        oh, ow = meta["orig_height"], meta["orig_width"]
+        boxes = boxes / torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=boxes.device)
+        boxes[:, 0::2] = boxes[:, 0::2].clamp(0, ow)
+        boxes[:, 1::2] = boxes[:, 1::2].clamp(0, oh)
+        with span("eval.paste_masks", key):
+            masks = paste_masks(probs, boxes, oh, ow, threshold=mask_threshold)
+        with span("eval.to_host", key):
+            return {"boxes": boxes.cpu().numpy(), "scores": scores.cpu().numpy(),
+                    "classes": classes.cpu().numpy(), "masks": masks.cpu().numpy()}
 
 
 def rank_seed(seed: int) -> int:
@@ -108,7 +116,13 @@ def evaluate_dataset(model, dataset_name: str, *, canvas: int | str = "auto",
     and its postprocessed detections dumped under ``<draw_dir>/visual`` and
     ``<draw_dir>/masks`` (``utils/visualize.py:dump_visualization``) before
     they are scored.  The dumps' seconds are kept out of the ``Eval`` figure
-    of the s/iter lines and logged on a line of their own."""
+    of the s/iter lines and logged on a line of their own.
+
+    Spans (``utils/profiling.py``): ``eval.inference`` around each batch's
+    ``forward_inference`` (keyed by the batch's index), and per image
+    (keyed by its ``image_id``) :func:`postprocess_detections`'s own,
+    ``eval.draw``, ``eval.gt_masks`` (the GT rasterisation) and
+    ``eval.score`` (the evaluator's ``process``)."""
     device = next(model.parameters()).device
     evaluator, etype = build_evaluator(dataset_name, dice_threshold=dice_threshold,
                                        evaluator_type=evaluator_type,
@@ -129,42 +143,47 @@ def evaluate_dataset(model, dataset_name: str, *, canvas: int | str = "auto",
     n_img = 0
     t_data = t_compute = t_eval = t_draw = 0.0
     t0 = time.perf_counter()
-    for batch, metas in loader:
+    for idx, (batch, metas) in enumerate(loader):
         t_data += time.perf_counter() - t0
         t1 = time.perf_counter()
-        det = model.forward_inference(torch.from_numpy(batch["image"]).to(device),
-                                      torch.from_numpy(batch["image_sizes"]).to(device))
-        _sync(device)
+        with span("eval.inference", idx):
+            det = model.forward_inference(torch.from_numpy(batch["image"]).to(device),
+                                          torch.from_numpy(batch["image_sizes"]).to(device))
+            _sync(device)
         t_compute += time.perf_counter() - t1
         t2 = time.perf_counter()
         drawn = 0.0
         for b, meta in enumerate(metas[:metas[0]["n_real"]]):
+            image_id = meta["image_id"]
             out = postprocess_detections(det, meta, b)
-            record = records_by_id[meta["image_id"]]
+            record = records_by_id[image_id]
             if draw_dir is not None:
                 t3 = time.perf_counter()
-                dump_visualization(draw_dir, meta["image_id"], load_image(record["file_name"]),
-                                   out)
+                with span("eval.draw", image_id):
+                    dump_visualization(draw_dir, image_id, load_image(record["file_name"]), out)
                 drawn += time.perf_counter() - t3
             anns = record["annotations"]
             gt_classes = [a["category_id"] for a in anns]
-            gt_masks = ([segmentation_to_mask(a["segmentation"], record["height"],
-                                              record["width"]) for a in anns]
-                        if etype == "dice" or with_segm else None)
+            with span("eval.gt_masks", image_id):
+                gt_masks = ([segmentation_to_mask(a["segmentation"], record["height"],
+                                                  record["width"]) for a in anns]
+                            if etype == "dice" or with_segm else None)
             gt_boxes = np.asarray([a["bbox"] for a in anns], np.float64).reshape(-1, 4)
-            if etype == "dice":
-                evaluator.process(out["masks"], out["classes"], out["scores"], gt_masks,
-                                  gt_classes)
-            elif etype == "coco":
-                evaluator.process(det_boxes=out["boxes"], det_scores=out["scores"],
-                                  det_classes=out["classes"],
-                                  det_masks=list(out["masks"]) if with_segm else None,
-                                  gt_boxes=gt_boxes, gt_classes=gt_classes, gt_masks=gt_masks,
-                                  gt_crowd=[a.get("iscrowd", 0) for a in anns])
-            else:
-                evaluator.process(out["boxes"], out["scores"], out["classes"], gt_boxes,
-                                  gt_classes,
-                                  gt_difficult=[a.get("difficult", 0) for a in anns])
+            with span("eval.score", image_id):
+                if etype == "dice":
+                    evaluator.process(out["masks"], out["classes"], out["scores"], gt_masks,
+                                      gt_classes)
+                elif etype == "coco":
+                    evaluator.process(det_boxes=out["boxes"], det_scores=out["scores"],
+                                      det_classes=out["classes"],
+                                      det_masks=list(out["masks"]) if with_segm else None,
+                                      gt_boxes=gt_boxes, gt_classes=gt_classes,
+                                      gt_masks=gt_masks,
+                                      gt_crowd=[a.get("iscrowd", 0) for a in anns])
+                else:
+                    evaluator.process(out["boxes"], out["scores"], out["classes"], gt_boxes,
+                                      gt_classes,
+                                      gt_difficult=[a.get("difficult", 0) for a in anns])
             n_img += 1
         t_eval += time.perf_counter() - t2 - drawn
         t_draw += drawn
@@ -280,7 +299,9 @@ class BaselineTrainer:
         Each hook is called on every iteration with the step's losses on the
         device, and a hook's ``after_train(it, metrics)``, if it has one,
         after the last; every ``log_every`` iterations the losses are
-        logged."""
+        logged.  Spans (``utils/profiling.py``), keyed by the iteration:
+        ``trainer.source_step`` around the step's call (the batch's copy to
+        the device included) and ``trainer.hooks`` around the hooks."""
         dev = next(self.model.parameters()).device
         loader = build_train_loader(
             dataset_names, batch_size=batch_size, canvas=self.canvas, min_size=self.min_size,
@@ -290,11 +311,13 @@ class BaselineTrainer:
         it = metrics = None
         try:
             for it in range(self.optimizer.count, max_iter):
-                batch = {k: torch.from_numpy(v).to(dev)
-                         for k, v in mesh.shard_batch(next(loader)).items()}
-                metrics = self._source_step(batch, gen)
-                for h in hooks:
-                    h(it, metrics)
+                host = mesh.shard_batch(next(loader))
+                with span("trainer.source_step", it):
+                    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+                    metrics = self._source_step(batch, gen)
+                with span("trainer.hooks", it):
+                    for h in hooks:
+                        h(it, metrics)
                 if it % log_every == 0:
                     logger.info("iter %d: %s", it,
                                 {k: round(float(v), 4) for k, v in metrics.items()})
@@ -326,7 +349,9 @@ class BaselineTrainer:
         batch size (1 without ``ttt``; whole on every rank), dumping the
         detections under ``draw_dir`` when it is given (the caller passes it
         on the main process only).  Returns each dataset's metrics and each
-        family's means."""
+        family's means.  Each TTA step's call (the batch's copy to the device
+        included) is the span ``trainer.tta_step`` (``utils/profiling.py``),
+        keyed by the batch's index."""
         results = {}
         source = self._snapshot() if reset_between_datasets else None
         dev = next(self.model.parameters()).device
@@ -342,8 +367,9 @@ class BaselineTrainer:
                         break
                     shard = mesh.shard_batch({"image": batch["image"],
                                               "image_sizes": batch["image_sizes"]})
-                    loss = self._tta_step({k: torch.from_numpy(v).to(dev)
-                                           for k, v in shard.items()})
+                    with span("trainer.tta_step", idx):
+                        loss = self._tta_step({k: torch.from_numpy(v).to(dev)
+                                               for k, v in shard.items()})
                 if loss is not None:
                     self.last_tta_loss = float(loss)
                     logger.info("TTA on %s: final loss %.5f", name, self.last_tta_loss)

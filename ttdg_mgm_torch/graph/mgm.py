@@ -24,6 +24,7 @@ from ttdg_mgm_torch.graph.losses import BCEFocalLoss
 from ttdg_mgm_torch.graph.solvers import ga_gm_mixture
 from ttdg_mgm_torch.ops.gagm import ga_gm_fused
 from ttdg_mgm_torch.ops.sinkhorn import sinkhorn_project
+from ttdg_mgm_torch.utils.profiling import span
 
 
 class MGM3Unsup(nn.Module):
@@ -51,7 +52,8 @@ class MGM3Unsup(nn.Module):
         self.last_solver_steps = None
         #: the graphs' clusters of the last solve (with ``num_clusters > 1``)
         self.last_clusters = None
-        #: valid nodes per graph in the last solve
+        #: valid nodes per graph in the last solve, ``(G,)`` int32 on the
+        #: nodes' device (read it with ``.tolist()``: that waits for it)
         self.last_node_counts = None
 
     def build_problem(self, nodes, labels, mask, U):
@@ -96,13 +98,15 @@ class MGM3Unsup(nn.Module):
             # pairs within a cluster only
             pair_sel = pair_sel & (clusters[:, None] == clusters[None, :])
         else:
-            U_b, steps = ga_gm_fused(
-                A.detach(), Wds.detach(), U0.detach(), ms, self.univ_size,
-                quad_weight=self.quad_weight, mgm_iter=self.mgm_iter, sk_iter=self.sk_iter,
-                sk_tau0=0.1, sk_gamma=0.5, min_tau=1e-2, tol=1e-3,
-                lap_iter_cap=self.lap_polish_iters, return_steps=True)
+            # the span holds the solve's one wait on the device (its steps)
+            with span("step.gagm"):
+                U_b, steps = ga_gm_fused(
+                    A.detach(), Wds.detach(), U0.detach(), ms, self.univ_size,
+                    quad_weight=self.quad_weight, mgm_iter=self.mgm_iter,
+                    sk_iter=self.sk_iter, sk_tau0=0.1, sk_gamma=0.5, min_tau=1e-2, tol=1e-3,
+                    lap_iter_cap=self.lap_polish_iters, return_steps=True)
             self.last_solver_steps = steps
-        self.last_node_counts = ms.tolist()
+        self.last_node_counts = ms
         Ug = U_b.reshape(G, M, self.univ_size)
         gt = torch.einsum("imu,jnu->ijmn", Ug, Ug).clamp(0.0, 1.0)
         losses = BCEFocalLoss()(ds_sym, gt, pair_valid)

@@ -28,6 +28,14 @@ discriminator's logits) and the graph nodes enter the matching modules
 and the cross-domain head as float32; the GT-mask crop stays float32.  The
 VGG trunk computes in float32 on the bf16-rounded input, as the JAX model's
 does (``models/vgg.py``).
+
+Spans (``utils/profiling.py``) on every path through the model:
+``step.backbone`` (trunk and FPN), ``step.proposals`` (RPN head, decode,
+top-k and NMS; the RPN losses), ``step.box_inference`` (the box head and
+its NMS), ``step.roi_heads`` (the supervised box and mask heads and their
+losses; the mask head at inference), ``step.node_sampler`` (graph nodes),
+``step.matching`` (the TTA matching loss, ``graph/mgm.py``) and
+``step.universe`` (the source matching loss against the universe).
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from ttdg_mgm_torch.models.rpn import RPNHead, generate_proposals, level_anchors
 from ttdg_mgm_torch.models.vgg import STAGE_CHANNELS as VGG_STAGE_CHANNELS
 from ttdg_mgm_torch.models.vgg import VGG16FPNBackbone
 from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_train
+from ttdg_mgm_torch.utils.profiling import span
 
 #: compute dtypes of the JAX ``MaskRCNN.compute_dtype`` field (None: the
 #: layers' own float32)
@@ -191,25 +200,27 @@ class MaskRCNN(nn.Module):
 
     def _features_nchw(self, images):
         """The FPN levels, NCHW, in the compute dtype."""
-        return self.backbone(self._normalize(images))
+        with span("step.backbone"):
+            return self.backbone(self._normalize(images))
 
     def extract_features(self, images):
         """images ``(B, H, W, 3)`` -> ``{"p2": (B, H/4, W/4, C), ..., "p6"}``."""
         return _to_nhwc(self._features_nchw(images))
 
     def _proposals(self, feats_nchw, image_sizes, *, train: bool = False):
-        levels = [feats_nchw[f"p{i}"] for i in range(2, 7)]
-        logits, regs = self.proposal_generator.rpn_head(levels)
-        # box decode and scoring in float32 (JAX rcnn.py:221-222)
-        logits = [t.float() for t in logits]
-        regs = [t.float() for t in regs]
-        anchors = level_anchors([(f.shape[2], f.shape[3]) for f in levels],
-                                sizes=self.anchor_sizes, device=image_sizes.device)
-        props = generate_proposals(
-            logits, regs, anchors, image_sizes,
-            pre_nms_topk=self.pre_nms_topk_train if train else self.pre_nms_topk_test,
-            post_nms_topk=self.post_nms_topk, nms_thresh=self.rpn_nms_thresh)
-        return (logits, regs, anchors), props
+        with span("step.proposals"):
+            levels = [feats_nchw[f"p{i}"] for i in range(2, 7)]
+            logits, regs = self.proposal_generator.rpn_head(levels)
+            # box decode and scoring in float32 (JAX rcnn.py:221-222)
+            logits = [t.float() for t in logits]
+            regs = [t.float() for t in regs]
+            anchors = level_anchors([(f.shape[2], f.shape[3]) for f in levels],
+                                    sizes=self.anchor_sizes, device=image_sizes.device)
+            props = generate_proposals(
+                logits, regs, anchors, image_sizes,
+                pre_nms_topk=self.pre_nms_topk_train if train else self.pre_nms_topk_test,
+                post_nms_topk=self.post_nms_topk, nms_thresh=self.rpn_nms_thresh)
+            return (logits, regs, anchors), props
 
     def _pool(self, feats, boxes, output_size: int, *, pack: bool = False):
         """Multi-level ROIAlign ``(B, K, 4) -> (B, K, P, P, C)`` (CUDA kernels
@@ -224,14 +235,15 @@ class MaskRCNN(nn.Module):
                                        sampling_ratio=self.pooler_sampling_ratio)
 
     def _box_inference(self, feats, prop_boxes, prop_valid, image_sizes):
-        B, K = prop_boxes.shape[:2]
-        pooled = self._pool(feats, prop_boxes, 7)
-        x = self.roi_heads.box_head(pooled.reshape(B * K, *pooled.shape[2:]))
-        scores, deltas = (t.float() for t in self.roi_heads.box_predictor(x))
-        return roi_box_inference(
-            scores.reshape(B, K, -1), deltas.reshape(B, K, -1), prop_boxes, prop_valid,
-            image_sizes, num_classes=self.num_classes, score_thresh=self.score_thresh_test,
-            nms_thresh=self.nms_thresh_test, topk=self.detections_per_image)
+        with span("step.box_inference"):
+            B, K = prop_boxes.shape[:2]
+            pooled = self._pool(feats, prop_boxes, 7)
+            x = self.roi_heads.box_head(pooled.reshape(B * K, *pooled.shape[2:]))
+            scores, deltas = (t.float() for t in self.roi_heads.box_predictor(x))
+            return roi_box_inference(
+                scores.reshape(B, K, -1), deltas.reshape(B, K, -1), prop_boxes, prop_valid,
+                image_sizes, num_classes=self.num_classes, score_thresh=self.score_thresh_test,
+                nms_thresh=self.nms_thresh_test, topk=self.detections_per_image)
 
     # -- branches ------------------------------------------------------------
 
@@ -251,11 +263,13 @@ class MaskRCNN(nn.Module):
         if not self.mask_on:
             mask_probs = torch.zeros((B, D, 28, 28), device=boxes.device)
         else:
-            pooled = self._pool(feats, boxes, 14)
-            logits = self.roi_heads.mask_head(pooled.reshape(B * D, *pooled.shape[2:])).float()
-            cls_idx = classes.clamp(0, self.num_classes - 1).reshape(B * D)
-            sel = logits[torch.arange(B * D, device=logits.device), cls_idx]
-            mask_probs = torch.sigmoid(sel).reshape(B, D, *sel.shape[1:])
+            with span("step.roi_heads"):
+                pooled = self._pool(feats, boxes, 14)
+                logits = self.roi_heads.mask_head(
+                    pooled.reshape(B * D, *pooled.shape[2:])).float()
+                cls_idx = classes.clamp(0, self.num_classes - 1).reshape(B * D)
+                sel = logits[torch.arange(B * D, device=logits.device), cls_idx]
+                mask_probs = torch.sigmoid(sel).reshape(B, D, *sel.shape[1:])
         return {"boxes": boxes, "scores": scores, "classes": classes, "valid": valid,
                 "mask_probs": mask_probs}
 
@@ -275,10 +289,12 @@ class MaskRCNN(nn.Module):
         with torch.no_grad():
             _, (pboxes, _, pvalid) = self._proposals(nchw, image_sizes)
             boxes, _, classes, valid = self._box_inference(feats, pboxes, pvalid, image_sizes)
-        nodes, labels, node_mask = self.graph_generator(
-            [feats[f"p{i}"] for i in range(2, 7)], boxes, classes, valid)
-        return self.multi_matching_unsup(nodes.float(), labels, node_mask,
-                                         self.multi_matching_sup.U.detach())
+        with span("step.node_sampler"):
+            nodes, labels, node_mask = self.graph_generator(
+                [feats[f"p{i}"] for i in range(2, 7)], boxes, classes, valid)
+        with span("step.matching"):
+            return self.multi_matching_unsup(nodes.float(), labels, node_mask,
+                                             self.multi_matching_sup.U.detach())
 
     def loss_supervised(self, images, image_sizes, gt_boxes, gt_classes, gt_masks, gt_valid, *,
                         generator: torch.Generator | None = None, uniforms: dict | None = None,
@@ -305,48 +321,52 @@ class MaskRCNN(nn.Module):
             n_rois = pboxes.shape[1] + gt_boxes.shape[1]
             uniforms = {"rpn": torch.rand((B, n_anchors), generator=generator, device=dev),
                         "roi": torch.rand((B, n_rois), generator=generator, device=dev)}
-        losses = rpn_losses(logits, regs, anchors, gt_boxes, gt_valid, uniforms["rpn"])
+        with span("step.proposals"):
+            losses = rpn_losses(logits, regs, anchors, gt_boxes, gt_valid, uniforms["rpn"])
+        with span("step.roi_heads"):
+            S = self.batch_size_per_image
+            sb, sc, sm, sfg, sv = label_and_sample_proposals(
+                pboxes, pvalid, gt_boxes, gt_classes, gt_valid, uniforms["roi"],
+                num_classes=self.num_classes, batch_size_per_image=S,
+                positive_fraction=self.roi_positive_fraction)
+            pooled = self._pool(feats, sb, 7, pack=True)
+            x = self.roi_heads.box_head(pooled.reshape(B * S, *pooled.shape[2:]))
+            scores, deltas = (t.float() for t in self.roi_heads.box_predictor(x))
+            matched = torch.gather(gt_boxes, 1, sm[..., None].expand(B, S, 4))
+            det = fast_rcnn_losses(scores.reshape(B, S, -1), deltas.reshape(B, S, -1), sb,
+                                   matched, sc, sfg, sv, num_classes=self.num_classes,
+                                   cls_loss_type=self.cls_loss_type)
+            losses["loss_cls"] = det["loss_cls"].mean()
+            losses["loss_box_reg"] = det["loss_box_reg"].mean()
 
-        S = self.batch_size_per_image
-        sb, sc, sm, sfg, sv = label_and_sample_proposals(
-            pboxes, pvalid, gt_boxes, gt_classes, gt_valid, uniforms["roi"],
-            num_classes=self.num_classes, batch_size_per_image=S,
-            positive_fraction=self.roi_positive_fraction)
-        pooled = self._pool(feats, sb, 7, pack=True)
-        x = self.roi_heads.box_head(pooled.reshape(B * S, *pooled.shape[2:]))
-        scores, deltas = (t.float() for t in self.roi_heads.box_predictor(x))
-        matched = torch.gather(gt_boxes, 1, sm[..., None].expand(B, S, 4))
-        det = fast_rcnn_losses(scores.reshape(B, S, -1), deltas.reshape(B, S, -1), sb, matched,
-                               sc, sfg, sv, num_classes=self.num_classes,
-                               cls_loss_type=self.cls_loss_type)
-        losses["loss_cls"] = det["loss_cls"].mean()
-        losses["loss_box_reg"] = det["loss_box_reg"].mean()
-
-        if with_mask and self.mask_on:
-            cap = self.mask_fg_cap
-            (fg_boxes, fg_cls, fg_matched), n_fg = compact_rows(
-                sfg, cap, (sb, 0.0), (sc, 0), (sm, 0))
-            fg_mask = torch.arange(cap, device=sfg.device) < n_fg[:, None]
-            pooled_m = self._pool(feats, fg_boxes, 14, pack=True)
-            mlogits = self.roi_heads.mask_head(
-                pooled_m.reshape(B * cap, *pooled_m.shape[2:])).float()
-            mlogits = mlogits.reshape(B, cap, *mlogits.shape[1:])
-            # GT masks live on a (R, R) canvas of the padded image: per-axis
-            # scales (the canvas may be rectangular)
-            mres = gt_masks.shape[-1]
-            sy = mres / images.shape[1]
-            sx = mres / images.shape[2]
-            scale = torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=sb.device)
-            m28 = crop_gt_masks(gt_masks, fg_matched, fg_boxes * scale)
-            per_img = mask_loss(mlogits, fg_cls, m28, fg_mask)
-            w = n_fg.to(torch.float32).clamp(min=1.0)
-            losses["loss_mask"] = (per_img * w).sum() / w.sum()
+            if with_mask and self.mask_on:
+                cap = self.mask_fg_cap
+                (fg_boxes, fg_cls, fg_matched), n_fg = compact_rows(
+                    sfg, cap, (sb, 0.0), (sc, 0), (sm, 0))
+                fg_mask = torch.arange(cap, device=sfg.device) < n_fg[:, None]
+                pooled_m = self._pool(feats, fg_boxes, 14, pack=True)
+                mlogits = self.roi_heads.mask_head(
+                    pooled_m.reshape(B * cap, *pooled_m.shape[2:])).float()
+                mlogits = mlogits.reshape(B, cap, *mlogits.shape[1:])
+                # GT masks live on a (R, R) canvas of the padded image: per-axis
+                # scales (the canvas may be rectangular)
+                mres = gt_masks.shape[-1]
+                sy = mres / images.shape[1]
+                sx = mres / images.shape[2]
+                scale = torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=sb.device)
+                m28 = crop_gt_masks(gt_masks, fg_matched, fg_boxes * scale)
+                per_img = mask_loss(mlogits, fg_cls, m28, fg_mask)
+                w = n_fg.to(torch.float32).clamp(min=1.0)
+                losses["loss_mask"] = (per_img * w).sum() / w.sum()
 
         if source:
-            nodes, labels, node_mask = self.graph_generator(
-                [feats[f"p{i}"] for i in range(2, 7)], gt_boxes, gt_classes.to(torch.int32),
-                gt_valid)
-            losses["loss_matching"] = self.multi_matching_sup(nodes.float(), labels, node_mask)
+            with span("step.node_sampler"):
+                nodes, labels, node_mask = self.graph_generator(
+                    [feats[f"p{i}"] for i in range(2, 7)], gt_boxes,
+                    gt_classes.to(torch.int32), gt_valid)
+            with span("step.universe"):
+                losses["loss_matching"] = self.multi_matching_sup(nodes.float(), labels,
+                                                                  node_mask)
         return losses
 
     def loss_cross_domain(self, images_s, image_sizes_s, boxes_s, classes_s, valid_s,

@@ -7,6 +7,8 @@ first use, never at import: a machine without ``nvcc`` imports the package
 and runs its plain PyTorch versions.  The library lands in
 ``ttdg_mgm_torch/_build/`` (ignored by git), named by a hash of the sources
 and flags, so an edited kernel is rebuilt and an unchanged one is reused.
+The span ``setup.kernels`` (``utils/profiling.py``) holds the library's
+build or load, once per process.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import tempfile
 import time
 
 import torch
+
+from ttdg_mgm_torch.utils.profiling import span
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -95,7 +99,8 @@ def lib() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once per process."""
     global _lib
     if _lib is None:
-        cdll = ctypes.CDLL(_build())
+        with span("setup.kernels"):
+            cdll = ctypes.CDLL(_build())
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # forward and backward pools: 4 level pointers, level count and
         # shapes, C, R, K, the ROIs, 4 strides, min_level, P, the sampling
