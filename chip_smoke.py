@@ -87,8 +87,9 @@ Phases, each of which exits non-zero when it fails:
    ``TEST.DICE_THRES 0.0``: two TTA steps and the evaluation at batch 4 on
    the 832 x 1216 canvas; kernel counters read around the call; it fails
    unless ``result_ap.txt`` holds the split and its family mean, Dice, E and
-   S are finite, a TTA loss is above 0, kernels A and B launched, and
-   neither Pillow, OpenCV nor PyYAML was imported; with ``TEST.DRAW True``
+   S are finite, a TTA loss is above 0, kernels A, B and the paste
+   launched, and neither Pillow, OpenCV nor PyYAML was imported; with
+   ``TEST.DRAW True``
    it holds the visualizer's dumps (one ``visual`` and one
    ``masks`` PNG per image at its size, read by the port's decoder; the
    masks the union of the image's pasted masks; the boxes equal to
@@ -215,7 +216,12 @@ Phases, each of which exits non-zero when it fails:
    and B launched and held on the call's own inputs; every file of the
    splits, an uncompressed TIFF and a BMP of the first frame and the
    committed CMYK and 4:1:1 JPEGs decoded against the committed digests of
-   Pillow's decode, each format's decode seconds per image logged.
+   Pillow's decode, each format's decode seconds per image logged;
+17. the mask paste (``phase_paste``, ``csrc/mask_paste.cu``) at the TTA
+   cell's shape (100 masks of 28 x 28 on 800 x 800): bit for bit the JAX
+   package's NumPy paste on float32 and bfloat16 probabilities and at a
+   width of 1944, one launch a call, its time against its bound (the bytes
+   it writes) and against the plain version's.
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off), and cuDNN runs its
@@ -228,7 +234,8 @@ limit (nvidia-smi), one JSON object with each kernel's numbers (its
 launches on the TTA, source, eval-only command-line, train command-line,
 mean-teacher and cross-domain mean-teacher command-line paths, the VGG
 paths of phase 13, the DP paths of phase 14, the mixture's TTA steps of
-phase 15 and the eval-only call of phase 16 under ``launches_by_path``; the holds on the
+phase 15 and the eval-only call of phase 16 under ``launches_by_path``;
+the paste's launches are the eval-only command line's; the holds on the
 command-line paths' own inputs under ``held_on_paths``), and the
 device line ``{"ok": true, "device":
 {...}}``.
@@ -975,6 +982,7 @@ def kernel_counters():
     """Each kernel variant's launch counter: ``{name: (wrapper, attribute)}``;
     the pools count their float32 and bfloat16 launches apart."""
     from ttdg_mgm_torch.ops.gagm import ga_gm_fused
+    from ttdg_mgm_torch.ops.mask_paste import paste_masks
     from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_backward
     from ttdg_mgm_torch.ops.sinkhorn import sinkhorn_batched
 
@@ -983,7 +991,8 @@ def kernel_counters():
             "gagm": (ga_gm_fused, "launches"),
             "roi_pool_backward": (multilevel_roi_pool_backward, "launches"),
             "roi_pool_backward_bf16": (multilevel_roi_pool_backward, "launches_bf16"),
-            "sinkhorn": (sinkhorn_batched, "launches")}
+            "sinkhorn": (sinkhorn_batched, "launches"),
+            "paste_masks": (paste_masks, "launches")}
 
 
 def pool_counter(name: str, prec: str) -> str:
@@ -1942,9 +1951,9 @@ def phase_cli(torch, dev, card: str = "", hw=(800, 1192), opts=(), model_kw=None
     check(len(metrics) == 3 and all(math.isfinite(v) for v in metrics.values()),
           f"Dice, E and S not all finite: {metrics}")
     check(any(v > 0 for v in record["tta_loss"]), f"TTA loss {record['tta_loss']} never > 0")
-    check(launches["roi_pool"] >= 1 and launches["gagm"] >= 1,
-          f"the CLI path launched kernel A {launches['roi_pool']} and kernel B "
-          f"{launches['gagm']} times")
+    check(launches["roi_pool"] >= 1 and launches["gagm"] >= 1 and launches["paste_masks"] >= 1,
+          f"the CLI path launched kernel A {launches['roi_pool']}, kernel B "
+          f"{launches['gagm']} and the paste {launches['paste_masks']} times")
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in ("PIL", "cv2", "yaml"))
     check(not foreign, f"the CLI path imported {foreign[:5]}")
     n_img, data_s, infer_s, eval_s = record["eval"]
@@ -4783,6 +4792,127 @@ def phase_formats(torch, dev, card: str = "", opts=(), model_kw=None,
                 metrics={k: results[k] for k in splits}, held=held)
 
 
+# -- phase 17: the mask paste -------------------------------------------------------
+
+def paste_masks_np(masks, boxes, height: int, width: int, threshold: float = 0.5):
+    """``ttdg_mgm_tpu/ops/mask_paste.py:paste_masks_np`` line for line (the
+    JAX package's module imports JAX, which the card's machine lacks): the
+    NumPy paste the kernel equals bit for bit.  ``tests/test_torch_eval.py``
+    holds the two equal on the CPU."""
+    import numpy as np
+
+    K, M, _ = masks.shape
+    out = np.zeros((K, height, width), np.uint8)
+    for k in range(K):
+        x1, y1, x2, y2 = boxes[k]
+        w = max(x2 - x1, 1e-6)
+        h = max(y2 - y1, 1e-6)
+        y0i = max(int(np.floor(y1)), 0)
+        y1i = min(int(np.ceil(y2)) + 1, height)
+        x0i = max(int(np.floor(x1)), 0)
+        x1i = min(int(np.ceil(x2)) + 1, width)
+        if y1i <= y0i or x1i <= x0i:
+            continue
+        ys = (np.arange(y0i, y1i) + 0.5 - y1) / h * M - 0.5
+        xs = (np.arange(x0i, x1i) + 0.5 - x1) / w * M - 0.5
+        gy, gx = np.meshgrid(ys, xs, indexing="ij")
+        y0 = np.floor(gy)
+        x0 = np.floor(gx)
+
+        def g(yy, xx):
+            ok = (yy >= 0) & (yy < M) & (xx >= 0) & (xx < M)
+            yi = np.clip(yy, 0, M - 1).astype(np.int64)
+            xi = np.clip(xx, 0, M - 1).astype(np.int64)
+            return np.where(ok, masks[k][yi, xi], 0.0)
+
+        ly = gy - y0
+        lx = gx - x0
+        v = (
+            g(y0, x0) * (1 - ly) * (1 - lx)
+            + g(y0, x0 + 1) * (1 - ly) * lx
+            + g(y0 + 1, x0) * ly * (1 - lx)
+            + g(y0 + 1, x0 + 1) * ly * lx
+        )
+        out[k, y0i:y1i, x0i:x1i] = (v >= threshold).astype(np.uint8)
+    return out
+
+
+def paste_boxes(rng, K: int, H: int, W: int):
+    """``(K, 4)`` float32 boxes of 0.3-3x the image, many crossing its
+    border or larger than 28 px, a few thinner than a pixel."""
+    import numpy as np
+
+    c = rng.uniform([-0.2 * W, -0.2 * H], [1.1 * W, 1.1 * H], (K, 2))
+    s = rng.uniform(0.3, 1.0, (K, 2)) * rng.choice([0.05, 0.5, 3.0], (K, 1)) * [W, H]
+    s[: K // 8] *= 0.01
+    return np.concatenate([c, c + s], 1).astype(np.float32)
+
+
+def phase_paste(torch, dev, K: int = 100, M: int = 28, H: int = 800, W: int = 800,
+                odd_w: int = 1944, reps: int = 50, seed: int = 0) -> dict:
+    """The mask-paste kernel (``csrc/mask_paste.cu``) at the TTA cell's
+    shape (K detections of M x M on an H x W image): bit for bit
+    :func:`paste_masks_np` on :func:`paste_boxes` clamped to the image (as
+    ``postprocess_detections`` clamps detections) on float32 probabilities
+    and on the same rounded to bfloat16, then at the odd width ``odd_w``
+    (Drishti-GS's, not a multiple of 16) on the boxes unclamped (over the
+    border, thinner than a pixel); one launch a call; its time (the
+    wrapper's and the bare launch's, CUDA events over ``reps`` calls)
+    against its bound, the ``(K, H, W)`` bytes it writes, and the plain
+    version's time (one call, host clock: its loop syncs)."""
+    import numpy as np
+
+    from ttdg_mgm_torch.ops import _cuda
+    from ttdg_mgm_torch.ops.mask_paste import paste_masks, paste_masks_plain
+
+    rng = np.random.RandomState(seed)
+    probs = rng.rand(K, M, M).astype(np.float32)
+    loose = paste_boxes(rng, K, H, W)
+    boxes = loose.copy()
+    boxes[:, 0::2] = boxes[:, 0::2].clip(0, W)
+    boxes[:, 1::2] = boxes[:, 1::2].clip(0, H)
+    m, b = torch.from_numpy(probs).to(dev), torch.from_numpy(boxes).to(dev)
+    rounded = m.to(torch.bfloat16)
+    cases = {"float32": (m, probs, b, boxes, W),
+             "bfloat16": (rounded, rounded.float().cpu().numpy(), b, boxes, W),
+             f"float32_w{odd_w}": (m, probs, torch.from_numpy(loose).to(dev), loose, odd_w)}
+    mismatches, ones = {}, {}
+    for name, (mt, mn, bt, bn, width) in cases.items():
+        before = paste_masks.launches
+        got = paste_masks(mt, bt, H, width, 0.5)
+        _sync(torch, dev)
+        check(paste_masks.launches == before + 1,
+              f"paste {name}: {paste_masks.launches - before} kernel launches, not 1")
+        want = paste_masks_np(mn, bn, H, width, 0.5)
+        mismatches[name] = int((got.cpu().numpy() != want).sum())
+        ones[name] = int(want.sum())
+    check(not any(mismatches.values()) and all(ones.values()),
+          f"paste: pixels differing from paste_masks_np {mismatches} (pasted ones {ones})")
+    win = [max(0, min(math.ceil(y2) + 1, H) - max(math.floor(y1), 0))
+           * max(0, min(math.ceil(x2) + 1, W) - max(math.floor(x1), 0))
+           for x1, y1, x2, y2 in boxes.tolist()]
+    ms = event_ms(torch, lambda: paste_masks(m, b, H, W, 0.5), reps)
+    out = torch.empty((K, H, W), dtype=torch.uint8, device=dev)
+    lib, stream = _cuda.lib(), _cuda.stream_ptr(dev)
+
+    def bare():
+        return lib.ttdg_paste_masks(m.data_ptr(), b.data_ptr(), K, M, H, W, 0.5, out.data_ptr(),
+                                    stream)
+
+    _cuda.check(bare(), "paste_masks kernel")
+    bare_ms = event_ms(torch, bare, reps)
+    plain_ms = host_ms(torch, lambda: paste_masks_plain(m, b, H, W, 0.5))
+    bound_ms, bound_by = bound(K * H * W + probs.nbytes + boxes.nbytes, 0.0)
+    res = dict(ms=ms, kernel_only_ms=bare_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+               bound_by=bound_by, shape=[K, M, H, W], window_share=sum(win) / (K * H * W),
+               mismatches=mismatches, pasted_ones=ones)
+    log(f"paste: kernel {ms:.4f} ms a call ({bare_ms:.4f} bare), bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({100 * bound_ms / bare_ms:.1f} % of it), plain {plain_ms:.1f} ms, at K {K}, "
+        f"M {M}, {H} x {W}, windows {100 * res['window_share']:.1f} % of the pixels; bit for "
+        f"bit paste_masks_np in {sorted(cases)}")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -4872,6 +5002,8 @@ def main() -> int:
     done(15)
     fmts = phase_formats(torch, dev, card)
     done(16)
+    paste = phase_paste(torch, dev)
+    done(17)
     if "--warm" in argv:
         phase_warm(torch, dev)
 
@@ -4967,6 +5099,12 @@ def main() -> int:
              input_dtypes_bf16_path=src16["kernel_d_dtypes"],
              projections_checked=sk["projections_checked"], hippi_rerun=sk["hippi_rerun"],
              held_on_paths=sk_held),
+        dict(name="paste_masks", route="cuda", source="ttdg_mgm_torch/csrc/mask_paste.cu",
+             replaces=None, launches=cli["launches"]["paste_masks"],
+             launches_by_path=by_path["paste_masks"], max_abs_err=0.0,
+             **{k: paste[k] for k in ("ms", "kernel_only_ms", "plain_ms", "bound_ms", "bound_by",
+                                      "shape", "window_share", "mismatches")},
+             library_ms=None),
     ]
     e2e_keys = ("step_ms", "steady_ms", "images_per_s", "losses", "infer_ms", "peak_gib")
     src_keys = ("batch", "step_ms", "steady_ms", "images_per_s", "total_loss", "peak_gib")

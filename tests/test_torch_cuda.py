@@ -18,17 +18,21 @@ sample counts exactly and place the samples within 1 ulp.  On a random (not
 planted) problem one LAP finale step is held in two well-posed parts: the
 power step V within 1e-5 of its largest entry (float32 sums of some hundreds
 of terms in another order), and the kernel's 0/1 output equal to the plain
-exact LAP of the kernel's own V.
+exact LAP of the kernel's own V.  The mask paste equals the JAX package's
+NumPy paste bit for bit (``chip_smoke.paste_masks_np``, its copy without JAX,
+which ``tests/test_torch_eval.py`` holds equal to it).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import paste_boxes, paste_masks_np
 from ttdg_mgm_torch.graph.solvers import _project_blocks, ga_gm
 from ttdg_mgm_torch.ops.lap import lap_slots_to_nodes
 from ttdg_mgm_torch.ops import _cuda
 from ttdg_mgm_torch.ops.gagm import ga_gm_fused, padded_sizes, resident_smem_bytes
+from ttdg_mgm_torch.ops.mask_paste import paste_masks
 from ttdg_mgm_torch.ops import roi_pool as roi_pool_mod
 from ttdg_mgm_torch.ops.roi_align import (multilevel_roi_align, multilevel_roi_align_backward,
                                           roi_footprints, roi_geometry)
@@ -300,3 +304,39 @@ def test_sinkhorn_kernel_matches_plain(dev, shape, dummy_row, max_iter, generic)
     assert bool(torch.isfinite(got).all())
     assert not bool(got[0].any()) and not bool(got[1].any())
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("K,H,W,thr,dtype,inside", [
+    (100, 800, 800, 0.5, "float32", True),      # the TTA cell's shape, boxes clamped
+    (100, 800, 800, 0.5, "float32", False),
+    (100, 800, 800, 0.5, "bfloat16", True),
+    (40, 90, 77, 0.3, "float32", False),        # widths that are not multiples of 16
+    (40, 64, 1944, 0.9, "float32", False),
+    (40, 61, 1944, 0.3, "bfloat16", False),
+])
+def test_paste_masks_kernel_equals_numpy(dev, K, H, W, thr, dtype, inside):
+    """The paste kernel equals ``paste_masks_np`` bit for bit, one launch a
+    call, on boxes clamped to the image (as ``postprocess_detections`` clamps
+    them) or over its border and thinner than a pixel (``paste_boxes``)."""
+    rng = np.random.RandomState(K + H + W)
+    m = torch.from_numpy(rng.rand(K, 28, 28).astype(np.float32)).to(dev).to(getattr(torch, dtype))
+    b = paste_boxes(rng, K, H, W)
+    if inside:
+        b[:, 0::2] = b[:, 0::2].clip(0, W)
+        b[:, 1::2] = b[:, 1::2].clip(0, H)
+    before = paste_masks.launches
+    got = paste_masks(m, torch.from_numpy(b).to(dev), H, W, thr)
+    torch.cuda.synchronize()
+    assert paste_masks.launches == before + 1
+    want = paste_masks_np(m.float().cpu().numpy(), b, H, W, thr)
+    assert want.sum() > 0
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_paste_masks_kernel_no_boxes(dev):
+    """K = 0 launches nothing and gives a ``(0, H, W)`` uint8 tensor."""
+    before = paste_masks.launches
+    got = paste_masks(torch.zeros((0, 28, 28), device=dev), torch.zeros((0, 4), device=dev),
+                      800, 800)
+    assert paste_masks.launches == before
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (0, 800, 800) and got.is_cuda

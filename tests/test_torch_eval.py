@@ -28,19 +28,12 @@ from ttdg_mgm_torch.engine import trainer as ttrainer
 from ttdg_mgm_torch.evaluation import build as teval_build
 from ttdg_mgm_torch.evaluation import dice as tdice
 from ttdg_mgm_torch.models.rcnn import MaskRCNN, init_weights
-from ttdg_mgm_torch.ops.mask_paste import paste_masks
+from ttdg_mgm_torch.ops.mask_paste import paste_masks, paste_masks_plain
 
 from torch_port_fixture import (jax_model_and_params, shifted_images,  # noqa: E402
                                 to_numpy_tree)
-
-
-def _boxes(rng, K, H, W):
-    """Boxes of 0.3-3x the image, many crossing its border or larger than
-    28 px, a few thinner than a pixel."""
-    c = rng.uniform([-0.2 * W, -0.2 * H], [1.1 * W, 1.1 * H], (K, 2))
-    s = rng.uniform(0.3, 1.0, (K, 2)) * rng.choice([0.05, 0.5, 3.0], (K, 1)) * [W, H]
-    s[: K // 8] *= 0.01
-    return np.concatenate([c, c + s], 1).astype(np.float32)
+from chip_smoke import paste_boxes as _boxes  # noqa: E402
+from chip_smoke import paste_masks_np as paste_masks_twin  # noqa: E402
 
 
 @pytest.mark.parametrize("seed,H,W,thr", [(0, 90, 130, 0.5), (1, 200, 77, 0.5),
@@ -60,6 +53,70 @@ def test_paste_masks_matches_numpy(seed, H, W, thr):
         lo = paste_masks_np(m[k:k + 1], b[k:k + 1], H, W, thr - 1e-6)[0, y, x]
         hi = paste_masks_np(m[k:k + 1], b[k:k + 1], H, W, thr + 1e-6)[0, y, x]
         assert lo != hi, (k, y, x)
+    assert want.sum() > 0
+
+
+def _paste_case(case, rng):
+    """Masks, boxes, height, width and threshold of a CPU case of
+    :func:`test_paste_masks_cpu_cases`."""
+    H, W = 60, 77
+    if case == "empty":
+        return np.zeros((0, 28, 28), np.float32), np.zeros((0, 4), np.float32), H, W, 0.5
+    m = rng.rand(12, 28, 28).astype(np.float32)
+    if case == "mixed":
+        return m, _boxes(rng, 12, H, W), H, W, 0.3
+    if case == "outside":
+        # wholly left of, above, right of, below the image, and on its far corner
+        b = np.array([[-40, 5, -1.5, 30], [3, -50, 40, -0.2], [W + 0.5, 2, W + 30, 40],
+                      [4, H, 50, H + 20], [W, H, W + 10, H + 10], [-9, -9, -1, -1]] * 2,
+                     np.float32)
+        return m, b, H, W, 0.5
+    # inside the image, thinner than a pixel along one axis or both, and
+    # between two pixel centres there, so that every sample falls off the grid
+    lo = rng.randint(2, [W - 25, H - 25], (12, 2)) + rng.uniform(0.55, 0.65, (12, 2))
+    side = np.stack([rng.uniform(0.0, 0.3, 12), rng.uniform(3, 20, 12)], 1)
+    side[4:8] = side[4:8, ::-1]
+    side[8:] = rng.uniform(0.0, 0.3, (4, 2))
+    return m, np.concatenate([lo, lo + side], 1).astype(np.float32), H, W, 0.5
+
+
+@pytest.mark.parametrize("case", ["mixed", "empty", "outside", "subpixel"])
+def test_paste_masks_cpu_cases(case):
+    """On CPU tensors the wrapper runs the plain version (no kernel launch
+    counted): K = 0 gives a ``(0, H, W)`` uint8 tensor, boxes wholly outside
+    the image and boxes thinner than a pixel paste zeros, as
+    ``paste_masks_np`` does."""
+    m, b, H, W, thr = _paste_case(case, np.random.RandomState(7))
+    before = paste_masks.launches
+    got = paste_masks(torch.from_numpy(m), torch.from_numpy(b), H, W, thr)
+    assert paste_masks.launches == before == 0
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (len(m), H, W)
+    assert torch.equal(got, paste_masks_plain(torch.from_numpy(m), torch.from_numpy(b), H, W,
+                                              thr))
+    want = paste_masks_np(m, b, H, W, thr)
+    if case == "mixed":
+        assert want.sum() > 0
+    else:
+        assert want.sum() == 0 and np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed,H,W,thr,dtype", [(0, 90, 130, 0.5, "float32"),
+                                                (1, 200, 77, 0.3, "float32"),
+                                                (2, 64, 1944, 0.9, "bfloat16"),
+                                                (3, 800, 800, 0.5, "float32")])
+def test_paste_numpy_twin_equals_jax_package(seed, H, W, thr, dtype):
+    """``chip_smoke.paste_masks_np``, the NumPy paste the card's tests and
+    smoke phase hold the kernel to (that machine has no JAX), equals the JAX
+    package's ``paste_masks_np`` bit for bit, boxes over the border and
+    thinner than a pixel included."""
+    rng = np.random.RandomState(seed)
+    K = 100 if H == 800 else 24
+    m = rng.rand(K, 28, 28).astype(np.float32)
+    if dtype == "bfloat16":
+        m = torch.from_numpy(m).bfloat16().float().numpy()
+    b = _boxes(rng, K, H, W)
+    want = paste_masks_np(m, b, H, W, thr)
+    np.testing.assert_array_equal(paste_masks_twin(m, b, H, W, thr), want)
     assert want.sum() > 0
 
 

@@ -132,6 +132,9 @@ def lib() -> ctypes.CDLL:
         # stream
         cdll.ttdg_sinkhorn.argtypes = [P] * 4 + [I] * 6 + [P, P]
         cdll.ttdg_sinkhorn.restype = I
+        # masks, boxes; K, M, H, W; the threshold; out, stream
+        cdll.ttdg_paste_masks.argtypes = [P, P, I, I, I, I, ctypes.c_double, P, P]
+        cdll.ttdg_paste_masks.restype = I
         _lib = cdll
     return _lib
 
