@@ -5,7 +5,14 @@ configuration, traffic and metrics, and finds everything that belongs to
 them by name under ``benchmark/``:
 
 * ``configs/<config>.json`` (the ``file`` of the configuration): the model's
-  configuration tree as it is run;
+  configuration tree as it is run (``cfg``) and, optionally, two files of
+  its own under ``benchmark/``: ``reference_model``, the plain reference
+  model of an architecture ``reference/cell.py`` does not build
+  (``build_model(cfg)``, optionally ``init_rules(model)``; see
+  :func:`reference.cell.build` and :func:`weights.make_weights`), and
+  ``captures``, the work of its kernels in a traced run
+  (``instrument(run)`` after the job's set-up, ``work(run)`` after the
+  job's check, which fills ``run.work`` for its metric readers);
 * ``traffic/<traffic>.json``: the job (``jobs/<job>.py``), the dataset
   splits the generator (``datagen.py``) writes, and the job's configuration
   tree (datasets, solver, test settings), merged over the model's;
@@ -19,7 +26,9 @@ seed, makes the weights on the card from the seed, lets the job build the
 program and warm it up (set-up ends there), measures for ``--seconds``
 (with ``--trace 1`` under the profiler, with spans around the program's
 layers), reads the peak memory, frees the program, and has the job run the
-plain reference and compare.  The last line of standard output is one JSON
+plain reference and compare.  The run's record, which the metric readers
+read, holds the cell's merged configuration tree with its ``chips`` under
+``config``.  The last line of standard output is one JSON
 object: ``correct``, ``attempted``, ``failed``, ``metrics``, ``device``, in a
 traced run ``breakdown``, and last ``checks`` (each number compared, with its
 limit), which also end standard error.
@@ -87,6 +96,9 @@ class Spec:
         self.cell = cells[workload]
         conf = next(c for c in bench["configs"] if c["name"] == self.cell["config"])
         self.config = _json(os.path.join(root, conf["file"]))
+        #: the configuration's own reference model and captures (paths), or None
+        self.reference_model = self._own_file("reference_model")
+        self.captures = self._own_file("captures")
         self.traffic = _json(os.path.join(self.bench, "traffic", self.cell["traffic"] + ".json"))
         self.limits = _json(os.path.join(self.bench, "limits", workload + ".json"))
         self.cfg = merge(self.config["cfg"], self.traffic["cfg"])
@@ -98,15 +110,32 @@ class Spec:
         self.end_to_end = [m for m in bench["end_to_end"] if applies(m)]
         self.per_layer = [m for m in bench["per_layer"] if applies(m)]
 
+    def _own_file(self, key: str) -> str | None:
+        """The file the configuration names under ``key``, a path relative
+        to the benchmark folder that stays inside it; None without the key."""
+        rel = self.config.get(key)
+        if rel is None:
+            return None
+        bench = os.path.normpath(self.bench)
+        path = os.path.normpath(os.path.join(bench, rel))
+        if os.path.isabs(rel) or not path.startswith(bench + os.sep):
+            raise RunError(f"{key} {rel!r} of {self.cell['config']!r} is not under benchmark/")
+        return path
+
+
+def load_module(path: str, name: str):
+    """The Python file ``path`` as a fresh module named ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
 
 def load_reader(name: str, bench: str = HERE):
     """The reader module ``metrics/<name>.py`` of the benchmark folder
     ``bench``."""
-    path = os.path.join(bench, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location("metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return load_module(os.path.join(bench, "metrics", name + ".py"),
+                       "metric_" + name.replace(".", "_"))
 
 
 def read_metrics(entries: list, record: dict, bench: str = HERE) -> dict:
@@ -137,7 +166,9 @@ def set_cache_dirs(root: str) -> None:
 
 
 class Run:
-    """The state of one run, handed to the job's functions."""
+    """The state of one run, handed to the job's functions.  ``model_module``
+    and ``captures`` are the configuration's own modules (:class:`Spec`), or
+    None."""
 
     def __init__(self, spec: Spec, seed: int, device, trace: bool, data_root: str, log=print):
         import numpy as np
@@ -158,17 +189,22 @@ class Run:
         self.counts: dict = {}
         self.work: dict = {}
         self.weights = None
+        self.model_module = (load_module(spec.reference_model, "bench_reference_model")
+                             if spec.reference_model else None)
+        self.captures = load_module(spec.captures, "bench_captures") if spec.captures else None
 
     def make_weights(self) -> None:
         """The benchmark's weights, made on the card from the seed (kept on
-        the host for the reference)."""
+        the host for the reference), by the reference model's own init
+        rules where it has them."""
         import torch
 
         from reference.cell import build
         from weights import make_weights
 
-        model, _ = build(self.cfg, self.device)
-        sd = make_weights(model, self.weight_seed)
+        model, _ = build(self.cfg, self.device, model_module=self.model_module)
+        rules = getattr(self.model_module, "init_rules", None)
+        sd = make_weights(model, self.weight_seed, rules(model) if rules else None)
         self.weights = {k: v.cpu() for k, v in sd.items()}
         del model, sd
         if self.device.type == "cuda":
@@ -198,6 +234,8 @@ def execute(spec: Spec, seed: int, seconds: float, trace: bool, device, t_start:
         write_traffic(data_root, spec.traffic, run.data_seed)
         run.make_weights()
         job.setup(run)
+        if trace and run.captures is not None:
+            run.captures.instrument(run)
         check_imports("after set-up")
         gc.collect()
         sync(device)
@@ -224,7 +262,8 @@ def execute(spec: Spec, seed: int, seconds: float, trace: bool, device, t_start:
         check_imports("after the window")
         log(f"window {t1 - t0:.3f} s, counts {run.counts}, peak {peak} bytes")
 
-        record = {"window_s": t1 - t0, "t0": t0, "t1": t1, "setup_s": setup_s,
+        record = {"config": {**spec.cfg, "chips": int(spec.cell["chips"])},
+                  "window_s": t1 - t0, "t0": t0, "t1": t1, "setup_s": setup_s,
                   "memory_peak_bytes": peak, "counts": run.counts, "work": run.work,
                   "spans": [s for s in run.recorder.spans if t0 <= s[1] <= t1],
                   "main_thread": threading.get_ident(), "kernels": []}
@@ -235,6 +274,8 @@ def execute(spec: Spec, seed: int, seconds: float, trace: bool, device, t_start:
                                  if k[2] > t0 and k[1] < t1]
             del prof
         checks = job.check(run)         # frees the program, runs the reference
+        if trace and run.captures is not None:
+            run.captures.work(run)
         check_imports("after the reference")
         limits = spec.limits["limits"]
         numbers = {k: {"value": float(v), "limit": float(limits[k])} for k, v in checks.items()}

@@ -169,7 +169,7 @@ def reference(run, fp8: bool = False, follow: dict | None = None, counter=None,
     cell.register(run.traffic, run.data_root)
     return cell.run_source(run.cfg, run.cfg["DATASETS"]["TRAIN"], run.device, run.weights,
                            FOLLOW, run.cfg["SEED"], fp8=fp8, follow=follow, counter=counter,
-                           alter=alter)
+                           alter=alter, model_module=run.model_module)
 
 
 def check_choosers(got: dict, device, alter=None) -> None:

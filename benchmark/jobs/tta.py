@@ -173,7 +173,8 @@ def reference(run, fp8: bool = False, follow: dict | None = None, counter=None,
     cell.register(run.traffic, run.data_root)
     split = run.cfg["DATASETS"]["TEST"][0]
     return cell.run_tta(run.cfg, split, run.device, run.weights, steps=_steps(run), fp8=fp8,
-                        follow=follow, counter=counter, alter=alter)
+                        follow=follow, counter=counter, alter=alter,
+                        model_module=run.model_module)
 
 
 def numbers(got: dict, ref: dict, run, log=None) -> dict:

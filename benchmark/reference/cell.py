@@ -5,6 +5,18 @@ fed from the dataset files alone.  It imports nothing of the program and
 takes nothing the program made: the configuration dict, the files and the
 benchmark's weights are its inputs.
 
+The model is ``MaskRCNN`` (``reference/models/rcnn.py``) from
+:func:`model_kwargs`, unless the configuration names a reference model of
+its own (``"reference_model"`` in ``configs/<config>.json``, loaded by
+``harness.Run`` and passed here as ``model_module``): a file under
+``benchmark/`` whose ``build_model(cfg)`` returns the model, built with the
+device as the default.  Such a module may import ``reference.*`` (this
+module's :func:`model_kwargs` among them) and nothing of the program.  Its
+model offers what the steps call (``loss_ttt`` or ``loss_supervised``,
+``forward_inference``, ``_box_inference``) and builds its convolution and
+dense layers from ``reference/models/layers.py``, so that the control's
+:func:`reference.models.layers.set_fp8` reaches them.
+
 ``fp8=True`` is the control: every convolution and dense layer of the bf16
 policy takes inputs and weights rounded to float8 (e4m3, one scale per
 tensor from its largest magnitude), the step below the configuration's
@@ -96,9 +108,11 @@ def geometry(cfg: Cfg) -> dict:
                                  and sizes else None))
 
 
-def build(cfg: dict, device, weights: dict | None = None, fp8: bool = False):
+def build(cfg: dict, device, weights: dict | None = None, fp8: bool = False,
+          model_module=None):
     """The reference model (with ``weights`` loaded when given) and its
-    optimizer."""
+    optimizer; the model is ``model_module.build_model(cfg)`` when a
+    configuration's own module is given, else ``MaskRCNN``."""
     cfg = Cfg(cfg)
     # float32 means float32 (no TF32), and cuDNN's deterministic algorithms
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -106,7 +120,8 @@ def build(cfg: dict, device, weights: dict | None = None, fp8: bool = False):
     torch.backends.cudnn.benchmark = False
     torch.backends.cudnn.deterministic = True
     with torch.device(device):
-        model = MaskRCNN(**model_kwargs(cfg))
+        model = (MaskRCNN(**model_kwargs(cfg)) if model_module is None
+                 else model_module.build_model(cfg))
     if weights is not None:
         model.load_state_dict({k: v.to(device) for k, v in weights.items()})
     if fp8:
@@ -161,7 +176,7 @@ def _trainable(model, opt) -> dict:
 
 
 def run_tta(cfg: dict, split: str, device, weights: dict, steps: int, fp8: bool = False,
-            follow: dict | None = None, counter=None, alter=None) -> dict:
+            follow: dict | None = None, counter=None, alter=None, model_module=None) -> dict:
     """The first ``steps`` TTA steps of the eval-only pass over ``split``,
     then inference and paste on its first batch, as the program's
     ``BaselineTrainer.test`` runs them.  Returns each step's loss and
@@ -170,12 +185,13 @@ def run_tta(cfg: dict, split: str, device, weights: dict, steps: int, fp8: bool 
     and the first batch's pasted detections.  With ``follow`` (another run's
     result) each step imposes that run's decisions.  ``counter`` (a dispatch mode
     factory) is entered around the first step and the inference pass;
-    ``alter`` plants a fault in each GA-GM solution (``decisions.py``)."""
+    ``alter`` plants a fault in each GA-GM solution (``decisions.py``);
+    ``model_module`` is the configuration's own reference model (:func:`build`)."""
     from decisions import Decisions
     from reference.graph import mgm as ref_mgm
 
     c = Cfg(cfg)
-    model, opt = build(cfg, device, weights, fp8)
+    model, opt = build(cfg, device, weights, fp8, model_module)
     step = make_tta_step(model, opt)
     geo = geometry(c)
     params = _trainable(model, opt)
@@ -224,7 +240,7 @@ def run_tta(cfg: dict, split: str, device, weights: dict, steps: int, fp8: bool 
 
 def run_source(cfg: dict, datasets, device, weights: dict, steps: int, seed: int,
                fp8: bool = False, follow: dict | None = None, counter=None,
-               alter=None) -> dict:
+               alter=None, model_module=None) -> dict:
     """The first ``steps`` source steps from the loader seeded with ``seed``
     and the sampling generator on ``device`` seeded with it (the port's
     ``BaselineTrainer.train`` in one process).  Returns each step's total
@@ -234,14 +250,15 @@ def run_source(cfg: dict, datasets, device, weights: dict, steps: int, seed: int
     (momentum after one step) and the trainable parameters after the third
     step.  With ``follow`` each step imposes that run's proposals and HiPPI
     targets;
-    ``alter`` plants a fault at a choice point."""
+    ``alter`` plants a fault at a choice point; ``model_module`` is the
+    configuration's own reference model (:func:`build`)."""
     from decisions import Decisions
     from reference.graph import solvers as ref_solvers
     from reference.graph import universe as ref_universe
     from reference.models import rcnn as ref_rcnn
 
     c = Cfg(cfg)
-    model, opt = build(cfg, device, weights, fp8)
+    model, opt = build(cfg, device, weights, fp8, model_module)
     step = make_source_step(model, opt)
     geo = geometry(c)
     params = _trainable(model, opt)

@@ -245,6 +245,7 @@ def test_benchmark_json_names_existing_files_and_limits():
         spec = harness.Spec(w["name"])
         assert spec.limits["limits"], w["name"]
         assert os.path.exists(os.path.join(BENCH, "jobs", spec.job + ".py"))
+        assert all(f is None or os.path.isfile(f) for f in (spec.reference_model, spec.captures))
         assert "setup_s" in {m["name"] for m in spec.end_to_end}
         moved = {m["moves"] for m in spec.per_layer}
         assert moved <= {m["name"] for m in spec.end_to_end}

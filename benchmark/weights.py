@@ -16,6 +16,12 @@ norms at identity with each ResNet block's last norm scaled to 0.1.  One
 dtype the parameters are kept and served in.  The leaves and their shapes
 come from the reference's model (``reference/``), built on the device; both
 the program and the reference load the result.
+
+A configuration's own reference model (``reference/cell.py``) may bring
+rules for its leaves (``init_rules(model)``, in :func:`_plan`'s format):
+they are applied over these, for the leaves these leave without a rule
+(bare parameters, such as a position embedding) and for those the module
+names.  The leaves keep their order and share the one draw.
 """
 
 from __future__ import annotations
@@ -34,8 +40,9 @@ FIXED_STD = (("rpn_head.conv.weight", 0.01), ("rpn_head.objectness_logits.weight
 TRUNC = 0.87962566103423978
 
 
-def _plan(model: nn.Module) -> dict:
-    """``{parameter name: ("normal", std, mean, clamp) or ("fill", value)}``."""
+def _plan(model: nn.Module, rules: dict | None = None) -> dict:
+    """``{parameter name: ("normal", std, mean, clamp) or ("fill", value)}``,
+    with ``rules`` (the same format) over the rules by module type."""
     from reference.graph.gcn import GraphConvolution
 
     plan = {}
@@ -61,22 +68,27 @@ def _plan(model: nn.Module) -> dict:
         elif isinstance(mod, GraphConvolution):
             plan[pre + "weight"] = ("normal", 0.02, 0.0, None)
             plan[pre + "bias"] = ("fill", 0.0)
+    params = dict(model.named_parameters())
     U = "multi_matching_sup.U"
-    univ = dict(model.named_parameters())[U].shape[0]
-    plan[U] = ("normal", 1.0, 1.0 / univ, None)
-    missing = [n for n, _ in model.named_parameters() if n not in plan]
+    plan[U] = ("normal", 1.0, 1.0 / params[U].shape[0], None)
+    unknown = sorted(set(rules or ()) - set(params))
+    if unknown:
+        raise ValueError(f"init rules for leaves the model does not have: {unknown[:5]}")
+    plan.update(rules or {})
+    missing = [n for n in params if n not in plan]
     if missing:
         raise ValueError(f"no init rule for {missing[:5]}")
     return plan
 
 
 @torch.no_grad()
-def make_weights(model: nn.Module, seed: int) -> dict:
+def make_weights(model: nn.Module, seed: int, rules: dict | None = None) -> dict:
     """The state dict of ``model`` (on its device) with every parameter drawn
-    from ``seed`` in one ``randn`` call, and its buffers as the model built
-    them but for the ResNet blocks' last norms (0.1)."""
+    from ``seed`` in one ``randn`` call, by :func:`_plan` with ``rules``, and
+    its buffers as the model built them but for the ResNet blocks' last
+    norms (0.1)."""
     params = dict(model.named_parameters())
-    plan = _plan(model)
+    plan = _plan(model, rules)
     dev = next(model.parameters()).device
     drawn = [n for n in params if plan[n][0] == "normal"]
     total = sum(params[n].numel() for n in drawn)
