@@ -221,7 +221,15 @@ Phases, each of which exits non-zero when it fails:
    cell's shape (100 masks of 28 x 28 on 800 x 800): bit for bit the JAX
    package's NumPy paste on float32 and bfloat16 probabilities and at a
    width of 1944, one launch a call, its time against its bound (the bytes
-   it writes) and against the plain version's.
+   it writes) and against the plain version's;
+18. kernel F (``phase_vit_attention``, ``csrc/vit_attention.cu``), the
+   ViTDet attention with decomposed relative positions, at the ViTDet-B
+   cell's shapes (windows of 196 tokens, the global 4,096): forward and
+   backward against the plain version, bit for bit over two runs, three
+   launches, the global shape's memory against one score matrix, and the
+   forward's (wrapper's and bare launch's) and backward's times against
+   their bounds, beside the plain version's and PyTorch's
+   ``scaled_dot_product_attention`` with the bias as a mask.
 
 TF32 is off for convolutions and matrix products throughout (parity
 setting; the end-to-end times are taken with it off), and cuDNN runs its
@@ -4913,6 +4921,146 @@ def phase_paste(torch, dev, K: int = 100, M: int = 28, H: int = 800, W: int = 80
     return res
 
 
+def vit_attention_work(BH: int, N: int, Kh: int, Kw: int, backward: bool):
+    """Bytes and operations kernel F's forward (or backward) needs at a
+    shape: FLOPs of the two products the result needs, 4 BH N^2 64 forward
+    and 8 BH N^2 64 backward (no recomputation counted); q, k, v, o (and
+    backward dO, dq, dk, dv) in bf16, the log-sum-exp, rel_h and rel_w (and
+    their gradients) in float32, each once."""
+    d = 64
+    flops = (8.0 if backward else 4.0) * BH * N * N * d
+    tensors = 8 if backward else 4
+    rel = BH * N * (Kh + Kw) * 4 * (2 if backward else 1)
+    return tensors * BH * N * d * 2 + BH * N * 4 + rel, flops
+
+
+def vit_attention_bound_ms(BH: int, N: int, Kh: int, Kw: int, backward: bool):
+    """The least time of :func:`vit_attention_work` on the H100: bytes at
+    3.35 TB/s, FLOPs on the bf16 tensor cores at 989 TFLOP/s."""
+    nbytes, flops = vit_attention_work(BH, N, Kh, Kw, backward)
+    t_bytes, t_ops = nbytes / 3.35e12 * 1e3, flops / 989e12 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+#: kernel F's shapes on the ViTDet-B cell's path (TEST.BATCH 4): the
+#: windowed blocks' 4 images x 25 windows x 12 heads of 196 tokens (14 x 14),
+#: the global blocks' 4 x 12 slices of 4,096 tokens (64 x 64)
+VIT_ATTN_SHAPES = {"window": (1200, 196, 14, 14), "global": (48, 4096, 64, 64)}
+
+
+def vit_attention_inputs(torch, dev, BH: int, N: int, Kh: int, Kw: int, seed: int = 0):
+    """Seeded inputs of kernel F: q, k, v bf16 N(0, 1) (scores of unit
+    spread at the scale 1/8), rel_h and rel_w float32 N(0, 0.5^2), and an
+    output gradient bf16 N(0, 1)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    q, k, v = rnd(BH, N, 64), rnd(BH, N, 64), rnd(BH, N, 64)
+    rh = rnd(BH, N, Kh, std=0.5, dtype=torch.float32)
+    rw = rnd(BH, N, Kw, std=0.5, dtype=torch.float32)
+    return q, k, v, rh, rw, rnd(BH, N, 64)
+
+
+def vit_attention_errors(torch, got: dict, want: dict) -> dict:
+    """Each output's largest gap over the reference's largest magnitude."""
+    return {k: float((got[k].float() - want[k].float()).abs().max()
+                     / want[k].float().abs().max().clamp(min=1e-30)) for k in want}
+
+
+def vit_attention_run(torch, fn, q, k, v, rh, rw, grad, scale: float) -> dict:
+    """``fn``'s output and the gradients into its five inputs."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, rh, rw)]
+    out = fn(*leaves, scale)
+    out.backward(grad)
+    return dict(zip(("out", "dq", "dk", "dv", "drel_h", "drel_w"),
+                    [out.detach()] + [t.grad for t in leaves]))
+
+
+def phase_vit_attention(torch, dev, shapes=None, reps: int = 20) -> dict:
+    """Kernel F (``csrc/vit_attention.cu``) at the ViTDet-B cell's shapes
+    (:data:`VIT_ATTN_SHAPES`): forward and backward against the plain
+    version on the same bf16 inputs (each output's largest gap over its
+    largest magnitude), two runs bit for bit, one launch a forward and two
+    a backward, the peak memory of a forward and backward above its inputs
+    against one ``BH x N x N`` float32 score matrix (at the global shape,
+    where the scores would dwarf the inputs), and the times (CUDA
+    events over ``reps`` calls) of the wrapper's forward, the bare forward
+    launch and the backward against their bounds
+    (:func:`vit_attention_bound_ms`), beside the plain version's and, as a
+    yardstick, PyTorch's ``scaled_dot_product_attention`` with the bias as
+    a materialised mask (forward only)."""
+    from ttdg_mgm_torch.ops import _cuda
+    from ttdg_mgm_torch.ops.vit_attention import VitAttention, vit_attention, vit_attention_plain
+
+    out = {}
+    for name, (BH, N, Kh, Kw) in (shapes or VIT_ATTN_SHAPES).items():
+        scale = 64 ** -0.5
+        q, k, v, rh, rw, grad = vit_attention_inputs(torch, dev, BH, N, Kh, Kw)
+        before = VitAttention.launches
+        got = vit_attention_run(torch, vit_attention, q, k, v, rh, rw, grad, scale)
+        _sync(torch, dev)
+        launches = VitAttention.launches - before
+        check(launches == 3, f"vit attention {name}: {launches} launches for a forward and "
+                             "backward, not 3")
+        again = vit_attention_run(torch, vit_attention, q, k, v, rh, rw, grad, scale)
+        same = all(torch.equal(got[key], again[key]) for key in got)
+        check(same, f"vit attention {name}: two runs differ")
+        want = vit_attention_run(torch, vit_attention_plain, q, k, v, rh, rw, grad, scale)
+        err = vit_attention_errors(torch, got, want)
+        del want, again
+        torch.cuda.empty_cache()
+        _sync(torch, dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        vit_attention_run(torch, vit_attention, q, k, v, rh, rw, grad, scale)
+        _sync(torch, dev)
+        extra = torch.cuda.max_memory_allocated(dev) - base
+        scores = BH * N * N * 4
+        check(N < 1024 or extra < scores / 4, f"vit attention {name}: {extra} bytes above "
+                                              f"the inputs, against {scores} of one score "
+                                              "matrix")
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, rh, rw)]
+        fwd_ms = event_ms(torch, lambda: vit_attention(q, k, v, rh, rw, scale), reps)
+        o = torch.empty_like(q)
+        lse = torch.empty((BH, N), dtype=torch.float32, device=dev)
+        lib, stream = _cuda.lib(), _cuda.stream_ptr(dev)
+
+        def bare():
+            return lib.ttdg_vit_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), rh.data_ptr(),
+                                         rw.data_ptr(), BH, N, Kh, Kw, scale, o.data_ptr(),
+                                         lse.data_ptr(), stream)
+
+        _cuda.check(bare(), "vit attention forward kernel")
+        bare_ms = event_ms(torch, bare, reps)
+        fb = vit_attention(*leaves, scale)
+        bwd_ms = event_ms(torch, lambda: torch.autograd.grad(fb, leaves, grad, retain_graph=True),
+                          reps)
+        plain_ms = host_ms(torch, lambda: vit_attention_run(
+            torch, vit_attention_plain, q, k, v, rh, rw, grad, scale))
+        bias = (rh[..., :, None] + rw[..., None, :]).reshape(BH, N, N).to(torch.bfloat16)
+        lib_ms = event_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias, scale=scale), reps)
+        del bias, fb, leaves
+        torch.cuda.empty_cache()
+        f_bound, f_by = vit_attention_bound_ms(BH, N, Kh, Kw, False)
+        b_bound, b_by = vit_attention_bound_ms(BH, N, Kh, Kw, True)
+        res = dict(shape=[BH, N, 64, Kh, Kw], ms=fwd_ms, kernel_only_ms=bare_ms, bwd_ms=bwd_ms,
+                   bound_ms=f_bound, bound_by=f_by, bwd_bound_ms=b_bound, bwd_bound_by=b_by,
+                   roofline_pct=100 * f_bound / bare_ms, bwd_roofline_pct=100 * b_bound / bwd_ms,
+                   plain_fwd_bwd_ms=plain_ms, library_ms=lib_ms, max_rel_err=err,
+                   peak_extra_bytes=int(extra), score_matrix_bytes=scores)
+        log(f"vit attention {name} {res['shape']}: forward {fwd_ms:.4f} ms ({bare_ms:.4f} bare), "
+            f"bound {f_bound:.4f} by {f_by} ({res['roofline_pct']:.1f} %); backward "
+            f"{bwd_ms:.4f} ms, bound {b_bound:.4f} by {b_by} ({res['bwd_roofline_pct']:.1f} %); "
+            f"plain forward and backward {plain_ms:.1f} ms; SDPA with a mask {lib_ms:.4f} ms; "
+            f"errors {json.dumps(err)}; {extra} bytes above the inputs (one score matrix "
+            f"{scores}); bit for bit over two runs")
+        out[name] = res
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5004,6 +5152,8 @@ def main() -> int:
     done(16)
     paste = phase_paste(torch, dev)
     done(17)
+    vit = phase_vit_attention(torch, dev)
+    done(18)
     if "--warm" in argv:
         phase_warm(torch, dev)
 
@@ -5105,6 +5255,13 @@ def main() -> int:
              **{k: paste[k] for k in ("ms", "kernel_only_ms", "plain_ms", "bound_ms", "bound_by",
                                       "shape", "window_share", "mismatches")},
              library_ms=None),
+        dict(name="vit_attention", route="cuda", source="ttdg_mgm_torch/csrc/vit_attention.cu",
+             replaces=None, max_rel_err={k: v["max_rel_err"] for k, v in vit.items()},
+             **{k: vit["global"][k] for k in ("ms", "kernel_only_ms", "bwd_ms", "bound_ms",
+                                              "bound_by", "bwd_bound_ms", "shape", "library_ms")},
+             window={k: vit["window"][k] for k in ("ms", "kernel_only_ms", "bwd_ms", "bound_ms",
+                                                   "bwd_bound_ms", "shape", "library_ms")},
+             plain_ms=vit["global"]["plain_fwd_bwd_ms"]),
     ]
     e2e_keys = ("step_ms", "steady_ms", "images_per_s", "losses", "infer_ms", "peak_gib")
     src_keys = ("batch", "step_ms", "steady_ms", "images_per_s", "total_loss", "peak_gib")

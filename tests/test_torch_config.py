@@ -118,7 +118,10 @@ def test_model_fields_match_jax_build_model(path):
     defaults = {k: p.default for k, p in inspect.signature(MaskRCNN.__init__).parameters.items()
                 if p.default is not inspect.Parameter.empty}
     fields = [f for f in jm.__dataclass_fields__ if f not in ("parent", "name")]
-    assert set(kw) <= set(fields)
+    assert set(kw) - set(tbuild.PORT_FIELDS) <= set(fields)
+    # the port's own fields (ViTDet's) are the model's defaults for these configs
+    for f in set(kw) & set(tbuild.PORT_FIELDS):
+        assert kw[f] == defaults[f], f
     for f in fields:
         want = getattr(jm, f)
         got = kw.get(f, defaults[f])

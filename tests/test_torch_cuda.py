@@ -27,7 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import paste_boxes, paste_masks_np
+from chip_smoke import (VIT_ATTN_SHAPES, paste_boxes, paste_masks_np, vit_attention_errors,
+                        vit_attention_inputs, vit_attention_run)
 from ttdg_mgm_torch.graph.solvers import _project_blocks, ga_gm
 from ttdg_mgm_torch.ops.lap import lap_slots_to_nodes
 from ttdg_mgm_torch.ops import _cuda
@@ -40,6 +41,7 @@ from ttdg_mgm_torch.ops.roi_pool import (multilevel_roi_pool, multilevel_roi_poo
                                          multilevel_roi_pool_train, roi_footprints_device,
                                          roi_geometry_device)
 from ttdg_mgm_torch.ops.sinkhorn import sinkhorn, sinkhorn_batched
+from ttdg_mgm_torch.ops.vit_attention import VitAttention, vit_attention, vit_attention_plain
 from ttdg_mgm_torch.synth import planted_matching_problem
 
 pytestmark = pytest.mark.cuda
@@ -340,3 +342,92 @@ def test_paste_masks_kernel_no_boxes(dev):
                       800, 800)
     assert paste_masks.launches == before
     assert got.dtype == torch.uint8 and tuple(got.shape) == (0, 800, 800) and got.is_cuda
+
+
+@pytest.mark.parametrize("shape", sorted(VIT_ATTN_SHAPES))
+def test_vit_attention_kernel_matches_plain(dev, shape):
+    """Kernel F against its plain version on the same bf16 inputs, at the
+    ViTDet-B cell's shapes: the windowed blocks' (4 x 25 x 12, 196, 64) with
+    a 14 x 14 grid and the global blocks' (4 x 12, 4096, 64) with 64 x 64.
+    Each output's largest gap over its largest magnitude: the output and
+    dq, dk, dv within 2e-2 (the kernel rounds the probabilities and dS to
+    bf16 for the tensor cores, 2^-9 each, and its outputs to bf16); the bias
+    gradients, summed from the float32 dS, within 1e-2 (dS takes delta =
+    dO . o from the bf16-rounded output, 2^-9 of each term).  Two runs give
+    the same bits (no atomics), a forward is one launch and a backward two,
+    and at the global shape a forward and backward hold under a quarter of
+    one float32 score matrix above their inputs (0.38 GB measured: the
+    inputs' copies, the outputs and the gradients; dense attention would
+    hold 3.2 GB of scores and as much of probabilities)."""
+    BH, N, Kh, Kw = VIT_ATTN_SHAPES[shape]
+    scale = 64 ** -0.5
+    q, k, v, rh, rw, grad = vit_attention_inputs(torch, dev, BH, N, Kh, Kw, seed=3)
+    before = VitAttention.launches
+    got = vit_attention_run(torch, vit_attention, q, k, v, rh, rw, grad, scale)
+    torch.cuda.synchronize()
+    assert VitAttention.launches == before + 3
+    again = vit_attention_run(torch, vit_attention, q, k, v, rh, rw, grad, scale)
+    assert all(torch.equal(got[key], again[key]) for key in got)
+    assert all(t.dtype == (torch.float32 if key.startswith("drel") else torch.bfloat16)
+               for key, t in got.items())
+    want = vit_attention_run(torch, vit_attention_plain, q, k, v, rh, rw, grad, scale)
+    err = vit_attention_errors(torch, got, want)
+    print(f"vit attention {shape} errors: {err}")
+    for key, e in err.items():
+        assert e <= (1e-2 if key.startswith("drel") else 2e-2), (key, e)
+    del want, again
+    if N < 1024:
+        return
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    vit_attention_run(torch, vit_attention, q, k, v, rh, rw, grad, scale)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated(dev) - base < BH * N * N * 4 / 4
+
+
+def test_vit_attention_kernel_refuses_what_it_does_not_take(dev):
+    """A float32 ``q`` or a head size other than 64 raises before a launch."""
+    q, k, v, rh, rw, _ = vit_attention_inputs(torch, dev, 2, 16, 4, 4)
+    before = VitAttention.launches
+    with pytest.raises(ValueError, match="bfloat16"):
+        vit_attention(q.float(), k, v, rh, rw, 0.125)
+    with pytest.raises(ValueError, match="head size"):
+        vit_attention(q[..., :32], k[..., :32], v[..., :32], rh, rw, 0.125)
+    assert VitAttention.launches == before
+
+
+def test_vit_attention_counters(dev):
+    """With the tracer on, a forward and backward through kernel F count its
+    launches and the query tokens of each direction, windows (N < 1024) and
+    global slices apart: the forward's on the spans open around it, the
+    backward's on the span ``vit_attention.backward`` it opens (in
+    autograd's device thread)."""
+    from ttdg_mgm_torch.utils import profiling
+
+    profiling.drain()
+    profiling.enable()
+    try:
+        with profiling.span("probe"):
+            for BH, N, K in ((6, 196, 14), (2, 1024, 32)):
+                q, k, v, rh, rw, grad = vit_attention_inputs(torch, dev, BH, N, K, K)
+                vit_attention_run(torch, vit_attention, q, k, v, rh, rw, grad, 0.125)
+            torch.cuda.synchronize()
+    finally:
+        profiling.disable()
+    spans = profiling.drain()
+    (probe,) = [s for s in spans if s["name"] == "probe"]
+    back = [s for s in spans if s["name"] == "vit_attention.backward"]
+    assert len(back) == 2
+    c = probe["counts"]
+    assert c["vit_attention.launches"] == 2
+    assert c["vit_attention.tokens.window.forward"] == 6 * 196
+    assert c["vit_attention.tokens.global.forward"] == 2 * 1024
+    b = {}
+    for s in back:
+        for key, n in s["counts"].items():
+            b[key] = b.get(key, 0) + n
+    want = {"vit_attention.launches": 4, "vit_attention.tokens.window.backward": 6 * 196,
+            "vit_attention.tokens.global.backward": 2 * 1024}
+    assert {key: b.get(key) for key in want} == want

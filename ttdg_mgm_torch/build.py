@@ -10,7 +10,11 @@ and test geometry: ``SEMISUPNET.Trainer`` ``"baseline"`` builds
 ``engine/trainer.py:BaselineTrainer``, ``"ateacher"`` (the default)
 ``engine/mean_teacher.py:ATeacherTrainer`` (with its cross-domain head
 under ``SEMISUPNET.CROSS_DOMAIN_MATCHING``).  A ``MODEL.BACKBONE.NAME``
-containing ``"vgg"`` builds the VGG-16-BN trunk (``backbone_name="vgg16"``).
+containing ``"vgg"`` builds the VGG-16-BN trunk (``backbone_name="vgg16"``),
+one containing ``"vit"`` (``build_vit_backbone``) ViTDet's plain ViT under
+its simple feature pyramid (``backbone_name="vit"``, from the port's keys
+``MODEL.VIT.*``, ``config.py:PORT_DEFAULTS``), whose test images lie on
+its ``SQUARE_PAD`` square canvas, as its training images do.
 ``SOLVER.AMP.ENABLED`` or
 ``TPU.PRECISION bfloat16`` (the default) selects the bf16 compute policy,
 ``compute_dtype="bfloat16"``, as ``ttdg_mgm_tpu/build.py`` does.
@@ -40,7 +44,7 @@ import os
 import torch
 
 from ttdg_mgm_torch import resolve_device
-from ttdg_mgm_torch.config import CfgNode
+from ttdg_mgm_torch.config import CfgNode, port_value
 from ttdg_mgm_torch.models.rcnn import MaskRCNN, init_weights
 from ttdg_mgm_torch.solver.build import (build_optimizer, warmup_cosine_schedule,
                                          warmup_multistep_schedule, warmup_two_stage_schedule)
@@ -66,14 +70,50 @@ FLAGSHIP_KWARGS = dict(
 #: the JAX trainer (``engine/trainer.py:196``)
 SOURCE_SOLVER = dict(ims_per_batch=8, base_lr=0.0025, mask_res=256)
 
+def backbone_name(cfg: CfgNode) -> str:
+    """``"vit"``, ``"vgg16"`` or ``"resnet50"`` from ``MODEL.BACKBONE.NAME``."""
+    name = cfg.MODEL.BACKBONE.NAME
+    return "vit" if "vit" in name else "vgg16" if "vgg" in name else "resnet50"
+
+
+#: the model's fields that the port's keys (``config.py:PORT_DEFAULTS``) and
+#: ``ROI_BOX_HEAD``'s conv keys set; the JAX package's model has none of them
+PORT_FIELDS = ("vit", "fpn_norm", "rpn_num_convs", "box_num_conv", "box_conv_dim", "box_norm",
+               "mask_norm")
+
+
+def rpn_num_convs(cfg: CfgNode) -> int:
+    """The RPN head's conv count from ``MODEL.RPN.CONV_DIMS``, whose entries
+    are each -1 (a conv as wide as its input, detectron2's only use)."""
+    dims = port_value(cfg, "MODEL.RPN.CONV_DIMS")
+    if not dims or any(d != -1 for d in dims):
+        raise ValueError(f"MODEL.RPN.CONV_DIMS {list(dims)}: each entry must be -1 "
+                         "(a conv as wide as its input)")
+    return len(dims)
+
+
+def vit_kwargs(cfg: CfgNode) -> dict:
+    """The ViT trunk's fields and its square canvas from ``MODEL.VIT``."""
+    def v(key):
+        return port_value(cfg, "MODEL.VIT." + key)
+
+    return dict(embed_dim=v("EMBED_DIM"), depth=v("DEPTH"), num_heads=v("NUM_HEADS"),
+                mlp_ratio=float(v("MLP_RATIO")), patch_size=v("PATCH_SIZE"),
+                window_size=v("WINDOW_SIZE"),
+                window_block_indexes=tuple(v("WINDOW_BLOCK_INDEXES")),
+                pretrain_img_size=v("PRETRAIN_IMG_SIZE"),
+                drop_path_rate=float(v("DROP_PATH_RATE")), square_pad=v("SQUARE_PAD"))
+
+
 def model_kwargs(cfg: CfgNode) -> dict:
     """The model's fields from ``cfg``, as ``ttdg_mgm_tpu/build.py:build_model``
-    maps them: the VGG-16-BN trunk when ``MODEL.BACKBONE.NAME`` contains
-    ``"vgg"`` (``build_vgg_backbone``), else the ResNet of
-    ``MODEL.RESNETS.DEPTH``; bf16 compute when ``SOLVER.AMP.ENABLED`` or
-    ``TPU.PRECISION == "bfloat16"``."""
+    maps them: the trunk of :func:`backbone_name`, the ResNet of
+    ``MODEL.RESNETS.DEPTH`` unless named otherwise; bf16 compute when
+    ``SOLVER.AMP.ENABLED`` or ``TPU.PRECISION == "bfloat16"``.  The port's
+    fields follow: ``vit`` (:func:`vit_kwargs`) for a ViT, and the pyramid's
+    and heads' norms and conv counts (:data:`PORT_FIELDS`)."""
     g = cfg.MODEL.GRAPH
-    return dict(
+    kw = dict(
         num_classes=cfg.MODEL.ROI_HEADS.NUM_CLASSES,
         univ_size=g.UNIV_SIZE,
         sample_dist=g.SAMPLE_DIST,
@@ -87,7 +127,7 @@ def model_kwargs(cfg: CfgNode) -> dict:
         post_nms_topk=cfg.MODEL.RPN.POST_NMS_TOPK_TEST,
         detections_per_image=cfg.TEST.DETECTIONS_PER_IMAGE,
         batch_size_per_image=cfg.MODEL.ROI_HEADS.BATCH_SIZE_PER_IMAGE,
-        backbone_name="vgg16" if "vgg" in cfg.MODEL.BACKBONE.NAME else "resnet50",
+        backbone_name=backbone_name(cfg),
         resnet_depth=cfg.MODEL.RESNETS.DEPTH,
         freeze_at=cfg.MODEL.BACKBONE.FREEZE_AT,
         mask_on=cfg.MODEL.MASK_ON,
@@ -110,6 +150,14 @@ def model_kwargs(cfg: CfgNode) -> dict:
         compute_dtype=("bfloat16" if cfg.SOLVER.AMP.ENABLED or cfg.TPU.PRECISION == "bfloat16"
                        else "float32"),
     )
+    if kw["backbone_name"] == "vit":
+        kw["vit"] = vit_kwargs(cfg)
+    box = cfg.MODEL.ROI_BOX_HEAD
+    kw.update(fpn_norm=port_value(cfg, "MODEL.FPN.NORM"), rpn_num_convs=rpn_num_convs(cfg),
+              box_num_conv=box.NUM_CONV, box_conv_dim=box.CONV_DIM,
+              box_norm=port_value(cfg, "MODEL.ROI_BOX_HEAD.NORM"),
+              mask_norm=port_value(cfg, "MODEL.ROI_MASK_HEAD.NORM"))
+    return kw
 
 
 def build_model(*, device=None, seed: int = 0, **overrides) -> MaskRCNN:
@@ -247,6 +295,8 @@ def build_trainer(cfg: CfgNode, *, device=None, seed: int = 0):
             max_size=cfg.INPUT.MAX_SIZE_TEST, gt_cap=cfg.TPU.MAX_GT_PER_IMAGE,
             train_min_sizes=(tuple(train_sizes) if cfg.INPUT.MIN_SIZE_TRAIN_SAMPLING == "choice"
                              and train_sizes else None))
+        if backbone_name(cfg) == "vit":
+            common["test_canvas"] = port_value(cfg, "MODEL.VIT.SQUARE_PAD")
         if ss.Trainer == "ateacher":
             sup = cfg.DATALOADER.SUP_PERCENT
             return ATeacherTrainer(

@@ -416,6 +416,38 @@ def get_cfg() -> CfgNode:
     return c
 
 
+#: Keys of the port alone, detectron2's names where it has them, with their
+#: defaults: ViTDet's trunk (``MODEL.VIT``; ``DROP_PATH_RATE`` must stay 0.0,
+#: stochastic depth is not implemented; relative positions are always on) and
+#: the norms and conv counts of its pyramid and heads (``RPN.CONV_DIMS``: -1
+#: entries, one a conv).  They are kept out of :func:`get_cfg`, whose tree is the
+#: JAX package's key for key; a configuration sets them like any key, and
+#: :func:`port_value` reads them with these defaults, which build the ResNet
+#: and VGG models as they were.
+PORT_DEFAULTS = {
+    "MODEL.VIT.EMBED_DIM": 768,
+    "MODEL.VIT.DEPTH": 12,
+    "MODEL.VIT.NUM_HEADS": 12,
+    "MODEL.VIT.MLP_RATIO": 4.0,
+    "MODEL.VIT.PATCH_SIZE": 16,
+    "MODEL.VIT.WINDOW_SIZE": 14,
+    "MODEL.VIT.WINDOW_BLOCK_INDEXES": [0, 1, 3, 4, 6, 7, 9, 10],
+    "MODEL.VIT.PRETRAIN_IMG_SIZE": 224,
+    "MODEL.VIT.DROP_PATH_RATE": 0.0,
+    "MODEL.VIT.SQUARE_PAD": 1024,
+    "MODEL.FPN.NORM": "",
+    "MODEL.RPN.CONV_DIMS": [-1],
+    "MODEL.ROI_BOX_HEAD.NORM": "",
+    "MODEL.ROI_MASK_HEAD.NORM": "",
+}
+
+
+def port_value(cfg: CfgNode, dotted: str) -> Any:
+    """The value of a key of :data:`PORT_DEFAULTS` in ``cfg``, or its
+    default."""
+    return cfg.get_path(dotted, PORT_DEFAULTS[dotted])
+
+
 def setup_cfg(config_file: str | None = None, opts: list | None = None) -> CfgNode:
     """A frozen config from the defaults, a YAML file and overrides."""
     cfg = get_cfg()

@@ -36,6 +36,19 @@ class Conv2d(ComputeDtype, nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
 
 
+class NormConv2d(Conv2d):
+    """detectron2's ``Conv2d``: a convolution with an optional ``norm``
+    child, applied after it."""
+
+    def __init__(self, *args, norm: nn.Module | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.norm = norm
+
+    def forward(self, x):
+        x = super().forward(x)
+        return x if self.norm is None else self.norm(x)
+
+
 class ConvTranspose2d(ComputeDtype, nn.ConvTranspose2d):
     def forward(self, x):
         dt = self.compute_dtype
@@ -52,6 +65,36 @@ class Linear(ComputeDtype, nn.Linear):
         if dt is None:
             return super().forward(x)
         return F.linear(x.to(dt), self.weight.to(dt), _cast(self.bias, dt))
+
+
+class LayerNorm(ComputeDtype, nn.LayerNorm):
+    """LayerNorm over the last dimension, computed in float32 and returned in
+    the compute dtype (a flax ``LayerNorm(dtype=bfloat16)`` also takes its
+    statistics in float32)."""
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
+
+
+class LayerNorm2d(LayerNorm):
+    """detectron2's channel ``LayerNorm`` of NCHW maps (``get_norm("LN")``:
+    eps 1e-6), as :class:`LayerNorm` over the channels."""
+
+    def __init__(self, channels: int, eps: float = 1e-6):
+        super().__init__(channels, eps=eps)
+
+    def forward(self, x):
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
+def conv_norm(norm: str, channels: int) -> nn.Module | None:
+    """The norm module of a convolution (``"LN"``, or ``""`` for none)."""
+    if norm == "LN":
+        return LayerNorm2d(channels)
+    if norm:
+        raise ValueError(f"norm must be 'LN' or '', got {norm!r}")
+    return None
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype | None) -> None:

@@ -1,5 +1,6 @@
-"""Mask R-CNN with an FPN on a ResNet or VGG-16-BN trunk
-(``backbone_name``), with the multi-graph-matching losses.
+"""Mask R-CNN with an FPN on a ResNet or VGG-16-BN trunk, or ViTDet's simple
+feature pyramid on a plain ViT (``backbone_name``), with the
+multi-graph-matching losses.
 
 Counterpart of ``ttdg_mgm_tpu/models/rcnn.py:MaskRCNN`` for the eval-only
 TTA path, source training and the mean-teacher step with its cross-domain
@@ -29,6 +30,19 @@ and the cross-domain head as float32; the GT-mask crop stays float32.  The
 VGG trunk computes in float32 on the bf16-rounded input, as the JAX model's
 does (``models/vgg.py``).
 
+``backbone_name="vit"`` is ViTDet's Mask R-CNN (detectron2's
+``mask_rcnn_vitdet_b_100ep.py``): the trunk of ``models/vit.py`` under
+``fpn.py:SimpleFeaturePyramid`` (``vit``: the trunk's fields and
+``square_pad``), with ``rpn_num_convs`` 2, a box head of ``box_num_conv``
+normed convolutions before its ``box_num_fc`` dense layers and a mask head
+normed by ``mask_norm`` (``"LN"``).  Its input is padded or cut to the
+``square_pad`` square (detectron2's ``square_pad``; the loaders' canvas is
+that square, so only zero padding is cut).  The norm rule of the optimizer
+(``solver/build.py:trainable_mask``) freezes the channel LayerNorms the
+pyramid's and heads' convolutions carry as ``norm``, as it freezes the
+ResNet's frozen norms; the ViT's ``norm1``, ``norm2`` and the pyramid's
+``simfp_2.1`` train.
+
 Spans (``utils/profiling.py``) on every path through the model:
 ``step.backbone`` (trunk and FPN), ``step.proposals`` (RPN head, decode,
 top-k and NMS; the RPN losses), ``step.box_inference`` (the box head and
@@ -52,7 +66,7 @@ from ttdg_mgm_torch.graph.mgm import MGM3Unsup
 from ttdg_mgm_torch.graph.node_sampler import PrototypeComputation
 from ttdg_mgm_torch.graph.universe import USup
 from ttdg_mgm_torch.models.discriminator import FCDiscriminatorImg, grad_reverse
-from ttdg_mgm_torch.models.fpn import FPN
+from ttdg_mgm_torch.models.fpn import FPN, SimpleFeaturePyramid
 from ttdg_mgm_torch.models.layers import set_compute_dtype
 from ttdg_mgm_torch.models.resnet import STAGE_BLOCKS, ResNet
 from ttdg_mgm_torch.models.roi_heads import (BoxHead, BoxPredictor, MaskHead, compact_rows,
@@ -62,6 +76,7 @@ from ttdg_mgm_torch.models.roi_heads import (BoxHead, BoxPredictor, MaskHead, co
 from ttdg_mgm_torch.models.rpn import RPNHead, generate_proposals, level_anchors, rpn_losses
 from ttdg_mgm_torch.models.vgg import STAGE_CHANNELS as VGG_STAGE_CHANNELS
 from ttdg_mgm_torch.models.vgg import VGG16FPNBackbone
+from ttdg_mgm_torch.models.vit import ViT, init_vit_
 from ttdg_mgm_torch.ops.roi_pool import multilevel_roi_pool, multilevel_roi_pool_train
 from ttdg_mgm_torch.utils.profiling import span
 
@@ -87,9 +102,9 @@ def _bce_with_logits_mean(logits, target_value: float):
 
 
 class ProposalGenerator(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, num_convs: int = 1):
         super().__init__()
-        self.rpn_head = RPNHead(channels)
+        self.rpn_head = RPNHead(channels, num_convs=num_convs)
 
 
 class ROIHeads(nn.Module):
@@ -98,12 +113,17 @@ class ROIHeads(nn.Module):
     such parameters)."""
 
     def __init__(self, channels: int, num_classes: int, box_fc_dim: int, box_num_fc: int,
-                 mask_conv_dim: int, mask_num_conv: int, mask_on: bool = True):
+                 mask_conv_dim: int, mask_num_conv: int, mask_on: bool = True,
+                 box_num_conv: int = 0, box_conv_dim: int = 256, box_norm: str = "",
+                 mask_norm: str = ""):
         super().__init__()
-        self.box_head = BoxHead(channels, 7, box_fc_dim, box_num_fc)
-        self.box_predictor = BoxPredictor(box_fc_dim, num_classes)
-        self.mask_head = (MaskHead(channels, num_classes, mask_conv_dim, mask_num_conv)
-                          if mask_on else None)
+        self.box_head = BoxHead(channels, 7, box_fc_dim, box_num_fc, box_num_conv, box_conv_dim,
+                                box_norm)
+        self.box_predictor = BoxPredictor(
+            box_fc_dim if box_num_fc else (box_conv_dim if box_num_conv else channels) * 49,
+            num_classes)
+        self.mask_head = (MaskHead(channels, num_classes, mask_conv_dim, mask_num_conv,
+                                   mask_norm) if mask_on else None)
 
 
 class MaskRCNN(nn.Module):
@@ -124,13 +144,19 @@ class MaskRCNN(nn.Module):
                  rpn_nms_thresh: float = 0.7, pooler_sampling_ratio: int = 0,
                  fpn_channels: int = 256, box_fc_dim: int = 1024, box_num_fc: int = 2,
                  mask_conv_dim: int = 256, mask_num_conv: int = 4,
-                 anchor_sizes: Sequence = ((32,), (64,), (128,), (256,), (512,))):
+                 anchor_sizes: Sequence = ((32,), (64,), (128,), (256,), (512,)),
+                 vit: dict | None = None, fpn_norm: str = "", rpn_num_convs: int = 1,
+                 box_num_conv: int = 0, box_conv_dim: int = 256, box_norm: str = "",
+                 mask_norm: str = ""):
         super().__init__()
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got "
                              f"{compute_dtype!r}")
-        if backbone_name not in ("resnet50", "vgg16"):
-            raise ValueError(f"backbone_name must be 'resnet50' or 'vgg16', got {backbone_name!r}")
+        if backbone_name not in ("resnet50", "vgg16", "vit"):
+            raise ValueError(f"backbone_name must be 'resnet50', 'vgg16' or 'vit', got "
+                             f"{backbone_name!r}")
+        if fpn_norm and backbone_name != "vit":
+            raise ValueError(f"fpn_norm {fpn_norm!r}: the FPN of a ResNet or VGG trunk has no norm")
         self.compute_dtype = compute_dtype
         self.num_classes = num_classes
         self.univ_size = univ_size
@@ -153,15 +179,24 @@ class MaskRCNN(nn.Module):
                              persistent=False)
         self.register_buffer("pixel_std", torch.tensor(pixel_std, dtype=torch.float32),
                              persistent=False)
-        if backbone_name == "vgg16":
-            bottom_up, stage_channels = VGG16FPNBackbone(), VGG_STAGE_CHANNELS
+        self.square_pad = 0
+        stage_channels = None
+        if backbone_name == "vit":
+            vit = dict(vit or {})
+            self.square_pad = vit.pop("square_pad", 1024)
+            self.backbone = SimpleFeaturePyramid(ViT(img_size=self.square_pad, **vit),
+                                                 fpn_channels, fpn_norm)
         else:
-            bottom_up = ResNet(STAGE_BLOCKS[resnet_depth], resnet_width, freeze_at)
-            stage_channels = tuple(resnet_width * 2 ** i for i in range(4))
-        self.backbone = FPN(bottom_up, stage_channels, fpn_channels)
-        self.proposal_generator = ProposalGenerator(fpn_channels)
+            if backbone_name == "vgg16":
+                bottom_up, stage_channels = VGG16FPNBackbone(), VGG_STAGE_CHANNELS
+            else:
+                bottom_up = ResNet(STAGE_BLOCKS[resnet_depth], resnet_width, freeze_at)
+                stage_channels = tuple(resnet_width * 2 ** i for i in range(4))
+            self.backbone = FPN(bottom_up, stage_channels, fpn_channels)
+        self.proposal_generator = ProposalGenerator(fpn_channels, rpn_num_convs)
         self.roi_heads = ROIHeads(fpn_channels, num_classes, box_fc_dim, box_num_fc,
-                                  mask_conv_dim, mask_num_conv, mask_on)
+                                  mask_conv_dim, mask_num_conv, mask_on, box_num_conv,
+                                  box_conv_dim, box_norm, mask_norm)
         self.multi_matching_sup = USup(num_classes, univ_size, fpn_channels, sk_tau=sk_tau,
                                        sk_iter=sk_iters, hippi_iters=hippi_iters)
         self.multi_matching_unsup = MGM3Unsup(
@@ -169,12 +204,13 @@ class MaskRCNN(nn.Module):
             mgm_iter=gagm_iters, lap_polish_iters=lap_polish_iters)
         self.graph_generator = PrototypeComputation(num_classes, sample_dist,
                                                     node_cap_per_level)
-        if dis_type in ("res2", "res3", "res4", "res5"):
+        if dis_type in ("res2", "res3", "res4", "res5") and stage_channels is not None:
             dis_in = stage_channels[int(dis_type[3:]) - 2]
         elif dis_type in ("p2", "p3", "p4", "p5", "p6"):
             dis_in = fpn_channels
         else:
-            raise ValueError(f"dis_type must be res2..res5 or p2..p6, got {dis_type!r}")
+            raise ValueError(f"dis_type must be res2..res5 (not with a ViT) or p2..p6, got "
+                             f"{dis_type!r}")
         self.D_img = FCDiscriminatorImg(dis_in, DIS_CHANNELS.get(dis_type, fpn_channels))
         # graph node dim == FPN width; registered last, so its parameters
         # follow every other module's
@@ -191,7 +227,10 @@ class MaskRCNN(nn.Module):
 
     def _normalize(self, images):
         """NHWC images -> NCHW input in the compute dtype (JAX ``_normalize``:
-        normalised in float32, then cast)."""
+        normalised in float32, then cast); a ViT's canvas first padded with
+        zeros or cut to its ``square_pad`` square."""
+        if self.square_pad:
+            images = _square(images, self.square_pad)
         x = (images - self.pixel_mean) / self.pixel_std
         dt = COMPUTE_DTYPES[self.compute_dtype]
         if dt is not None:
@@ -406,6 +445,15 @@ class MaskRCNN(nn.Module):
                 "loss_D_img_t": _bce_with_logits_mean(out_t.float(), 1.0)}
 
 
+def _square(images, side: int):
+    """``(B, H, W, 3)`` padded with zeros, or cut, to ``(B, side, side, 3)``."""
+    H, W = images.shape[1:3]
+    images = images[:, :side, :side]
+    if H < side or W < side:
+        images = torch.nn.functional.pad(images, (0, 0, 0, max(side - W, 0), 0, max(side - H, 0)))
+    return images
+
+
 def _to_nhwc(feats):
     return {k: v.permute(0, 2, 3, 1).contiguous() for k, v in feats.items()}
 
@@ -430,7 +478,8 @@ def init_weights(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
 
     special = {}
     rh = model.proposal_generator.rpn_head
-    special[id(rh.conv.weight)] = 0.01
+    for conv in (rh.conv if isinstance(rh.conv, nn.Sequential) else [rh.conv]):
+        special[id(conv.weight)] = 0.01
     special[id(rh.objectness_logits.weight)] = 0.01
     special[id(rh.anchor_deltas.weight)] = 0.001
     bp = model.roi_heads.box_predictor
@@ -458,9 +507,12 @@ def init_weights(model: MaskRCNN, generator: torch.Generator) -> MaskRCNN:
         elif isinstance(mod, nn.LayerNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()
-    for name, mod in model.backbone.bottom_up.named_modules():
-        if name.endswith("conv3.norm"):
-            mod.weight.fill_(0.1)
+    if isinstance(model.backbone, SimpleFeaturePyramid):
+        init_vit_(model.backbone.net, generator)
+    else:
+        for name, mod in model.backbone.bottom_up.named_modules():
+            if name.endswith("conv3.norm"):
+                mod.weight.fill_(0.1)
     U = model.multi_matching_sup.U
     U.copy_(torch.randn(U.shape, generator=generator) + 1.0 / U.shape[0])
     for conv in (model.D_img.conv1, model.D_img.conv2, model.D_img.classifier):

@@ -47,16 +47,8 @@ class FrozenBatchNorm2d(layers.ComputeDtype, nn.Module):
         return x * scale[None, :, None, None] + shift[None, :, None, None]
 
 
-class Conv2d(layers.Conv2d):
-    """d2 ``Conv2d``: a convolution with an optional ``norm`` child."""
-
-    def __init__(self, *args, norm: nn.Module | None = None, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.norm = norm
-
-    def forward(self, x):
-        x = super().forward(x)
-        return x if self.norm is None else self.norm(x)
+#: d2 ``Conv2d``: a convolution with an optional ``norm`` child
+Conv2d = layers.NormConv2d
 
 
 class BottleneckBlock(nn.Module):

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ttdg_mgm_torch.models.layers import Conv2d, ConvTranspose2d, Linear
+from ttdg_mgm_torch.models.layers import Conv2d, ConvTranspose2d, Linear, NormConv2d, conv_norm
 from ttdg_mgm_torch.ops.boxes import clip_boxes, decode_boxes, encode_boxes, pairwise_iou
 from ttdg_mgm_torch.ops.nms import compact_batched_nms_mask, compact_rows, stable_topk
 from ttdg_mgm_torch.ops.roi_align import mask_roi_align
@@ -26,18 +26,30 @@ BBOX_REG_WEIGHTS = (10.0, 10.0, 5.0, 5.0)
 
 
 class BoxHead(nn.Module):
-    """FastRCNNConvFCHead: flatten -> ``num_fc`` x (fc + relu)."""
+    """FastRCNNConvFCHead: ``num_conv`` x (3x3 conv ``conv{k}``, without bias
+    and with ``norm`` when it is set, + relu), flatten, ``num_fc`` x (fc +
+    relu)."""
 
-    def __init__(self, in_channels: int, pool: int = 7, fc_dim: int = 1024, num_fc: int = 2):
+    def __init__(self, in_channels: int, pool: int = 7, fc_dim: int = 1024, num_fc: int = 2,
+                 num_conv: int = 0, conv_dim: int = 256, norm: str = ""):
         super().__init__()
         self.num_fc = num_fc
-        dim = in_channels * pool * pool
+        self.num_conv = num_conv
+        c = in_channels
+        for i in range(num_conv):
+            self.add_module(f"conv{i + 1}", NormConv2d(c, conv_dim, 3, padding=1, bias=not norm,
+                                                       norm=conv_norm(norm, conv_dim)))
+            c = conv_dim
+        dim = c * pool * pool
         for i in range(num_fc):
             self.add_module(f"fc{i + 1}", Linear(dim, fc_dim))
             dim = fc_dim
 
     def forward(self, x):  # (N, P, P, C)
-        x = x.permute(0, 3, 1, 2).reshape(x.shape[0], -1)
+        x = x.permute(0, 3, 1, 2)
+        for i in range(self.num_conv):
+            x = F.relu(getattr(self, f"conv{i + 1}")(x))
+        x = x.reshape(x.shape[0], -1)
         for i in range(self.num_fc):
             x = F.relu(getattr(self, f"fc{i + 1}")(x))
         return x
@@ -56,17 +68,19 @@ class BoxPredictor(nn.Module):
 
 
 class MaskHead(nn.Module):
-    """MaskRCNNConvUpsampleHead: ``num_conv`` x (3x3 conv + relu), 2x2
-    deconv + relu, 1x1 predictor.  ``(N, 14, 14, C)`` -> logits
-    ``(N, classes, 28, 28)``."""
+    """MaskRCNNConvUpsampleHead: ``num_conv`` x (3x3 conv + relu; without bias
+    and with ``norm`` when it is set), 2x2 deconv + relu, 1x1 predictor.
+    ``(N, 14, 14, C)`` -> logits ``(N, classes, 28, 28)``."""
 
     def __init__(self, in_channels: int, num_classes: int, channels: int = 256,
-                 num_conv: int = 4):
+                 num_conv: int = 4, norm: str = ""):
         super().__init__()
         self.num_conv = num_conv
         c = in_channels
         for i in range(num_conv):
-            self.add_module(f"mask_fcn{i + 1}", Conv2d(c, channels, 3, padding=1))
+            self.add_module(f"mask_fcn{i + 1}", NormConv2d(c, channels, 3, padding=1,
+                                                           bias=not norm,
+                                                           norm=conv_norm(norm, channels)))
             c = channels
         self.deconv = ConvTranspose2d(c, channels, 2, stride=2)
         self.predictor = Conv2d(channels, num_classes, 1)

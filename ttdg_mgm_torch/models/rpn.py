@@ -31,18 +31,32 @@ FPN_STRIDES = (4, 8, 16, 32, 64)
 class RPNHead(nn.Module):
     """Shared 3x3 conv + 1x1 objectness / 4A deltas (d2 ``StandardRPNHead``).
     Takes NCHW levels; returns NHWC ``(B, H, W, A)`` logits and
-    ``(B, H, W, 4A)`` deltas per level."""
+    ``(B, H, W, 4A)`` deltas per level.  ``num_convs`` above 1 (d2's
+    ``conv_dims`` of that length, ViTDet's 2) makes ``conv`` a sequence
+    ``conv.conv{k}``, each conv followed by a ReLU."""
 
-    def __init__(self, channels: int = 256, num_anchors: int = 3):
+    def __init__(self, channels: int = 256, num_anchors: int = 3, num_convs: int = 1):
         super().__init__()
-        self.conv = Conv2d(channels, channels, 3, padding=1)
+        if num_convs == 1:
+            self.conv = Conv2d(channels, channels, 3, padding=1)
+        else:
+            self.conv = nn.Sequential()
+            for k in range(num_convs):
+                self.conv.add_module(f"conv{k}", Conv2d(channels, channels, 3, padding=1))
         self.objectness_logits = Conv2d(channels, num_anchors, 1)
         self.anchor_deltas = Conv2d(channels, num_anchors * 4, 1)
+
+    def _convs(self, f):
+        if isinstance(self.conv, nn.Sequential):
+            for conv in self.conv:
+                f = F.relu(conv(f))
+            return f
+        return F.relu(self.conv(f))
 
     def forward(self, feats):
         logits, regs = [], []
         for f in feats:
-            t = F.relu(self.conv(f))
+            t = self._convs(f)
             logits.append(self.objectness_logits(t).permute(0, 2, 3, 1))
             regs.append(self.anchor_deltas(t).permute(0, 2, 3, 1))
         return logits, regs

@@ -135,6 +135,13 @@ def lib() -> ctypes.CDLL:
         # masks, boxes; K, M, H, W; the threshold; out, stream
         cdll.ttdg_paste_masks.argtypes = [P, P, I, I, I, I, ctypes.c_double, P, P]
         cdll.ttdg_paste_masks.restype = I
+        # q, k, v, rel_h, rel_w; BH, N, Kh, Kw; scale; out, lse, stream
+        cdll.ttdg_vit_attn_fwd.argtypes = [P] * 5 + [I] * 4 + [F, P, P, P]
+        cdll.ttdg_vit_attn_fwd.restype = I
+        # q, k, v, out, its gradient, lse, rel_h, rel_w; BH, N, Kh, Kw;
+        # scale; dq, dk, dv, drel_h, drel_w, delta, stream
+        cdll.ttdg_vit_attn_bwd.argtypes = [P] * 8 + [I] * 4 + [F] + [P] * 7
+        cdll.ttdg_vit_attn_bwd.restype = I
         _lib = cdll
     return _lib
 
